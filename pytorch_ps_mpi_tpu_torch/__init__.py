@@ -1,0 +1,32 @@
+"""PyTorch/CUDA port of the parameter-server framework.
+
+The JAX package `pytorch_ps_mpi_tpu` is the reference each part of this
+one is held against; this package imports ``torch`` and numpy, never JAX
+and nothing of the JAX package.  This slice ports the synchronous PS step
+(`MPI_PS`, `SGD`, `Adam`, `AdamW`) with the ``identity``, ``bf16`` and
+``blockq`` gradient codecs, whose codec kernels are hand-written CUDA for
+Hopper (``csrc/codec_kernels.cu``), plus the ResNet/MLP models and the
+synthetic data the step trains on.  Entry points run on ``device="cuda"``
+unless the caller asks for the CPU.
+"""
+
+from .errors import NotCompiledError, PSRuntimeError
+from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
+                         get_codec)
+from .parallel.mesh import make_ps_group
+from .ps import MPI_PS, SGD, Adam, AdamW
+
+__all__ = [
+    "MPI_PS",
+    "SGD",
+    "Adam",
+    "AdamW",
+    "make_ps_group",
+    "Codec",
+    "IdentityCodec",
+    "CastCodec",
+    "BlockQuantizeCodec",
+    "get_codec",
+    "PSRuntimeError",
+    "NotCompiledError",
+]

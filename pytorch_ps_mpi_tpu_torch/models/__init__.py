@@ -1,0 +1,70 @@
+"""Model zoo + glue to the named-parameter PS API.
+
+Counterpart of `pytorch_ps_mpi_tpu/models/__init__.py`: `build_model`
+initialises a module into flat named params plus its BatchNorm statistics
+(``aux``), and `make_classifier_loss` turns a classifier into the
+``loss_fn`` that ``MPI_PS.compile_step`` binds.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from .mlp import init_mlp, mlp_apply, mlp_loss_fn
+from .resnet import BasicBlock, ResNet, resnet18, resnet34
+
+__all__ = [
+    "BasicBlock", "ResNet", "resnet18", "resnet34",
+    "init_mlp", "mlp_apply", "mlp_loss_fn",
+    "build_model", "cross_entropy", "make_classifier_loss",
+]
+
+
+def build_model(model: torch.nn.Module, seed: int = 0):
+    """Initialise ``model`` from ``seed`` -> ``(named_params, aux)``: two
+    ordered dicts of detached CPU tensors, the parameters and the
+    BatchNorm running statistics ({} for stat-less models)."""
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    params = OrderedDict((n, p.detach().clone())
+                         for n, p in model.named_parameters())
+    aux = OrderedDict((n, b.detach().clone())
+                      for n, b in model.named_buffers())
+    return params, aux
+
+
+def cross_entropy(logits, labels_int):
+    """Mean negative log-likelihood of integer labels."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    return -logp.gather(-1, labels_int.long()[:, None]).mean()
+
+
+def make_classifier_loss(model: torch.nn.Module, *,
+                         has_aux: bool | None = None):
+    """Build the ``loss_fn`` MPI_PS consumes from a classifier module.
+
+    Returns ``(loss_fn, has_aux)``: ``loss_fn(params, batch)`` for
+    stat-less models, or ``loss_fn(params, aux, batch) -> (loss,
+    new_aux)`` when the model carries BatchNorm statistics (``has_aux``
+    defaults to whether it has buffers).  The module runs in training mode
+    through `torch.func.functional_call`, so the parameters and statistics
+    passed in are the ones used; ``aux`` is left as it is and the updated
+    statistics come back as ``new_aux``."""
+    if has_aux is None:
+        has_aux = any(True for _ in model.buffers())
+    model.train()
+
+    def loss_plain(params_named, batch):
+        logits = functional_call(model, dict(params_named), (batch["x"],))
+        return cross_entropy(logits, batch["y"])
+
+    def loss_aux(params_named, aux, batch):
+        new_aux = OrderedDict((n, t.clone()) for n, t in aux.items())
+        logits = functional_call(model, {**params_named, **new_aux},
+                                 (batch["x"],))
+        return cross_entropy(logits, batch["y"]), new_aux
+
+    return (loss_aux, True) if has_aux else (loss_plain, False)

@@ -1,0 +1,191 @@
+"""Bucketed collectives over ``torch.distributed``.
+
+Counterpart of `pytorch_ps_mpi_tpu/parallel/collectives.py` (its in-step
+tier).  The reference posts one non-blocking collective per parameter;
+the JAX package packs same-dtype leaves into flat buckets of about
+``bucket_bytes`` and runs one collective per bucket, and gives a leaf that
+amortizes a collective alone a bucket of its own.  The port keeps that
+plan verbatim (`_plan_buckets`, `_solo_default`), so its buckets equal
+the JAX package's for the same tree, and runs each bucket through NCCL
+(card) or gloo (CPU).  Packing is pure data movement: the sums are the
+same elementwise sums as the per-leaf lowering.
+
+Trees are nested dicts of tensors, flattened in JAX's leaf order
+(`utils.flatten`).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from ..utils.flatten import tree_flatten, tree_map, tree_unflatten
+
+Tree = Any
+
+DEFAULT_BUCKET_BYTES = 4 << 20  # 4 MiB: ~ICI bandwidth-delay product scale
+
+# Solo threshold as a fraction of the bucket budget: a leaf already
+# carrying bucket_bytes/16 (256 KiB at the default) amortizes a
+# collective's issue latency on its own, so packing it into a shared
+# bucket buys nothing and pays the concatenate-in / slice-out memcpy both
+# ways.
+_SOLO_DIVISOR = 16
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def _plan_buckets(leaves, bucket_bytes: int, solo_bytes: int = 0):
+    """Greedy same-dtype packing: lists of leaf indices, each list's total
+    payload <= bucket_bytes (a single oversized leaf gets its own bucket).
+    Deterministic in leaf order.
+
+    ``solo_bytes`` (0 = off, the legacy plan): leaves at or above the
+    threshold get their own bucket instead of sharing one — packing
+    exists to amortize per-collective dispatch/latency over many SMALL
+    leaves, and a leaf that already amortizes it alone only pays the
+    concat/slice memcpy for sharing.  The resulting collectives compute
+    the same elementwise sums (grouping never changes per-element
+    operand order)."""
+    by_dtype: "dict[Any, list[int]]" = {}
+    plan: list[list[int]] = []
+    for i, x in enumerate(leaves):
+        nb = _nbytes(x)
+        if solo_bytes and nb >= solo_bytes:
+            plan.append([i])
+            continue
+        by_dtype.setdefault(x.dtype, []).append(i)
+    for idxs in by_dtype.values():
+        cur: list[int] = []
+        cur_bytes = 0
+        for i in idxs:
+            nb = _nbytes(leaves[i])
+            if cur and cur_bytes + nb > bucket_bytes:
+                plan.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += nb
+        if cur:
+            plan.append(cur)
+    return plan
+
+
+# Auto-solo floor: below ~64 KiB a leaf does NOT amortize its own
+# collective/frame dispatch, so solo-ing it would multiply issue cost —
+# the exact failure packing exists to prevent.  The auto threshold
+# therefore never drops below this, however small the bucket budget.
+_SOLO_FLOOR = 64 << 10
+
+
+def _solo_default(bucket_bytes: int, solo_bytes: "int | None") -> int:
+    """Resolve the solo threshold: None = auto (bucket_bytes /
+    `_SOLO_DIVISOR`, floored at `_SOLO_FLOOR`), 0 = disabled (pack
+    everything, the legacy plan)."""
+    if solo_bytes is None:
+        return max(_SOLO_FLOOR, int(bucket_bytes) // _SOLO_DIVISOR)
+    return int(solo_bytes)
+
+
+# ---------------------------------------------------------------------------
+# One flat collective
+# ---------------------------------------------------------------------------
+
+
+def _all_reduce_flat(flat: torch.Tensor, group) -> torch.Tensor:
+    """Sum a contiguous 1-D tensor across ranks, in place."""
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return flat
+
+
+def _all_gather_flat(flat: torch.Tensor, group) -> torch.Tensor:
+    """Gather a contiguous 1-D tensor from every rank into ``(world, n)``.
+
+    A gather is pure data movement, so it moves the bytes: one path for
+    every dtype, including int16, which neither gloo nor NCCL takes."""
+    world = dist.get_world_size(group)
+    raw = flat.view(torch.int8)
+    out = torch.empty((world * raw.numel(),), dtype=torch.int8,
+                      device=flat.device)
+    _all_gather_into(out, raw, group=group)
+    return out.view(flat.dtype).view(world, flat.numel())
+
+
+# The same collective under its newer name, where PyTorch has it (the old
+# name warns there).
+_all_gather_into = getattr(dist, "all_gather_single",
+                           dist.all_gather_into_tensor)
+
+
+# ---------------------------------------------------------------------------
+# Trees
+# ---------------------------------------------------------------------------
+
+
+def _bucketed_leafwise(tree: Tree, collective, bucket_bytes: "int | None",
+                       solo_bytes: int = 0) -> Tree:
+    """Run ``collective`` (flat 1-D tensor -> tensor, possibly growing a
+    leading world dim) over dtype-bucketed concatenations of the tree's
+    leaves, then slice each leaf's segment back out of the last axis and
+    restore its shape (keeping any grown leading dim).
+    ``bucket_bytes=None``/0 runs one collective per leaf.  A leaf alone in
+    its bucket goes through as a flat view (for a reduction, in place)."""
+    leaves, treedef = tree_flatten(tree)
+    if bucket_bytes:
+        plan = _plan_buckets(leaves, bucket_bytes, solo_bytes)
+    else:
+        plan = [[i] for i in range(len(leaves))]
+    out: list[Any] = [None] * len(leaves)
+    for idxs in plan:
+        if len(idxs) == 1:
+            x = leaves[idxs[0]]
+            res = collective(x.contiguous().view(-1))
+            out[idxs[0]] = res.view(res.shape[:-1] + x.shape)
+            continue
+        flat = torch.cat([leaves[i].reshape(-1) for i in idxs])
+        res = collective(flat)
+        off = 0
+        for i in idxs:
+            n = leaves[i].numel()
+            seg = res[..., off:off + n]
+            out[i] = seg.reshape(seg.shape[:-1] + leaves[i].shape)
+            off += n
+    return tree_unflatten(treedef, out)
+
+
+def psum_tree_bucketed(tree: Tree, group=None, *,
+                       bucket_bytes: "int | None" = DEFAULT_BUCKET_BYTES,
+                       solo_bytes: "int | None" = None) -> Tree:
+    """Sum every leaf across ranks — the reference's ``sum(grads)``: a
+    **sum, not a mean** — with dtype-bucketed flat all-reduces.  A
+    contiguous leaf that goes solo is reduced in place (the PS step owns
+    its gradients); callers that need their tree intact pass a copy."""
+    solo = _solo_default(bucket_bytes, solo_bytes) if bucket_bytes else 0
+    return _bucketed_leafwise(
+        tree, lambda x: _all_reduce_flat(x, group), bucket_bytes, solo)
+
+
+def allgather_tree_bucketed(tree: Tree, group=None, *,
+                            bucket_bytes: "int | None" = DEFAULT_BUCKET_BYTES,
+                            solo_bytes: "int | None" = None) -> Tree:
+    """All-gather every leaf (untiled: leaves grow a leading world dim)
+    with dtype-bucketed flat all-gathers.  A leaf of a shared bucket comes
+    back as a strided view ``(world, *shape)`` of the gathered bucket; the
+    codec kernels read it in place."""
+    solo = _solo_default(bucket_bytes, solo_bytes) if bucket_bytes else 0
+    return _bucketed_leafwise(
+        tree, lambda x: _all_gather_flat(x, group), bucket_bytes, solo)
+
+
+def pmean_tree(tree: Tree, group=None, *,
+               bucket_bytes: "int | None" = DEFAULT_BUCKET_BYTES) -> Tree:
+    """Mean of every leaf across ranks (``psum / world``, as ``lax.pmean``
+    computes it), bucketed like `psum_tree_bucketed`; the input tree is
+    left as it is."""
+    world = dist.get_world_size(group)
+    summed = psum_tree_bucketed(tree_map(torch.clone, tree), group,
+                                bucket_bytes=bucket_bytes)
+    return tree_map(lambda x: x / world, summed)

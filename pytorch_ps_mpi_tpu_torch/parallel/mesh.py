@@ -1,0 +1,65 @@
+"""Process groups — the port's stand-in for the JAX device mesh.
+
+Counterpart of `pytorch_ps_mpi_tpu/parallel/mesh.py`.  The JAX package's
+world is a `jax.sharding.Mesh` with one ``'ps'`` axis; here it is a
+``torch.distributed`` process group with one rank per device: NCCL on the
+card, gloo on the CPU.  Rendezvous goes through a ``file://`` store, so
+parallel test runs never compete for a TCP port.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+
+import torch
+import torch.distributed as dist
+
+from ..errors import PSRuntimeError
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a `torch.device`; a CUDA device with no card visible
+    raises instead of carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise PSRuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            "visible; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def make_ps_group(device="cuda", *, rank: int = 0, world_size: int = 1,
+                  init_file: str | None = None):
+    """Join (or create) the PS process group — the ``mpirun -n N``
+    analogue.  Every rank calls it with the same ``init_file`` and
+    ``world_size``; NCCL is used for CUDA devices (rank ``r`` drives card
+    ``r`` unless ``device`` names one), gloo for the CPU.  With
+    ``init_file=None`` a fresh store file is made, which only a world of
+    one can share.  Returns the default group; if one exists already, it
+    is returned as it is."""
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        return dist.group.WORLD
+    if init_file is None:
+        if world_size != 1:
+            raise ValueError("a world of more than one rank needs a shared "
+                             "init_file")
+        init_file = os.path.join(tempfile.mkdtemp(prefix="ps_group_"),
+                                 "store")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index if dev.index is not None else rank)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world_size)
+    return dist.group.WORLD
+
+
+def world_size(group=None) -> int:
+    return dist.get_world_size(group)
+
+
+def rank(group=None) -> int:
+    return dist.get_rank(group)

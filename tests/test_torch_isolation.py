@@ -1,0 +1,103 @@
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, and
+no quiet fall back to the CPU.
+
+The name check matches the JAX package exactly or by its ``pytorch_ps_mpi_tpu.``
+prefix: the port's own name, ``pytorch_ps_mpi_tpu_torch``, starts with
+``pytorch_ps_mpi_tpu``.
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import pytorch_ps_mpi_tpu_torch as port
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "pytorch_ps_mpi_tpu_torch"
+FORBIDDEN_ROOTS = ("jax", "jaxlib", "flax")
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return (root in FORBIDDEN_ROOTS or module == "pytorch_ps_mpi_tpu"
+            or module.startswith("pytorch_ps_mpi_tpu."))
+
+
+def test_forbidden_name_check_tells_the_packages_apart():
+    assert _forbidden("pytorch_ps_mpi_tpu")
+    assert _forbidden("pytorch_ps_mpi_tpu.ops.codecs")
+    assert _forbidden("jax.numpy") and _forbidden("flax")
+    assert not _forbidden("pytorch_ps_mpi_tpu_torch")
+    assert not _forbidden("pytorch_ps_mpi_tpu_torch.ops.codecs")
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import pytorch_ps_mpi_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN_ROOTS!r} or m == 'pytorch_ps_mpi_tpu' or "
+        "m.startswith('pytorch_ps_mpi_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len([m for m in sys.modules "
+        "if m.startswith('pytorch_ps_mpi_tpu_torch')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert not _forbidden(name), f"{path}: imports {name}"
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible here")
+    with pytest.raises(port.PSRuntimeError, match="no CUDA device"):
+        port.SGD([("w", torch.zeros(3))], lr=0.1)
+    with pytest.raises(port.PSRuntimeError, match="no CUDA device"):
+        port.SGD([("w", torch.zeros(3))], lr=0.1, device="cuda")
+    with pytest.raises(port.PSRuntimeError, match="no CUDA device"):
+        port.make_ps_group("cuda")
+
+
+def test_unported_codec_raises():
+    with pytest.raises(NotImplementedError, match="not ported"):
+        port.get_codec("topk")
+
+
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
+    """No result line from the smoke script without a card, nor from a
+    directory that holds the script and nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible here")
+    for cwd in (REPO, tmp_path):
+        if cwd is tmp_path:
+            shutil.copy(REPO / "chip_smoke.py", tmp_path)
+        env = dict(os.environ, PYTHONPATH="")
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env=env)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

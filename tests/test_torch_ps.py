@@ -1,0 +1,217 @@
+"""The sync PS step of the port against the JAX package's, end to end.
+
+A 3-step SGD(lr=0.1, momentum=0.9) trajectory at world 2: the JAX `SGD` on
+the ``mesh2`` fixture (two virtual CPU devices), the port's `SGD` on two
+spawned gloo ranks, from the same initialisation and the same global
+batches:
+
+* the identity codec on `ResNet((1, 1))` (f32, 8x8 inputs), weights and
+  statistics carried across by `params_from_jax`;
+* the blockq codec on the MLP (the same numpy parameters in both).
+
+``msg_bytes``/``packaged_bytes`` must be equal exactly.  Parameters,
+statistics and losses: ``rtol=1e-4, atol=1e-5`` for the ResNet — XLA and
+PyTorch sum convolutions in other orders (a few ulps per op, see
+``tests/test_torch_models.py``) and three steps of momentum carry that
+forward; ``rtol=1e-5, atol=1e-6`` for the MLP, whose gradients differ by
+ulps only (one matmul per layer) and whose blockq codes must then come
+out the same, so the update matches to float32 rounding.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_ps_mpi_tpu import SGD as JSGD
+from pytorch_ps_mpi_tpu import models as jmodels
+from pytorch_ps_mpi_tpu_torch import SGD, Adam, AdamW, MPI_PS, NotCompiledError
+from pytorch_ps_mpi_tpu_torch import models as tmodels
+from pytorch_ps_mpi_tpu_torch.utils.interop import params_from_jax
+
+from torch_dist_helpers import run_world
+
+WORLD = 2
+STEPS = 3
+
+
+def _jax_trajectory(mesh, named, aux, loss_fn, has_aux, batches, code):
+    opt = JSGD(list(named.items()), lr=0.1, momentum=0.9, mesh=mesh,
+               code=code)
+    opt.compile_step(loss_fn, has_aux=has_aux, aux=aux)
+    losses, metrics = [], []
+    for b in batches:
+        loss, m = opt.step(b)
+        losses.append(loss)
+        metrics.append(m)
+    params = {n: np.asarray(p) for n, p in opt.params.items()}
+    return losses, metrics, params, jax.tree.map(np.asarray, opt.aux)
+
+
+def _batches(rng, shape, n_classes=10):
+    return [{"x": rng.randn(8, *shape).astype(np.float32),
+             "y": rng.randint(0, n_classes, 8).astype(np.int32)}
+            for _ in range(STEPS)]
+
+
+def _check_metrics(ours, ref):
+    for m, jm in zip(ours, ref):
+        assert m["msg_bytes"] == jm["msg_bytes"]
+        assert m["packaged_bytes"] == jm["packaged_bytes"]
+        assert set(jm) <= set(m) | {"nonfinite_skip"}
+
+
+def test_world2_resnet_identity_trajectory_matches_jax(mesh2, tmp_path):
+    jmodel = jmodels.ResNet((1, 1), num_classes=10, dtype=jnp.float32)
+    named, aux = jmodels.build_model(jmodel, (1, 8, 8, 3), seed=1)
+    named = {n: np.asarray(p) for n, p in named.items()}
+    aux = jax.tree.map(np.asarray, aux)
+    batches = _batches(np.random.RandomState(0), (8, 8, 3))
+    loss_fn, _ = jmodels.make_classifier_loss(jmodel, has_aux=True)
+    jl, jm, jp, jaux = _jax_trajectory(mesh2, named, aux, loss_fn, True,
+                                       batches, None)
+
+    tparams, taux = params_from_jax(named, aux)
+    ranks = run_world("ps_trajectory", WORLD, tmp_path, "resnet11",
+                      {n: t.numpy() for n, t in tparams.items()},
+                      {n: t.numpy() for n, t in taux.items()}, batches,
+                      None, 0.1, 0.9)
+    for r in ranks[1:]:  # replicated state: every rank holds the same
+        for n in r["params"]:
+            np.testing.assert_array_equal(r["params"][n],
+                                          ranks[0]["params"][n])
+    out = ranks[0]
+    tol = dict(rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(out["losses"], jl, **tol)
+    _check_metrics(out["metrics"], jm)
+    jp_t, jaux_t = params_from_jax(jp, jaux)
+    assert set(out["params"]) == set(jp_t)
+    for n, p in jp_t.items():
+        np.testing.assert_allclose(out["params"][n], p.numpy(), err_msg=n,
+                                   **tol)
+    for n, a in jaux_t.items():
+        np.testing.assert_allclose(out["aux"][n], a.numpy(), err_msg=n,
+                                   **tol)
+
+
+def test_world2_mlp_blockq_trajectory_matches_jax(mesh2, tmp_path):
+    named = jmodels.init_mlp(np.random.RandomState(2), (48, 32, 10))
+    batches = _batches(np.random.RandomState(3), (4, 4, 3))
+    jl, jm, jp, _ = _jax_trajectory(mesh2, named, None,
+                                    jmodels.mlp_loss_fn, False, batches,
+                                    "blockq")
+    ranks = run_world("ps_trajectory", WORLD, tmp_path, "mlp", dict(named),
+                      None, batches, "blockq", 0.1, 0.9)
+    out = ranks[0]
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out["losses"], jl, **tol)
+    _check_metrics(out["metrics"], jm)
+    for n, p in jp.items():
+        np.testing.assert_allclose(out["params"][n], p, err_msg=n, **tol)
+        np.testing.assert_array_equal(ranks[1]["params"][n],
+                                      out["params"][n])
+
+
+# ---------------------------------------------------------------------------
+# Construction and step contract, in one process (a world of one)
+# ---------------------------------------------------------------------------
+
+
+def _named():
+    rng = np.random.RandomState(0)
+    return [("w", rng.randn(6, 3).astype(np.float32)),
+            ("b", np.zeros(3, np.float32))]
+
+
+def _loss(p, batch):
+    return ((batch["x"] @ p["w"] + p["b"] - batch["y"]) ** 2).mean()
+
+
+def _batch():
+    rng = np.random.RandomState(1)
+    return {"x": rng.randn(8, 6).astype(np.float32),
+            "y": rng.randn(8, 3).astype(np.float32)}
+
+
+def test_constructor_validates_like_jax():
+    with pytest.raises(ValueError, match="not supported"):
+        MPI_PS(_named(), optim="rmsprop", device="cpu")
+    with pytest.raises(TypeError, match="unexpected sgd hyperparameters"):
+        SGD(_named(), lr=0.1, betas=(0.9, 0.99), device="cpu")
+    with pytest.raises(ValueError, match="unique"):
+        SGD(_named() + _named(), device="cpu")
+    with pytest.raises(ValueError, match="sync_mode"):
+        SGD(_named(), sync_mode="eager", device="cpu")
+    with pytest.raises(ValueError, match="bucket_mb"):
+        SGD(_named(), bucket_mb=-1, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(zero=True), dict(error_feedback=True), dict(ema_decay=0.99),
+    dict(clip_norm=1.0), dict(skip_nonfinite=True), dict(profile=True),
+    dict(sync_mode="overlap"), dict(fused_encode=True),
+    dict(consensus_every=5), dict(decompose_allreduce=True),
+    dict(cuda=True),
+])
+def test_unported_options_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        SGD(_named(), device="cpu", code="blockq", **kwargs)
+
+
+def test_unported_compile_options_raise():
+    opt = SGD(_named(), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        opt.compile_step(_loss, accum_steps=2)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        opt.compile_step(_loss, remat=True)
+    with pytest.raises(ValueError, match="accum_steps"):
+        opt.compile_step(_loss, accum_steps=0)
+
+
+def test_step_contract():
+    opt = SGD(_named(), lr=0.05, momentum=0.9, device="cpu", code="bf16")
+    with pytest.raises(NotCompiledError):
+        opt.step(_batch())
+    opt.compile_step(_loss)
+    with pytest.raises(ValueError, match="needs a batch"):
+        opt.step()
+    calls = []
+    loss0, m = opt.step(_batch(), closure=lambda: calls.append(1) or 123.0)
+    assert calls == [1] and isinstance(loss0, float) and loss0 != 123.0
+    assert m["packaged_bytes"] == (18 + 3) * 2
+    assert m["msg_bytes"] == (18 + 3) * 4
+    assert m["iallgather_prepare_time"] > 0 and m["isend_time"] == 0.0
+    losses = [opt.step(_batch())[0] for _ in range(5)]
+    assert losses[-1] < loss0
+    loss, m = opt.step(_batch(), block=False)
+    assert isinstance(loss, torch.Tensor) and m["comm_wait"] == 0.0
+    assert m["isend_time"] > 0
+    assert opt.steps_completed == 7 and len(opt.timings) == 7
+
+
+@pytest.mark.parametrize("cls,hyper", [(SGD, dict(lr=0.1, momentum=0.9)),
+                                       (Adam, dict(lr=1e-2)),
+                                       (AdamW, dict(lr=1e-2))])
+@pytest.mark.parametrize("code", ["identity", "bf16", "blockq"])
+def test_world1_step_matches_jax(cls, hyper, code):
+    """World 1 on both sides (a one-device mesh), every optimizer and codec:
+    the same update to float32 rounding (one matmul per step: ``rtol=1e-5,
+    atol=1e-6``)."""
+    from pytorch_ps_mpi_tpu import Adam as JAdam, AdamW as JAdamW
+    from pytorch_ps_mpi_tpu.parallel.mesh import make_ps_mesh
+
+    jcls = {SGD: JSGD, Adam: JAdam, AdamW: JAdamW}[cls]
+    mesh1 = make_ps_mesh(1)
+    jopt = jcls(_named(), mesh=mesh1, code=code, **hyper)
+    jopt.compile_step(lambda p, b: jnp.mean(
+        (b["x"] @ p["w"] + p["b"] - b["y"]) ** 2))
+    opt = cls(_named(), device="cpu", code=code, **hyper)
+    opt.compile_step(_loss)
+    for _ in range(3):
+        jl, _ = jopt.step(_batch())
+        tl, _ = opt.step(_batch())
+        np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for n, p in opt.params.items():
+        np.testing.assert_allclose(p.numpy(), np.asarray(jopt.params[n]),
+                                   rtol=1e-5, atol=1e-6)
