@@ -8,23 +8,35 @@ Phases (any failure ends the run with a nonzero exit; nothing is caught
 and carried on from):
 
 1. Environment: torch/CUDA versions, the card's name and power limit, the
-   TF32 settings, and the build of the codec kernels from
-   ``pytorch_ps_mpi_tpu_torch/csrc`` (with ``nvcc``'s register report).
-2. Each codec kernel against its plain PyTorch version on the card, bitwise,
-   at the 62 ResNet-18 parameter sizes (world 1 and 4, bits 8 and 16, bf16
-   and f32 wires, an all-zero tile, a NaN tile, ragged tails, unaligned and
-   strided inputs), then timed with CUDA events at the main path's shapes
-   beside its plain version, a library call where one computes the same
-   function, and its bound (bytes over 3.35 TB/s).
-3. The slice through its public entry points: a one-rank NCCL group,
-   full-width bf16 ResNet-18 and ``SGD(lr=0.1, momentum=0.9)`` on synthetic
-   CIFAR-10 at batch 1024 — 3 warm-up and 10 timed steps with the blockq
-   codec, then 3 steps each with bf16 and identity — with the kernels'
-   launch counts read around each run, a profile of two blockq and two
-   bf16 steps (device time by kernel category, busy share), and a small
+   TF32 settings (off), and the build of the kernels from
+   ``pytorch_ps_mpi_tpu_torch/csrc`` — one ``nvcc`` per source, run
+   together — with ``nvcc``'s register report.
+2. Each kernel against its plain PyTorch version on the card:
+   * the codec kernels bitwise, at the 62 ResNet-18 parameter sizes (world
+     1 and 4, bits 8 and 16, bf16 and f32 wires, an all-zero tile, a NaN
+     tile, ragged tails, unaligned and strided inputs);
+   * the flash attention kernels within stated tolerances, at the LM's
+     main-path shape (strided q/k/v views, causal, bf16), D = 128, a ragged
+     S, non-causal, a scale override, f32 and odd head dims, each output
+     also against an f32 dense reference;
+   then each timed with CUDA events at the main path's shapes beside its
+   plain version, a library call where one computes the same function,
+   and its bound.
+3. The ResNet slice through its public entry points: a one-rank NCCL
+   group, full-width bf16 ResNet-18 and ``SGD(lr=0.1, momentum=0.9)`` on
+   synthetic CIFAR-10 at batch 1024 — 3 warm-up and 10 timed steps with the
+   blockq codec, then 3 steps each with bf16 and identity — with the
+   kernels' launch counts read around each run, a profile of two blockq and
+   two bf16 steps (device time by kernel category, busy share), and a small
    MLP run on the card checked against the same run on the CPU (plain
    versions).
-4. The card line, one JSON line per the kernels, and the last line
+4. The transformer LM of the repo's LM benchmark at full width and depth
+   (219,346,944 parameters, bf16, flash attention, batch 16 x 1024 tokens)
+   with ``SGD(lr=0.01, momentum=0.9)``: 2 warm-up and 5 timed identity
+   steps (tokens/s, flash launches per step, wire bytes), a profile of two
+   steps, 2 blockq steps, the f32 lm_head GEMMs timed alone, and a small
+   f32 LM run on the card checked against the same run on the CPU.
+5. The card line, one JSON line per the kernels, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -42,6 +54,12 @@ REPLACES = {
     "block_quantize": "pytorch_ps_mpi_tpu/ops/pallas_kernels.py:91",
     "block_dequant_sum": "pytorch_ps_mpi_tpu/ops/pallas_kernels.py:162",
     "cast_sum": "pytorch_ps_mpi_tpu/ops/pallas_kernels.py:227",
+}
+FLASH_SOURCE = "pytorch_ps_mpi_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd": "pytorch_ps_mpi_tpu/ops/flash_attention.py:134",
+    "flash_bwd_dkdv": "pytorch_ps_mpi_tpu/ops/flash_attention.py:318",
+    "flash_bwd_dq": "pytorch_ps_mpi_tpu/ops/flash_attention.py:344",
 }
 BATCH = 1024
 WARM, TIMED, SIDE = 3, 10, 3
@@ -254,24 +272,244 @@ def time_kernels(sizes):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the flash attention kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, D, causal, dtype, scale): the LM's main-path shape first,
+# its q/k/v strided views of one [B, S, H, 3, D] projection as the model
+# passes them; then D = 128, a ragged S, non-causal, a scale override, f32
+# (at D = 128 the dK/dV kernel's 32-row q tiles) and odd head dims that go
+# through the zero padding.
+FLASH_CASES = (
+    ("main", 16, 1024, 16, 64, True, "bfloat16", None),
+    ("d128", 4, 512, 8, 128, True, "bfloat16", None),
+    ("ragged S=1000", 2, 1000, 4, 64, True, "bfloat16", None),
+    ("non-causal", 2, 512, 4, 64, False, "bfloat16", None),
+    ("scale=0.2", 2, 256, 4, 64, True, "bfloat16", 0.2),
+    ("f32", 2, 333, 4, 64, True, "float32", None),
+    ("f32 d128 non-causal", 2, 200, 2, 128, False, "float32", None),
+    ("odd D=20", 2, 300, 4, 20, True, "bfloat16", None),
+    ("odd D=96 f32", 1, 130, 2, 96, True, "float32", None),
+)
+# Kernel against plain version, elementwise |a - b| <= atol + rtol * |b|.
+# Both compute the same tile math, but the products sum in other orders
+# (WMMA or FMA chains against cuBLAS) and exp differs in the last bit, so:
+# f32 agrees to f32 rounding of sums of up to S terms; in bf16, p and ds
+# are rounded to bf16 in both, and a last-bit difference in a score can
+# move that rounding by one bf16 step (2^-8 relative), and every output is
+# rounded to bf16 at the end.  lse is f32 in both cases.
+FLASH_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+H100_BF16_FLOPS = 989e12  # dense tensor-core bf16, NVIDIA data sheet
+H100_F32_FLOPS = 67e12    # f32 off the tensor cores, NVIDIA data sheet
+
+
+def _flash_inputs(b, s, h, d, dtype, seed, as_views):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dt)
+
+    if as_views:
+        q, k, v = rnd(b, s, h, 3, d).unbind(3)
+    else:
+        q, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
+    return q, k, v, rnd(b, s, h, d)
+
+
+def _dense_f32(q, k, v, do, causal, scale):
+    """An f32 dense reference from the same inputs: ``(o, dq, dk, dv)``."""
+    import torch
+
+    qf, kf, vf = (t.float().requires_grad_() for t in (q, k, v))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        s = sc.shape[-1]
+        keep = torch.ones((s, s), dtype=torch.bool, device=sc.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    o = torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), vf)
+    grads = torch.autograd.grad(o, (qf, kf, vf), do.float())
+    return (o.detach(), *grads)
+
+
+def check_flash_kernels():
+    """Each flash kernel against its plain version on every case of
+    FLASH_CASES; prints each output's max abs error, and both kernel and
+    plain version against an f32 dense reference.  Returns ``{kernel: max
+    abs err}`` over all cases."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
+
+    errs = {k: 0.0 for k in FLASH_REPLACES}
+    for i, (what, b, s, h, d, causal, dtype, scale) in enumerate(
+            FLASH_CASES):
+        q, k, v, do = _flash_inputs(b, s, h, d, dtype, 10 + i,
+                                    as_views=what == "main")
+        sc = d ** -0.5 if scale is None else scale
+        kw = dict(causal=causal, scale=sc)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        ro, rlse = fa.flash_fwd_ref(q, k, v, **kw)
+        delta = torch.sum(do.float() * o.float(), -1).transpose(1, 2)
+        dk, dv = fa.flash_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        rdq, rdk, rdv = fa.flash_bwd_ref(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        dense = _dense_f32(q, k, v, do, causal, sc)
+        pairs = (("flash_fwd", "o", o, ro, dense[0]),
+                 ("flash_fwd", "lse", lse, rlse, None),
+                 ("flash_bwd_dq", "dq", dq, rdq, dense[1]),
+                 ("flash_bwd_dkdv", "dk", dk, rdk, dense[2]),
+                 ("flash_bwd_dkdv", "dv", dv, rdv, dense[3]))
+        line = []
+        for kernel, out, ours, ref, want in pairs:
+            tol = LSE_TOL if out == "lse" else FLASH_TOL[dtype]
+            if ours.shape != ref.shape or ours.dtype != ref.dtype:
+                fail(f"{kernel} {what}: {out} is {tuple(ours.shape)} "
+                     f"{ours.dtype}, its plain version {tuple(ref.shape)} "
+                     f"{ref.dtype}")
+            err = abs_err(ours, ref)
+            errs[kernel] = max(errs[kernel], err)
+            if not torch.allclose(ours.float(), ref.float(), **tol):
+                fail(f"{kernel} {what}: {out} differs from its plain "
+                     f"version beyond rtol={tol['rtol']}, "
+                     f"atol={tol['atol']}: max abs err {err}")
+            vs = ("" if want is None else
+                  f" (vs f32 dense: kernel {abs_err(ours, want):.3g}, "
+                  f"plain {abs_err(ref, want):.3g})")
+            line.append(f"{out} {err:.3g}{vs}")
+        print(f"[flash] {what} [{b},{s},{h},{d}] {dtype} causal={causal} "
+              f"scale={sc:.4g}: max abs err kernel vs plain: "
+              + "; ".join(line))
+        del dense
+    torch.cuda.synchronize()
+    return errs
+
+
+def _flash_bound(kernel, b, s, h, d, causal, elt):
+    """``(bound ms, "bytes" or "operations", flops, bytes)`` at bf16's
+    tensor-core peak: operations over 989 TFLOP/s against bytes (each input
+    read once, each output written once) over 3.35 TB/s, counting only
+    the unmasked (q, k) pairs when causal."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    n, rows = b * s * h * d, b * h * s
+    flops, nbytes = {
+        "flash_fwd": (4 * d * pairs * b * h, 4 * n * elt + 4 * rows),
+        "flash_bwd_dkdv": (8 * d * pairs * b * h, 6 * n * elt + 8 * rows),
+        "flash_bwd_dq": (6 * d * pairs * b * h, 5 * n * elt + 8 * rows),
+    }[kernel]
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def time_flash_kernels():
+    """Each flash kernel at the main-path shape (CUDA events) beside its
+    plain version, its bound and, as a yardstick the port never calls,
+    F.scaled_dot_product_attention: forward alone against the forward
+    kernel, its whole backward (dq, dk and dv in one call) against each
+    backward kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
+
+    what, b, s, h, d, causal, dtype, _ = FLASH_CASES[0]
+    q, k, v, do = _flash_inputs(b, s, h, d, dtype, 1, as_views=True)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    o, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = torch.sum(do.float() * o.float(), -1).transpose(1, 2)
+    bwd = (q, k, v, do, lse, delta)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qh.detach(), kh.detach(), vh.detach(), is_causal=causal))
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        sdpa, (qh, kh, vh), doh, retain_graph=True))
+    lib_step = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+        (qh, kh, vh), doh))
+    out = {
+        "flash_fwd": dict(
+            ms=time_ms(lambda: fa.flash_fwd(q, k, v, **kw)),
+            plain_ms=time_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw),
+                             reps=5),
+            library_ms=lib_fwd),
+        "flash_bwd_dkdv": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dkdv(*bwd, **kw)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dkdv_ref(*bwd, **kw),
+                             reps=5),
+            library_ms=lib_bwd),
+        "flash_bwd_dq": dict(
+            ms=time_ms(lambda: fa.flash_bwd_dq(*bwd, **kw)),
+            plain_ms=time_ms(lambda: fa.flash_bwd_dq_ref(*bwd, **kw),
+                             reps=5),
+            library_ms=lib_bwd),
+    }
+    for kernel, rec in out.items():
+        bound, by, flops, nbytes = _flash_bound(kernel, b, s, h, d, causal,
+                                                q.element_size())
+        rec.update(bound_ms=bound, bound_by=by)
+        print(f"[flash] {kernel} [{b},{s},{h},{d}] {dtype} causal: kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
+              f"{rec['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}: "
+              f"{flops} operations at 989 TFLOP/s, {nbytes} bytes at "
+              f"3.35 TB/s; {flops / rec['ms'] / 1e9:.1f} TFLOP/s achieved)")
+    print(f"[flash] library F.scaled_dot_product_attention: forward "
+          f"{lib_fwd:.4f} ms, backward (dq, dk, dv) {lib_bwd:.4f} ms, "
+          f"forward + backward {lib_step:.4f} ms; the kernels' forward + "
+          f"backward {sum(r['ms'] for r in out.values()):.4f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the slice
 # ---------------------------------------------------------------------------
 
 
-def drive(code, named, aux, loss_fn, batch, group, warm, timed):
-    """Run ``warm`` blocking steps and ``timed`` queued steps of SGD with
-    ``code``; the launch counts are zeroed just before and read just
-    after.  Returns (optimizer, losses, counts, seconds of the timed
-    steps, last metrics)."""
+def reset_launch_counts() -> None:
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+    from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
+
+    ck.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def launch_counts() -> "dict[str, int]":
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+    from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
+
+    return {**ck.LAUNCHES, **fa.LAUNCHES}
+
+
+def expect_counts(what, counts, **want) -> None:
+    """Fail unless every kernel launched exactly ``want`` times (0 for a
+    kernel not named)."""
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        fail(f"{what}: launch counts {counts}, expected {full}")
+
+
+def drive(code, named, loss_fn, batch, group, warm, timed, *, lr,
+          has_aux=False, aux=None):
+    """Run ``warm`` blocking steps and ``timed`` queued steps of
+    ``SGD(lr, momentum=0.9)`` with ``code``; the launch counts are zeroed
+    just before and read just after.  Returns (optimizer, losses, counts,
+    seconds of the timed steps, last metrics)."""
     import torch
 
     from pytorch_ps_mpi_tpu_torch import SGD
-    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
 
-    opt = SGD(list(named.items()), lr=0.1, momentum=0.9, code=code,
+    opt = SGD(list(named.items()), lr=lr, momentum=0.9, code=code,
               device="cuda", group=group)
-    opt.compile_step(loss_fn, has_aux=True, aux=aux)
-    ck.reset_launch_counts()
+    opt.compile_step(loss_fn, has_aux=has_aux, aux=aux)
+    reset_launch_counts()
     losses = []
     for _ in range(warm):
         loss, metrics = opt.step(batch)
@@ -283,7 +521,7 @@ def drive(code, named, aux, loss_fn, batch, group, warm, timed):
         losses.append(loss)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(ck.LAUNCHES)
+    counts = launch_counts()
     losses = [float(x) for x in losses]
     return opt, losses, counts, seconds, metrics
 
@@ -292,14 +530,23 @@ _CATEGORIES = (
     ("block_quantize", ("block_quantize_kernel",)),
     ("block_dequant_sum", ("block_dequant_sum_kernel",)),
     ("cast_sum", ("cast_sum_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("nccl", ("nccl",)),
     ("batch norm", ("batch_norm", "batchnorm", "bn_")),
+    ("layer norm", ("layer_norm", "layernorm")),
+    ("softmax/cross-entropy", ("softmax", "nll_loss")),
+    # The models' only f32 matmuls are their heads' (the LM's lm_head:
+    # forward, dgrad, wgrad); cuBLAS names its f32 kernels sgemm, f32f32
+    # or nvjet_sss.
+    ("f32 GEMM (heads)", ("sgemm", "f32f32", "nvjet_sss", "simt")),
     ("conv/matmul", ("conv", "xmma", "gemm", "cudnn", "implicit", "wgrad",
-                     "dgrad", "fprop", "sm90")),
+                     "dgrad", "fprop", "sm90", "nvjet", "cutlass")),
 )
 
 
-def profile_steps(opt, batch, steps: int = 2):
+def profile_steps(opt, batch, what, steps: int = 2):
     """Device time of ``steps`` queued steps by kernel category, from
     torch.profiler's CUDA events, and the device's busy share of the wall
     time under the profiler (kernel time over host-clock time to
@@ -330,7 +577,7 @@ def profile_steps(opt, batch, steps: int = 2):
         by_cat[cat] = by_cat.get(cat, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy = sum(by_cat.values())
-    print(f"[profile] {steps} {opt.code.name} steps: wall "
+    print(f"[profile] {steps} {what} steps: wall "
           f"{wall_us / steps / 1e3:.3f} "
           f"ms/step, device kernel time {busy / steps / 1e3:.3f} ms/step, "
           f"busy share under the profiler {busy / wall_us:.3f}, "
@@ -338,7 +585,7 @@ def profile_steps(opt, batch, steps: int = 2):
     for cat, us in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {cat}: {us / steps / 1e3:.3f} ms/step "
               f"({us / busy:.3f} of device time)")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   top: {us / steps / 1e3:.3f} ms/step  {name[:110]}")
     return busy / steps / 1e3
 
@@ -351,15 +598,27 @@ def check_params_finite(opt, what):
             fail(f"{what}: parameter {n} is not finite")
 
 
-def small_reference_check(group):
+def _assert_close_runs(what, out, rtol, atol):
+    """Card against CPU: losses and every parameter."""
+    import numpy as np
+
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=rtol)
+    worst = 0.0
+    for n, p in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][n], p, rtol=rtol,
+                                   atol=atol, err_msg=f"{what}: {n}")
+        worst = max(worst, float(np.abs(out["cuda"][1][n] - p).max()))
+    print(f"[slice] {what}, card vs CPU plain versions: losses "
+          f"{out['cuda'][0]} vs {out['cpu'][0]}, max param diff {worst}")
+
+
+def small_reference_check(group, cpu_group):
     """A small MLP trained 3 steps with blockq on the card (CUDA kernels)
     and on the CPU (plain versions), from the same numpy init and batches.
     Tolerance rtol=1e-4, atol=1e-5: float32 matmuls (TF32 off) sum in
     other orders on the two devices; the codes then agree, or differ by
     one quantum (lr * scale, ~1e-6 here)."""
     import numpy as np
-    import torch
-    import torch.distributed as dist
 
     from pytorch_ps_mpi_tpu_torch import SGD
     from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_mnist
@@ -368,7 +627,6 @@ def small_reference_check(group):
     named = init_mlp(np.random.RandomState(0), (784, 64, 10))
     x, y = synthetic_mnist(256, seed=1)
     batch = {"x": x, "y": y}
-    cpu_group = dist.new_group(backend="gloo")
     out = {}
     for device, grp in (("cuda", group), ("cpu", cpu_group)):
         opt = SGD(list(named.items()), lr=0.05, momentum=0.9, code="blockq",
@@ -377,26 +635,17 @@ def small_reference_check(group):
         losses = [opt.step(batch)[0] for _ in range(3)]
         out[device] = (losses, {n: p.cpu().numpy()
                                 for n, p in opt.params.items()})
-    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
-    worst = 0.0
-    for n, p in out["cpu"][1].items():
-        np.testing.assert_allclose(out["cuda"][1][n], p, rtol=1e-4,
-                                   atol=1e-5, err_msg=n)
-        worst = max(worst, float(np.abs(out["cuda"][1][n] - p).max()))
-    print(f"[slice] small MLP blockq, card vs CPU plain versions: losses "
-          f"{out['cuda'][0]} vs {out['cpu'][0]}, max param diff {worst}")
+    _assert_close_runs("small MLP blockq", out, 1e-4, 1e-5)
 
 
-def run_slice():
+def run_slice(group, cpu_group):
     import torch
 
-    from pytorch_ps_mpi_tpu_torch import make_ps_group
     from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_cifar10
     from pytorch_ps_mpi_tpu_torch.models import (build_model,
                                                  make_classifier_loss,
                                                  resnet18)
 
-    group = make_ps_group("cuda")
     model = resnet18(num_classes=10, small_inputs=True, dtype=torch.bfloat16)
     named, aux = build_model(model, seed=0)
     loss_fn, has_aux = make_classifier_loss(model)
@@ -406,20 +655,20 @@ def run_slice():
     # Staged on the card once: the step is measured, not the input copy.
     batch = {"x": torch.from_numpy(x).cuda(), "y": torch.from_numpy(y).cuda()}
     per_step = len(named)
+    common = dict(lr=0.1, has_aux=True, aux=aux)
 
     torch.cuda.reset_peak_memory_stats()
     opt, losses, counts, seconds, metrics = drive(
-        "blockq", named, aux, loss_fn, batch, group, WARM, TIMED)
+        "blockq", named, loss_fn, batch, group, WARM, TIMED, **common)
     steps = WARM + TIMED
     print(f"[slice] blockq: {steps} steps, losses {losses}")
     print(f"[slice] blockq launches {counts} (expect {per_step}/step for "
           f"each blockq kernel)")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"blockq losses must be finite and fall: {losses}")
-    if (counts["block_quantize"] != per_step * steps
-            or counts["block_dequant_sum"] != per_step * steps
-            or counts["cast_sum"] != 0):
-        fail(f"blockq launch counts {counts}")
+    expect_counts("ResNet-18 blockq", counts,
+                  block_quantize=per_step * steps,
+                  block_dequant_sum=per_step * steps)
     if (metrics["packaged_bytes"] != 11445104
             or metrics["msg_bytes"] != 44695848):
         fail(f"byte metrics {metrics}")
@@ -429,7 +678,7 @@ def run_slice():
           f"{BATCH * TIMED / seconds:.1f} images/s per GPU "
           f"({TIMED} queued steps, host clock to synchronize); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    device_ms = profile_steps(opt, batch)
+    device_ms = profile_steps(opt, batch, "ResNet-18 blockq")
     if device_ms is not None:
         print(f"[slice] blockq device busy share without the profiler: "
               f"{device_ms / ms:.3f} (profiled device ms/step over the "
@@ -438,29 +687,183 @@ def run_slice():
     del opt
 
     opt, losses, counts, seconds, _ = drive(
-        "bf16", named, aux, loss_fn, batch, group, SIDE, 0)
+        "bf16", named, loss_fn, batch, group, SIDE, 0, **common)
     print(f"[slice] bf16: losses {losses}, launches {counts}")
-    if (not all(math.isfinite(v) for v in losses)
-            or counts != {"block_quantize": 0, "block_dequant_sum": 0,
-                          "cast_sum": per_step * SIDE}):
-        fail(f"bf16 run: losses {losses}, launches {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"bf16 run: losses {losses}")
+    expect_counts("ResNet-18 bf16", counts, cast_sum=per_step * SIDE)
     check_params_finite(opt, "bf16")
-    profile_steps(opt, batch)
+    profile_steps(opt, batch, "ResNet-18 bf16")
     cast_counts = counts
     del opt
 
     opt, losses, counts, _, _ = drive(
-        "identity", named, aux, loss_fn, batch, group, SIDE, 0)
+        "identity", named, loss_fn, batch, group, SIDE, 0, **common)
     print(f"[slice] identity: losses {losses}, launches {counts}")
-    if not all(math.isfinite(v) for v in losses) or any(counts.values()):
-        fail(f"identity run: losses {losses}, launches {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"identity run: losses {losses}")
+    expect_counts("ResNet-18 identity", counts)
     check_params_finite(opt, "identity")
     del opt
 
-    small_reference_check(group)
+    small_reference_check(group, cpu_group)
     return {"block_quantize": main_counts["block_quantize"],
             "block_dequant_sum": main_counts["block_dequant_sum"],
             "cast_sum": cast_counts["cast_sum"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the transformer LM
+# ---------------------------------------------------------------------------
+
+# The bench LM (`bench.py::worker_lm_throughput`): full width and depth.
+LM = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
+          d_ff=4096, max_len=1024)
+LM_BATCH, LM_SEQ = 16, 1024
+LM_WARM, LM_TIMED, LM_BLOCKQ = 2, 5, 2
+LM_TENSORS, LM_PARAMS = 150, 219346944
+LM_MSG_BYTES, LM_BLOCKQ_BYTES = 877387776, 219360716
+
+
+def time_lm_head_gemms(named):
+    """The f32 lm_head GEMMs of one step at the LM's shapes, CUDA events:
+    forward ``x @ W^T``, dgrad ``dlogits @ W`` and wgrad ``dlogits^T @
+    x``, with TF32 off as the run sets it."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = LM_BATCH * LM_SEQ
+    w = named["lm_head.weight"].cuda()
+    x = torch.randn(rows, LM["d_model"], device="cuda", generator=gen)
+    g = torch.randn(rows, LM["vocab_size"], device="cuda", generator=gen)
+    out = {"forward": time_ms(lambda: x @ w.t(), reps=5),
+           "dgrad": time_ms(lambda: g @ w, reps=5),
+           "wgrad": time_ms(lambda: g.t() @ x, reps=5)}
+    flops = 2 * rows * LM["d_model"] * LM["vocab_size"]
+    print(f"[lm] f32 lm_head GEMMs ({rows}x{LM['d_model']}x"
+          f"{LM['vocab_size']}, TF32 off): "
+          + ", ".join(f"{k} {v:.3f} ms ({flops / v / 1e9:.1f} TFLOP/s)"
+                      for k, v in out.items())
+          + f"; {sum(out.values()):.3f} ms per step")
+    return out
+
+
+def small_lm_reference_check(group, cpu_group):
+    """A small LM (d_model 64, 4 heads of 16, 2 layers, S=160 so the
+    64-row tiles end ragged) in f32 trained 3 SGD steps on the card (flash
+    kernels, head dim padded to 64) and on the CPU (plain versions), from
+    the same weights and tokens.  Tolerance rtol=1e-4, atol=1e-5: float32
+    throughout with TF32 off; the kernels' FMA chains, cuBLAS and the CPU
+    sum in other orders, and three steps of momentum carry that forward."""
+    import functools
+
+    from pytorch_ps_mpi_tpu_torch import SGD, flash_attention
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
+    from pytorch_ps_mpi_tpu_torch.models import (TransformerLM, build_lm,
+                                                 lm_batch, make_lm_loss)
+
+    cfg = dict(vocab_size=97, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+               max_len=256)
+    model = TransformerLM(**cfg, attn=functools.partial(flash_attention,
+                                                        causal=True))
+    named = build_lm(model, seed=3)
+    batch = lm_batch(synthetic_lm(4, seq_len=160, vocab=97, seed=4))
+    out = {}
+    for device, grp in (("cuda", group), ("cpu", cpu_group)):
+        opt = SGD(list(named.items()), lr=0.05, momentum=0.9, device=device,
+                  group=grp)
+        opt.compile_step(make_lm_loss(model))
+        reset_launch_counts()
+        losses = [opt.step(batch)[0] for _ in range(3)]
+        counts = launch_counts()
+        want = 3 * cfg["n_layers"] if device == "cuda" else 0
+        expect_counts(f"small LM on {device}", counts, flash_fwd=want,
+                      flash_bwd_dkdv=want, flash_bwd_dq=want)
+        out[device] = (losses, {n: p.cpu().numpy()
+                                for n, p in opt.params.items()})
+    _assert_close_runs("small LM f32 identity", out, 1e-4, 1e-5)
+
+
+def run_lm(group, cpu_group):
+    """The bench LM through the public entry points, identity codec (the
+    bench's), then two blockq steps; returns each flash kernel's launches
+    in the identity run."""
+    import functools
+
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import flash_attention
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
+    from pytorch_ps_mpi_tpu_torch.models import (TransformerLM, build_lm,
+                                                 lm_batch, make_lm_loss)
+
+    model = TransformerLM(**LM, dtype=torch.bfloat16,
+                          attn=functools.partial(flash_attention, causal=True))
+    t0 = time.perf_counter()
+    named = build_lm(model, seed=0)
+    n_params = sum(p.numel() for p in named.values())
+    print(f"[lm] TransformerLM {LM} bf16, flash attention: {len(named)} "
+          f"tensors, {n_params} parameters (init {time.perf_counter() - t0:.1f}"
+          f" s on the host)")
+    if len(named) != LM_TENSORS or n_params != LM_PARAMS:
+        fail(f"the bench LM has {len(named)} tensors and {n_params} "
+             f"parameters, expected {LM_TENSORS} and {LM_PARAMS}")
+    toks = synthetic_lm(LM_BATCH, seq_len=LM_SEQ, vocab=LM["vocab_size"],
+                        seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in lm_batch(toks).items()}
+    loss_fn = make_lm_loss(model)
+    per_step = LM["n_layers"]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt, losses, counts, seconds, metrics = drive(
+        "identity", named, loss_fn, batch, group, LM_WARM, LM_TIMED, lr=0.01)
+    steps = LM_WARM + LM_TIMED
+    print(f"[lm] identity: {steps} steps, losses {losses}, launches {counts}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"LM losses must be finite and fall: {losses}")
+    expect_counts("LM identity", counts, flash_fwd=per_step * steps,
+                  flash_bwd_dkdv=per_step * steps,
+                  flash_bwd_dq=per_step * steps)
+    if (metrics["msg_bytes"] != LM_MSG_BYTES
+            or metrics["packaged_bytes"] != LM_MSG_BYTES):
+        fail(f"LM byte metrics {metrics}")
+    check_params_finite(opt, "LM identity")
+    ms = seconds / LM_TIMED * 1e3
+    tokens = LM_BATCH * LM_SEQ
+    print(f"[lm] bench LM bf16 batch {LM_BATCH} x seq {LM_SEQ}: {ms:.3f} "
+          f"ms/step, {tokens * LM_TIMED / seconds:.1f} tokens/s per GPU "
+          f"({LM_TIMED} queued steps, host clock to synchronize); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_ms = profile_steps(opt, batch, "LM identity")
+    if device_ms is not None:
+        print(f"[lm] device busy share without the profiler: "
+              f"{device_ms / ms:.3f} (profiled device ms/step over the timed "
+              f"ms/step)")
+    lm_counts = counts
+    del opt
+    torch.cuda.empty_cache()
+
+    opt, losses, counts, _, metrics = drive(
+        "blockq", named, loss_fn, batch, group, LM_BLOCKQ, 0, lr=0.01)
+    print(f"[lm] blockq: losses {losses}, launches {counts}, "
+          f"packaged_bytes {metrics['packaged_bytes']:.0f}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"LM blockq losses {losses}")
+    expect_counts("LM blockq", counts,
+                  block_quantize=LM_TENSORS * LM_BLOCKQ,
+                  block_dequant_sum=LM_TENSORS * LM_BLOCKQ,
+                  flash_fwd=per_step * LM_BLOCKQ,
+                  flash_bwd_dkdv=per_step * LM_BLOCKQ,
+                  flash_bwd_dq=per_step * LM_BLOCKQ)
+    if metrics["packaged_bytes"] != LM_BLOCKQ_BYTES:
+        fail(f"LM blockq byte metrics {metrics}")
+    check_params_finite(opt, "LM blockq")
+    del opt
+    torch.cuda.empty_cache()
+    time_lm_head_gemms(named)
+    small_lm_reference_check(group, cpu_group)
+    return {k: lm_counts[k] for k in FLASH_REPLACES}
 
 
 def main() -> int:
@@ -470,6 +873,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible; this script runs the "
               "port on the card", file=sys.stderr)
         return 2
+    import torch.distributed as dist
+
+    from pytorch_ps_mpi_tpu_torch import make_ps_group
     from pytorch_ps_mpi_tpu_torch.ops import _build
 
     # --- 1. environment ---
@@ -481,16 +887,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("[env] TF32 off: torch.backends.cudnn.allow_tf32=False, "
-          "torch.backends.cuda.matmul.allow_tf32=False (the model's "
-          "convolutions run in bf16; the f32 head and the small reference "
-          "check run in full f32)")
+          "torch.backends.cuda.matmul.allow_tf32=False (the models' "
+          "convolutions and matmuls run in bf16; the f32 heads, among them "
+          "the LM's lm_head, the plain versions and the small reference "
+          "checks run in full f32)")
     t0 = time.perf_counter()
-    path, log = _build.build()
-    _build.library()
-    print(f"[env] built {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[env] nvcc: {line.strip()}")
+    built = _build.build()  # one nvcc per source, run together
+    for name in built:
+        _build.library(name)
+    print(f"[env] built {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, (_, log) in built.items():
+        for line in log.splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling",
+                                       "smem")):
+                print(f"[env] nvcc {name}: {line.strip()}")
 
     # --- 2. kernels against their plain versions ---
     from pytorch_ps_mpi_tpu_torch.models import build_model, resnet18
@@ -499,19 +910,27 @@ def main() -> int:
     sizes = [p.numel() for p in named.values()]
     errs = check_kernels(sizes)
     times = time_kernels(sizes)
+    errs.update(check_flash_kernels())
+    times.update(time_flash_kernels())
 
-    # --- 3. the slice ---
-    launches = run_slice()
+    # --- 3. the slice, 4. the transformer LM ---
+    group = make_ps_group("cuda")
+    cpu_group = dist.new_group(backend="gloo")
+    launches = run_slice(group, cpu_group)
+    launches.update(run_lm(group, cpu_group))
 
-    # --- 4. results ---
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": launches[k],
-                "max_abs_err": errs[k], "ms": times[k]["ms"],
-                "plain_ms": times[k]["plain_ms"],
-                "bound_ms": times[k]["bound_ms"], "bound_by": "bytes",
-                "library_ms": times[k]["library_ms"]} for k in REPLACES]
-    import torch.distributed as dist
-
+    # --- 5. results ---
+    kernels = []
+    for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": SOURCE if k in REPLACES else FLASH_SOURCE,
+            "replaces": replaces, "launches": launches[k],
+            "max_abs_err": errs[k], "ms": times[k]["ms"],
+            "plain_ms": times[k]["plain_ms"],
+            "bound_ms": times[k]["bound_ms"],
+            "bound_by": times[k].get("bound_by", "bytes"),
+            "library_ms": times[k]["library_ms"]})
     dist.destroy_process_group()
     print(card_line())
     print(json.dumps({"kernels": kernels}))

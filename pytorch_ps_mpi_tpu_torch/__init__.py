@@ -2,17 +2,20 @@
 
 The JAX package `pytorch_ps_mpi_tpu` is the reference each part of this
 one is held against; this package imports ``torch`` and numpy, never JAX
-and nothing of the JAX package.  This slice ports the synchronous PS step
+and nothing of the JAX package.  Ported so far: the synchronous PS step
 (`MPI_PS`, `SGD`, `Adam`, `AdamW`) with the ``identity``, ``bf16`` and
 ``blockq`` gradient codecs, whose codec kernels are hand-written CUDA for
-Hopper (``csrc/codec_kernels.cu``), plus the ResNet/MLP models and the
-synthetic data the step trains on.  Entry points run on ``device="cuda"``
-unless the caller asks for the CPU.
+Hopper (``csrc/codec_kernels.cu``); the ResNet/MLP models and the
+transformer LM, whose flash attention forward and backward are
+hand-written CUDA too (``csrc/flash_attention.cu``,
+`ops.flash_attention`); and the synthetic data the step trains on.
+Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
 
 from .errors import NotCompiledError, PSRuntimeError
 from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
                          get_codec)
+from .ops.flash_attention import flash_attention
 from .parallel.mesh import make_ps_group
 from .ps import MPI_PS, SGD, Adam, AdamW
 
@@ -27,6 +30,7 @@ __all__ = [
     "CastCodec",
     "BlockQuantizeCodec",
     "get_codec",
+    "flash_attention",
     "PSRuntimeError",
     "NotCompiledError",
 ]

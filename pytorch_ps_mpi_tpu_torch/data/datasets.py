@@ -2,8 +2,9 @@
 
 Counterpart of `pytorch_ps_mpi_tpu/data/datasets.py`, copied: the same
 seed gives the same arrays in both packages.  Class-structured Gaussian
-blobs shaped like MNIST/CIFAR, so small models genuinely learn, and an
-iterator of global batches whose leading dim shards evenly across ranks.
+blobs shaped like MNIST/CIFAR, so small models genuinely learn, token rows
+with next-token structure for the LM, and an iterator of global batches
+whose leading dim shards evenly across ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +31,21 @@ def synthetic_mnist(n: int = 4096, seed: int = 0):
 
 def synthetic_cifar10(n: int = 4096, seed: int = 0):
     return synthetic_classification(n, (32, 32, 3), 10, seed)
+
+
+def synthetic_lm(n: int = 2048, seq_len: int = 128, vocab: int = 256,
+                 seed: int = 0, noise: float = 0.02):
+    """Token rows ``[n, seq_len + 1]`` following an affine recurrence
+    (t+1 = 5t+3 mod vocab) with a little noise — enough next-token structure
+    that a small LM's loss drops well below uniform entropy."""
+    rng = np.random.RandomState(seed)
+    rows = [rng.randint(0, vocab, size=(n, 1))]
+    for _ in range(seq_len):
+        rows.append((rows[-1] * 5 + 3) % vocab)
+    toks = np.concatenate(rows, axis=1)
+    flip = rng.rand(*toks.shape) < noise
+    toks[flip] = rng.randint(0, vocab, size=int(flip.sum()))
+    return toks.astype(np.int32)
 
 
 def batches(x: np.ndarray, y: np.ndarray, batch_size: int, *,

@@ -3,7 +3,8 @@
 Counterpart of `pytorch_ps_mpi_tpu/models/__init__.py`: `build_model`
 initialises a module into flat named params plus its BatchNorm statistics
 (``aux``), and `make_classifier_loss` turns a classifier into the
-``loss_fn`` that ``MPI_PS.compile_step`` binds.
+``loss_fn`` that ``MPI_PS.compile_step`` binds.  The transformer LM has its
+own `build_lm`, `make_lm_loss` and `lm_batch`.
 """
 
 from __future__ import annotations
@@ -16,10 +17,14 @@ from torch.func import functional_call
 
 from .mlp import init_mlp, mlp_apply, mlp_loss_fn
 from .resnet import BasicBlock, ResNet, resnet18, resnet34
+from .transformer import (Block, PDense, TransformerLM, build_lm, lm_batch,
+                          make_lm_loss)
 
 __all__ = [
     "BasicBlock", "ResNet", "resnet18", "resnet34",
     "init_mlp", "mlp_apply", "mlp_loss_fn",
+    "PDense", "Block", "TransformerLM", "build_lm", "make_lm_loss",
+    "lm_batch",
     "build_model", "cross_entropy", "make_classifier_loss",
 ]
 

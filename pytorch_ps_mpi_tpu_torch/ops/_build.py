@@ -1,16 +1,19 @@
-"""Build and load the CUDA codec kernels.
+"""Build and load the CUDA kernels.
 
-``csrc/codec_kernels.cu`` is compiled at first use with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, loaded with
-``ctypes``.  The library lands in ``pytorch_ps_mpi_tpu_torch/_build/``
-(listed in ``.gitignore``), named after a hash of the source and the
-flags, so an edited source is rebuilt and a finished build is reused.
-Nothing here runs at import: the CPU tests import every module, and this
-host has no ``nvcc``.
+Each source in ``csrc/`` (``codec_kernels.cu``, ``flash_attention.cu``) is
+compiled at first use with ``nvcc`` for ``sm_90a`` into a shared library of
+its own with a plain C interface, loaded with ``ctypes``.  The libraries
+land in ``pytorch_ps_mpi_tpu_torch/_build/`` (listed in ``.gitignore``),
+named after a hash of the source and the flags, so an edited source is
+rebuilt and a finished build is reused.  `build` starts one ``nvcc`` per
+missing library, all at once, and waits for them together.  Nothing here
+runs at import: the CPU tests import every module, and this host has no
+``nvcc``.
 
 The flags leave out ``--use_fast_math`` on purpose: the quantizer's true
-division and half-to-even rounding, and the decode sums' unfused multiply
-and add, are what make the kernels agree bit for bit with the JAX package.
+division and half-to-even rounding, the decode sums' unfused multiply and
+add, and the attention kernels' IEEE ``expf``/``logf`` and division are
+what make the kernels agree with the JAX package and their plain versions.
 """
 
 from __future__ import annotations
@@ -25,23 +28,42 @@ from pathlib import Path
 from ..errors import PSRuntimeError
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "codec_kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib: "ctypes.CDLL | None" = None
-
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
+# Library name -> {C function: argument types}.  Every library also exports
+# ``ps_error_string``.
 _SIGNATURES = {
-    # x, n, tile, n_blocks, bits, vec, q, scales, stream
-    "ps_block_quantize": (_P, _L, _I, _L, _I, _I, _P, _P, _P),
-    # q, q_rank_stride, bits, scales, s_rank_stride, world, total, tile,
-    # out, stream
-    "ps_block_dequant_sum": (_P, _L, _I, _P, _L, _I, _L, _I, _P, _P),
-    # x, rank_stride, dtype, world, n, vec, out, stream
-    "ps_cast_sum": (_P, _L, _I, _I, _L, _I, _P, _P),
+    "codec_kernels": {
+        # x, n, tile, n_blocks, bits, vec, q, scales, stream
+        "ps_block_quantize": (_P, _L, _I, _L, _I, _I, _P, _P, _P),
+        # q, q_rank_stride, bits, scales, s_rank_stride, world, total, tile,
+        # out, stream
+        "ps_block_dequant_sum": (_P, _L, _I, _P, _L, _I, _L, _I, _P, _P),
+        # x, rank_stride, dtype, world, n, vec, out, stream
+        "ps_cast_sum": (_P, _L, _I, _I, _L, _I, _P, _P),
+    },
+    "flash_attention": {
+        # dtype, d, q, k, v, strides[12], o, lse, B, H, L, scale, causal,
+        # stream
+        "ps_flash_fwd": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                         _P),
+        # dtype, d, q, k, v, dout, strides[12], lse, delta, dk, dv, B, H, L,
+        # scale, causal, stream
+        "ps_flash_bwd_dkdv": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _F, _I, _P),
+        # dtype, d, q, k, v, dout, strides[12], lse, delta, dq, B, H, L,
+        # scale, causal, stream
+        "ps_flash_bwd_dq": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _F, _I, _P),
+    },
 }
+SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in _SIGNATURES}
+
+_libs: "dict[str, ctypes.CDLL]" = {}
 
 
 def _nvcc() -> str:
@@ -51,48 +73,64 @@ def _nvcc() -> str:
             return cand
     raise PSRuntimeError(
         "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the CUDA "
-        "codec kernels are built from csrc/ on the machine with the card")
+        "kernels are built from csrc/ on the machine with the card")
 
 
-def build() -> "tuple[Path, str]":
-    """Compile the kernels unless this source's library exists already.
-    Returns ``(library path, compiler log)``; the log, empty for a reused
-    build, holds ``-Xptxas -v``'s registers and spills per kernel."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libcodec_kernels-{digest}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise PSRuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent ranks never load a partial file
-    return out, proc.stdout + proc.stderr
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    global _lib
-    if _lib is None:
-        path, _ = build()
+def build(names=None) -> "dict[str, tuple[Path, str]]":
+    """Compile each named library (default: all) unless its build exists
+    already, one ``nvcc`` per library, run together.  Returns ``{name:
+    (library path, compiler log)}``; a log, empty for a reused build, holds
+    ``-Xptxas -v``'s registers, shared memory and spills per kernel."""
+    names = list(SOURCES) if names is None else list(names)
+    out, running = {}, {}
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            out[name] = (target, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        running[name] = (target, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (target, tmp, proc) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name].name} ({proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)  # atomic: concurrent ranks never load a partial file
+        out[name] = (target, log)
+    if failed:
+        raise PSRuntimeError("nvcc failed: " + "\n".join(failed))
+    return out
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built on first call."""
+    if name not in _libs:
+        path, _ = build([name])[name]
         lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        for fn_name, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
         lib.ps_error_string.argtypes = [ctypes.c_int]
         lib.ps_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
 
 
-def check(name: str, err: int) -> None:
-    """Raise if a kernel's launch returned a CUDA error."""
+def check(lib: str, kernel: str, err: int) -> None:
+    """Raise if a kernel's launch from library ``lib`` returned a CUDA
+    error."""
     if err != 0:
-        msg = library().ps_error_string(err).decode(errors="replace")
-        raise PSRuntimeError(f"{name} kernel launch failed: CUDA error "
+        msg = library(lib).ps_error_string(err).decode(errors="replace")
+        raise PSRuntimeError(f"{kernel} kernel launch failed: CUDA error "
                              f"{err} ({msg})")

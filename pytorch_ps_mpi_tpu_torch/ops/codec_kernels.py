@@ -138,11 +138,11 @@ def block_quantize(flat: torch.Tensor, *, bits: int = 8,
     scales = torch.empty((n_blocks, 1), dtype=torch.float32,
                          device=flat.device)
     with torch.cuda.device(flat.device):
-        err = _build.library().ps_block_quantize(
+        err = _build.library("codec_kernels").ps_block_quantize(
             flat.data_ptr(), n, tile, n_blocks, bits,
             int(flat.data_ptr() % 16 == 0), q.data_ptr(), scales.data_ptr(),
             _stream(flat))
-    _build.check("block_quantize", err)
+    _build.check("codec_kernels", "block_quantize", err)
     LAUNCHES["block_quantize"] += 1
     return q, scales
 
@@ -196,11 +196,11 @@ def block_dequant_sum(q: torch.Tensor, scales: torch.Tensor, *,
                          "scales contiguous")
     out = torch.empty((rows, LANE), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _build.library().ps_block_dequant_sum(
+        err = _build.library("codec_kernels").ps_block_dequant_sum(
             q.data_ptr(), q.stride(0), 8 * item, scales.data_ptr(),
             scales.stride(0), world, rows * LANE, block_rows * LANE,
             out.data_ptr(), _stream(q))
-    _build.check("block_dequant_sum", err)
+    _build.check("codec_kernels", "block_dequant_sum", err)
     LAUNCHES["block_dequant_sum"] += 1
     return out
 
@@ -237,9 +237,9 @@ def cast_sum(x: torch.Tensor) -> torch.Tensor:
     vec = (x.data_ptr() % (4 * x.element_size()) == 0
            and (world == 1 or x.stride(0) % 4 == 0))
     with torch.cuda.device(x.device):
-        err = _build.library().ps_cast_sum(
+        err = _build.library("codec_kernels").ps_cast_sum(
             x.data_ptr(), x.stride(0), _CAST_DTYPES[x.dtype], world, n,
             int(vec), out.data_ptr(), _stream(x))
-    _build.check("cast_sum", err)
+    _build.check("codec_kernels", "cast_sum", err)
     LAUNCHES["cast_sum"] += 1
     return out

@@ -7,11 +7,13 @@ and BatchNorm buffers, undoing its layout rules:
 
 * flax conv kernels ``HWIO`` -> torch ``OIHW``;
 * flax ``Dense`` kernels ``(in, out)`` -> torch ``(out, in)``;
-* ``kernel`` and BatchNorm ``scale`` -> ``weight``;
+* ``kernel``, BatchNorm/LayerNorm ``scale`` and ``Embed``'s
+  ``embedding`` -> ``weight`` (an embedding table keeps ``(num, features)``);
 * ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 
-It serves flax module trees (the ResNets).  The MLP's plain dict keeps
-``(in, out)`` in both packages and crosses unchanged.
+It serves flax module trees (the ResNets and the transformer LM).  The
+MLP's plain dict keeps ``(in, out)`` in both packages and crosses
+unchanged.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ import torch
 
 from .flatten import SEP, named_params
 
-_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+         "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
 
 def _torch_name(flax_name: str) -> str:
