@@ -17,8 +17,10 @@ and carried on from):
      tile, ragged tails, unaligned and strided inputs);
    * the flash attention kernels within stated tolerances, at the LM's
      main-path shape (strided q/k/v views, causal, bf16), D = 128, a ragged
-     S, non-causal, a scale override, f32 and odd head dims, each output
-     also against an f32 dense reference;
+     S, non-causal, a scale override, f32, odd head dims and the edges of
+     the bf16 kernels' 128-row blocks, each output also against an f32
+     dense reference, and how the bf16 forward and dK/dV kernels occupy
+     the card (registers, shared memory, blocks per SM);
    then each timed with CUDA events at the main path's shapes beside its
    plain version, a library call where one computes the same function,
    and its bound.
@@ -275,21 +277,28 @@ def time_kernels(sizes):
 # Phase 2b: the flash attention kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# (name, B, S, H, D, causal, dtype, scale): the LM's main-path shape first,
-# its q/k/v strided views of one [B, S, H, 3, D] projection as the model
-# passes them; then D = 128, a ragged S, non-causal, a scale override, f32
-# (at D = 128 the dK/dV kernel's 32-row q tiles) and odd head dims that go
-# through the zero padding.
+# (name, B, S, H, D, causal, dtype, scale, views): the LM's main-path shape
+# first, its q/k/v strided views of one [B, S, H, 3, D] projection as the
+# model passes them; then D = 128, a ragged S, non-causal, a scale
+# override, f32 (at D = 128 the dK/dV kernel's 32-row q tiles), odd head
+# dims that go through the zero padding, and the edges of the bf16
+# kernels' 128-row blocks: one real row in the last block (S = 129), a
+# block whose second warpgroup holds one real row (S = 65), the longest
+# causal sweep (S = 2048), and D = 128 at a ragged S as strided views.
 FLASH_CASES = (
-    ("main", 16, 1024, 16, 64, True, "bfloat16", None),
-    ("d128", 4, 512, 8, 128, True, "bfloat16", None),
-    ("ragged S=1000", 2, 1000, 4, 64, True, "bfloat16", None),
-    ("non-causal", 2, 512, 4, 64, False, "bfloat16", None),
-    ("scale=0.2", 2, 256, 4, 64, True, "bfloat16", 0.2),
-    ("f32", 2, 333, 4, 64, True, "float32", None),
-    ("f32 d128 non-causal", 2, 200, 2, 128, False, "float32", None),
-    ("odd D=20", 2, 300, 4, 20, True, "bfloat16", None),
-    ("odd D=96 f32", 1, 130, 2, 96, True, "float32", None),
+    ("main", 16, 1024, 16, 64, True, "bfloat16", None, True),
+    ("d128", 4, 512, 8, 128, True, "bfloat16", None, False),
+    ("ragged S=1000", 2, 1000, 4, 64, True, "bfloat16", None, False),
+    ("non-causal", 2, 512, 4, 64, False, "bfloat16", None, False),
+    ("scale=0.2", 2, 256, 4, 64, True, "bfloat16", 0.2, False),
+    ("f32", 2, 333, 4, 64, True, "float32", None, False),
+    ("f32 d128 non-causal", 2, 200, 2, 128, False, "float32", None, False),
+    ("odd D=20", 2, 300, 4, 20, True, "bfloat16", None, False),
+    ("odd D=96 f32", 1, 130, 2, 96, True, "float32", None, False),
+    ("S=129", 2, 129, 4, 64, True, "bfloat16", None, False),
+    ("S=65", 2, 65, 4, 64, True, "bfloat16", None, False),
+    ("B=H=1 S=2048", 1, 2048, 1, 64, True, "bfloat16", None, False),
+    ("d128 S=1000 views", 2, 1000, 4, 128, True, "bfloat16", None, True),
 )
 # Kernel against plain version, elementwise |a - b| <= atol + rtol * |b|.
 # Both compute the same tile math, but the products sum in other orders
@@ -346,10 +355,9 @@ def check_flash_kernels():
     from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
 
     errs = {k: 0.0 for k in FLASH_REPLACES}
-    for i, (what, b, s, h, d, causal, dtype, scale) in enumerate(
+    for i, (what, b, s, h, d, causal, dtype, scale, views) in enumerate(
             FLASH_CASES):
-        q, k, v, do = _flash_inputs(b, s, h, d, dtype, 10 + i,
-                                    as_views=what == "main")
+        q, k, v, do = _flash_inputs(b, s, h, d, dtype, 10 + i, views)
         sc = d ** -0.5 if scale is None else scale
         kw = dict(causal=causal, scale=sc)
         o, lse = fa.flash_fwd(q, k, v, **kw)
@@ -390,6 +398,27 @@ def check_flash_kernels():
     return errs
 
 
+def print_flash_occupancy():
+    """How the bf16 forward and dK/dV kernels occupy the card, at both
+    head dims, from cudaFuncGetAttributes and the occupancy calculator."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
+
+    for kernel in ("flash_fwd", "flash_bwd_dkdv"):
+        for d in fa.HEAD_DIMS:
+            info = fa.kernel_info(kernel, torch.bfloat16, d)
+            print(f"[flash] {kernel} bf16 D={d}: {info['threads']} threads "
+                  f"and {info['rows']} rows per block, {info['registers']} "
+                  f"registers per thread ({info['local_bytes']} local "
+                  f"bytes), {info['smem_bytes']} bytes of shared memory "
+                  f"per block, {info['blocks_per_sm']} resident blocks per "
+                  f"SM")
+            if info["local_bytes"]:
+                fail(f"{kernel} bf16 D={d} spills {info['local_bytes']} "
+                     "bytes per thread to local memory")
+
+
 def _flash_bound(kernel, b, s, h, d, causal, elt):
     """``(bound ms, "bytes" or "operations", flops, bytes)`` at bf16's
     tensor-core peak: operations over 989 TFLOP/s against bytes (each input
@@ -418,7 +447,7 @@ def time_flash_kernels():
 
     from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
 
-    what, b, s, h, d, causal, dtype, _ = FLASH_CASES[0]
+    what, b, s, h, d, causal, dtype, _, _ = FLASH_CASES[0]
     q, k, v, do = _flash_inputs(b, s, h, d, dtype, 1, as_views=True)
     kw = dict(causal=causal, scale=d ** -0.5)
     o, lse = fa.flash_fwd(q, k, v, **kw)
@@ -530,9 +559,9 @@ _CATEGORIES = (
     ("block_quantize", ("block_quantize_kernel",)),
     ("block_dequant_sum", ("block_dequant_sum_kernel",)),
     ("cast_sum", ("cast_sum_kernel",)),
-    ("flash_fwd", ("flash_fwd_kernel",)),
-    ("flash_bwd_dkdv", ("flash_bwd_dkdv_kernel",)),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_fwd", ("flash_fwd_",)),
+    ("flash_bwd_dkdv", ("flash_bwd_dkdv_",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_",)),
     ("nccl", ("nccl",)),
     ("batch norm", ("batch_norm", "batchnorm", "bn_")),
     ("layer norm", ("layer_norm", "layernorm")),
@@ -873,6 +902,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible; this script runs the "
               "port on the card", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import torch.distributed as dist
 
     from pytorch_ps_mpi_tpu_torch import make_ps_group
@@ -910,6 +940,7 @@ def main() -> int:
     sizes = [p.numel() for p in named.values()]
     errs = check_kernels(sizes)
     times = time_kernels(sizes)
+    print_flash_occupancy()
     errs.update(check_flash_kernels())
     times.update(time_flash_kernels())
 
@@ -932,6 +963,8 @@ def main() -> int:
             "bound_by": times[k].get("bound_by", "bytes"),
             "library_ms": times[k]["library_ms"]})
     dist.destroy_process_group()
+    print(f"[env] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+          f"on {torch.cuda.get_device_name(0)}, the kernels' build included")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,8 @@ _SIGNATURES = {
         # scale, causal, stream
         "ps_flash_bwd_dq": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _F, _I, _P),
+        # kind, dtype, d, out[6]
+        "ps_flash_kernel_info": (_I, _I, _I, _P),
     },
 }
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in _SIGNATURES}

@@ -13,6 +13,11 @@ The three Pallas TPU kernels become hand-written Hopper kernels in
   tile, ``p`` recomputed as ``exp(s - lse)``;
 * ``flash_bwd_dq`` — dQ, sweeping k tiles per q tile.
 
+In bf16 the forward and dK/dV kernels are Hopper designs (TMA tile ring,
+wgmma, softmax in registers) over 128-row blocks; dQ and every f32 kernel
+stage their 64-row tiles through shared memory (WMMA for bf16, FMA for
+f32).  ``kernel_info`` reads back how each kernel occupies the card.
+
 `flash_attention` wraps them in a `torch.autograd.Function` (the
 analogue of the JAX ``custom_vjp``).  Its backward computes
 ``delta = rowsum(dO * O)`` as a plain op outside the kernels, as the JAX
@@ -26,8 +31,9 @@ launches per wrapper.  The kernels take head dims 64 and 128; the wrappers
 zero-pad any other ``D <= 128`` up to the next of them and slice the result
 back, which is exact, as the JAX package's lane padding is.
 
-The plain versions (``*_ref``) repeat the Pallas math tile by tile, in the
-kernels' 64-row tiles: f32 scores ``dot(q, k^T) * scale``, the finite
+The plain versions (``*_ref``) repeat the Pallas math tile by tile, over
+the 64-row tiles the kernels stream (k tiles for the forward, q tiles for
+dK/dV, k tiles for dQ): f32 scores ``dot(q, k^T) * scale``, the finite
 ``NEG_INF`` for causal positions and the ragged tail, the running max /
 normaliser / accumulator rescale, ``p`` rounded to the value dtype before
 ``p @ v``, ``lse = m + log(l > 0 ? l : 1)``; in the backward the mask
@@ -46,9 +52,15 @@ import torch.nn.functional as F
 
 from . import _build
 
-TILE = 64          # rows of a q or k tile in the kernels and plain versions
+TILE = 64          # rows of a streamed tile in the kernels and plain versions
 NEG_INF = -1e30    # finite, as in the Pallas kernels: masked rows stay finite
 HEAD_DIMS = (64, 128)
+# Rows of the tile one block of a kernel owns, as csrc/flash_attention.cu
+# launches them (its grid is ceil(S / rows) blocks per (batch, head)):
+# (kernel, dtype, kernel head dim) -> rows, TILE for any not listed.
+BLOCK_ROWS = {("flash_fwd", torch.bfloat16, 64): 128,
+              ("flash_fwd", torch.bfloat16, 128): 128,
+              ("flash_bwd_dkdv", torch.bfloat16, 64): 128}
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 
@@ -221,11 +233,16 @@ def _kernel_dim(q: torch.Tensor) -> int:
 
 
 def _rows_ok(t: torch.Tensor) -> bool:
-    """Unit stride along D and every (batch, seq, head) row start 16-byte
-    aligned: what the kernels' 16-byte loads need."""
+    """Unit stride along D, every (batch, seq, head) row start 16-byte
+    aligned, and the strides nested as ``[D, H, S, B]`` (each at least the
+    extent of the dimensions inside it): what the kernels' 16-byte loads and
+    the TMA tensor maps over ``[D, H, S, B]`` take."""
     size = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(st * size % 16 == 0 for st in t.stride()[:3]))
+    _, s, h, d = t.shape
+    st_b, st_s, st_h, st_d = t.stride()
+    return (st_d == 1 and t.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0 for st in (st_b, st_s, st_h))
+            and st_h >= d and st_s >= h * st_h and st_b >= s * st_s)
 
 
 def _kernel_operand(t: torch.Tensor, dk: int) -> torch.Tensor:
@@ -244,10 +261,13 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_len(b, s, h):
-    if b * h >= 2 ** 31 or s >= 65535 * TILE:
-        raise ValueError(f"flash attention kernels take B*H < 2^31 and "
-                         f"S < {65535 * TILE}, got B={b}, S={s}, H={h}")
+def _check_len(kernel, dtype, dk, b, s, h):
+    """The grid's limits: B*H blocks along x, and at most 65535 blocks of
+    the kernel's ``BLOCK_ROWS`` rows along S."""
+    rows = BLOCK_ROWS.get((kernel, dtype, dk), TILE)
+    if b * h >= 2 ** 31 or s >= 65535 * rows:
+        raise ValueError(f"{kernel} takes B*H < 2^31 and S < "
+                         f"{65535 * rows}, got B={b}, S={s}, H={h}")
 
 
 def flash_fwd(q, k, v, *, causal: bool, scale: float):
@@ -258,7 +278,7 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float):
         return flash_fwd_ref(q, k, v, causal=causal, scale=scale)
     dk = _kernel_dim(q)
     b, s, h, d = q.shape
-    _check_len(b, s, h)
+    _check_len("flash_fwd", q.dtype, dk, b, s, h)
     ops = [_kernel_operand(t, dk) for t in (q, k, v)]
     o = torch.empty((b, s, h, dk), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -274,10 +294,10 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float):
     return (o if dk == d else o[..., :d]), lse
 
 
-def _bwd_kernel_args(q, k, v, do, lse, delta):
+def _bwd_kernel_args(kernel, q, k, v, do, lse, delta):
     dk = _kernel_dim(q)
     b, s, h, _ = q.shape
-    _check_len(b, s, h)
+    _check_len(kernel, q.dtype, dk, b, s, h)
     if (lse.shape != (b, h, s) or delta.shape != (b, h, s)
             or lse.dtype != torch.float32 or delta.dtype != torch.float32):
         raise ValueError("flash attention backward takes lse and delta as "
@@ -294,7 +314,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     if not _on_cuda((q, k, v, do, lse, delta)):
         return flash_bwd_dkdv_ref(q, k, v, do, lse, delta, causal=causal,
                                   scale=scale)
-    dk_, ops, lse, delta = _bwd_kernel_args(q, k, v, do, lse, delta)
+    dk_, ops, lse, delta = _bwd_kernel_args("flash_bwd_dkdv", q, k, v, do,
+                                            lse, delta)
     b, s, h, d = q.shape
     dk = torch.empty((b, s, h, dk_), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -318,7 +339,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     if not _on_cuda((q, k, v, do, lse, delta)):
         return flash_bwd_dq_ref(q, k, v, do, lse, delta, causal=causal,
                                 scale=scale)
-    dk_, ops, lse, delta = _bwd_kernel_args(q, k, v, do, lse, delta)
+    dk_, ops, lse, delta = _bwd_kernel_args("flash_bwd_dq", q, k, v, do, lse,
+                                            delta)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, dk_), dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
@@ -331,6 +353,21 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     _build.check("flash_attention", "flash_bwd_dq", err)
     LAUNCHES["flash_bwd_dq"] += 1
     return dq if dk_ == d else dq[..., :d]
+
+
+def kernel_info(kernel: str, dtype: torch.dtype, d: int) -> "dict[str, int]":
+    """How the CUDA kernel ``kernel`` for ``dtype`` and head dim ``d`` (64 or
+    128) occupies the card: threads and rows per block, dynamic shared
+    memory bytes, registers and local (spilled) bytes per thread, resident
+    blocks per SM.  Needs the card; builds the library on first use."""
+    kind = list(LAUNCHES).index(kernel)
+    out = (ctypes.c_int * 6)()
+    err = _build.library("flash_attention").ps_flash_kernel_info(
+        kind, _DTYPES[dtype], d, out)
+    _build.check("flash_attention", kernel, err)
+    keys = ("threads", "rows", "smem_bytes", "registers", "local_bytes",
+            "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 # ---------------------------------------------------------------------------

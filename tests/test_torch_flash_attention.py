@@ -166,6 +166,51 @@ def test_kernel_head_dims_and_dtypes():
     assert list(fa._strides([q])[:3]) == [8 * 4 * 3 * 64, 4 * 3 * 64, 3 * 64]
 
 
+def _layout(name):
+    """A ``[2, 8, 4, 64]`` bf16 operand in one of four row layouts."""
+    if name == "contiguous":
+        return torch.zeros(2, 8, 4, 64, dtype=torch.bfloat16)
+    if name == "qkv view":
+        return torch.zeros(2, 8, 4, 3, 64, dtype=torch.bfloat16).unbind(3)[1]
+    if name == "heads outside seq":
+        return torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16).transpose(1, 2)
+    return torch.zeros(2, 8, 4, 65, dtype=torch.bfloat16)[..., :64]
+
+
+@pytest.mark.parametrize("name, as_is", [
+    ("contiguous", True), ("qkv view", True),
+    ("heads outside seq", False), ("rows 130 bytes apart", False)])
+def test_kernel_operand_row_layouts(name, as_is):
+    """The layouts the kernels' TMA tensor maps over ``[D, H, S, B]`` take
+    as they are (unit stride along D, 16-byte aligned row starts, strides
+    nested as [D, H, S, B]); the wrappers copy any other to contiguous."""
+    t = _layout(name)
+    assert t.shape == (2, 8, 4, 64)
+    assert fa._rows_ok(t) is as_is
+    op = fa._kernel_operand(t, 64)
+    assert (op.data_ptr() == t.data_ptr()) is as_is
+    assert fa._rows_ok(op) and torch.equal(op, t)
+
+
+@pytest.mark.parametrize("kernel, dtype, dk, rows", [
+    ("flash_fwd", torch.bfloat16, 64, 128),
+    ("flash_fwd", torch.bfloat16, 128, 128),
+    ("flash_bwd_dkdv", torch.bfloat16, 64, 128),
+    ("flash_bwd_dkdv", torch.bfloat16, 128, 64),
+    ("flash_bwd_dq", torch.bfloat16, 64, 64),
+    ("flash_fwd", torch.float32, 64, 64),
+    ("flash_bwd_dkdv", torch.float32, 128, 64)])
+def test_kernel_grid_limits(kernel, dtype, dk, rows):
+    """Each kernel's grid has a block per ``rows`` rows of S (at most
+    65535) and one per (batch, head) (fewer than 2^31)."""
+    assert fa.BLOCK_ROWS.get((kernel, dtype, dk), fa.TILE) == rows
+    fa._check_len(kernel, dtype, dk, 1, 65535 * rows - 1, 1)
+    with pytest.raises(ValueError, match=f"S < {65535 * rows}"):
+        fa._check_len(kernel, dtype, dk, 1, 65535 * rows, 1)
+    with pytest.raises(ValueError, match=r"B\*H < 2\^31"):
+        fa._check_len(kernel, dtype, dk, 2 ** 16, 64, 2 ** 15)
+
+
 def test_operands_must_agree():
     q, k, v = _torch(_qkv(8, s=16))
     with pytest.raises(ValueError, match="one shape"):
