@@ -14,16 +14,21 @@ and carried on from):
 2. Each kernel against its plain PyTorch version on the card:
    * the codec kernels bitwise, at the 62 ResNet-18 parameter sizes (world
      1 and 4, bits 8 and 16, bf16 and f32 wires, an all-zero tile, a NaN
-     tile, ragged tails, unaligned and strided inputs);
+     tile, ragged tails, unaligned and strided inputs), and
+     ``block_quantize``'s clusters: a tile for each cluster size, a tile
+     whose max lies in the last CTA of its cluster, a NaN outside rank 0
+     and a zero tile inside an 8-CTA cluster;
    * the flash attention kernels within stated tolerances, at the LM's
      main-path shape (strided q/k/v views, causal, bf16), D = 128, a ragged
      S, non-causal, a scale override, f32, odd head dims and the edges of
      the bf16 kernels' 128-row blocks, each output also against an f32
-     dense reference, and how the bf16 forward and dK/dV kernels occupy
-     the card (registers, shared memory, blocks per SM);
+     dense reference, and how the three bf16 flash kernels occupy the card
+     (registers, shared memory, blocks per SM; a spill fails the run);
    then each timed with CUDA events at the main path's shapes beside its
    plain version, a library call where one computes the same function,
-   and its bound.
+   and its bound, and ``block_quantize`` also alone on the largest
+   ResNet-18 gradient and on the LM's embedding (device time from a CUDA
+   graph of back-to-back launches).
 3. The ResNet slice through its public entry points: a one-rank NCCL
    group, full-width bf16 ResNet-18 and ``SGD(lr=0.1, momentum=0.9)`` on
    synthetic CIFAR-10 at batch 1024 — 3 warm-up and 10 timed steps with the
@@ -121,6 +126,36 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_graph_ms(fn, calls: int, reps: int = 20) -> float:
+    """Device time of one of the ``calls`` launches that ``fn()`` makes:
+    ``reps`` calls of ``fn`` captured in a CUDA graph and replayed, CUDA
+    events around the replays, so no host time lies between launches."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def check_kernels(sizes):
     """Bitwise checks of every kernel against its plain version; returns
     ``{kernel: max_abs_err}`` (0.0 when every check is bitwise)."""
@@ -144,34 +179,69 @@ def check_kernels(sizes):
     def grad(n, scale):
         return torch.randn(n, device="cuda", generator=gen) * scale
 
-    # (what, flat gradient, rows per tile): the main path's sizes and
-    # tiles, then three 8-row tiles holding a zero tile and a NaN tile, a
-    # ragged tail, and a start only 4-byte aligned (the scalar loads).
+    # (what, flat gradient, rows per tile, None or (kind, tile, element):
+    # a tile whose scale must be 1.0 and whose code at `element` (a NaN)
+    # or everywhere (a zero tile) must be 0).  The main path's sizes and
+    # tiles; three 8-row tiles holding a zero tile and a NaN tile; a ragged
+    # tail and a start only 4-byte aligned (the scalar loads).  Then
+    # block_quantize's clusters (ck.cluster_ctas CTAs per tile, each CTA a
+    # contiguous share): a tile for each cluster size, among them shares
+    # that leave some threads short (72 and 264 rows); at 512 rows (8 CTAs
+    # of 8,192 elements) a tile whose max is its last element (rank 7's
+    # share), a NaN in rank 5's share, a zero tile, and an unaligned start
+    # with a ragged tail over three tiles.
     cases = [(f"resnet18 #{i} n={n}", grad(n, 10.0 ** (i % 5 - 3)),
-              rows_for(n)) for i, n in enumerate(sizes)]
+              rows_for(n), None) for i, n in enumerate(sizes)]
     zero = grad(3 * 1024, 1.0)
     zero[:1024] = 0.0
-    cases.append(("zero tile", zero, 8))
+    cases.append(("zero tile", zero, 8, ("zero", 0, 0)))
     nan = grad(3 * 1024, 1.0)
     nan[1024 + 5] = float("nan")
-    cases.append(("nan tile", nan, 8))
-    cases.append(("ragged tail", grad(512 * 128 + 77, 1.0), 512))
-    cases.append(("unaligned start", grad(70001, 1.0)[1:], 512))
+    cases.append(("nan tile", nan, 8, ("nan", 1, 1024 + 5)))
+    cases.append(("ragged tail", grad(512 * 128 + 77, 1.0), 512, None))
+    cases.append(("unaligned start", grad(70001, 1.0)[1:], 512, None))
+    cluster_rows = (8, 72, 128, 136, 256, 264, 512)
+    sizes_seen = {ck.cluster_ctas(r * ck.LANE) for r in cluster_rows}
+    if sizes_seen != {1, 2, 4, 8}:
+        fail(f"the cluster cases cover cluster sizes {sizes_seen}")
+    for r in cluster_rows:
+        c = ck.cluster_ctas(r * ck.LANE)
+        cases.append((f"{c}-CTA cluster, {r} rows", grad(
+            2 * r * ck.LANE - 3, 1.0), r, None))
+    tile = 512 * ck.LANE
+    last = grad(2 * tile, 1.0)
+    last[tile - 1] = 1e3
+    cases.append(("max in the last CTA", last, 512, None))
+    nan = grad(2 * tile, 1.0)
+    nan[tile + 5 * tile // 8 + 17] = float("nan")
+    cases.append(("NaN in CTA rank 5", nan, 512,
+                  ("nan", 1, tile + 5 * tile // 8 + 17)))
+    zero = grad(2 * tile, 1.0)
+    zero[:tile] = 0.0
+    cases.append(("zero tile, 8-CTA cluster", zero, 512, ("zero", 0, 0)))
+    cases.append(("unaligned ragged, 3 tiles",
+                  grad(3 * tile + 78, 1.0)[1:], 512, None))
+    # Past the registers: 1,024-row tiles, 8 CTAs of 16,384 elements, of
+    # which each thread reads what it does not hold a second time.
+    cases.append(("1024-row tiles", grad(2 * 1024 * ck.LANE - 3, 1.0), 1024,
+                  None))
 
     for bits in (8, 16):
         stacks = []
-        for what, x, rows in cases:
+        for what, x, rows, special in cases:
             q, s = ck.block_quantize(x, bits=bits, block_rows=rows)
             rq, rs = ck.block_quantize_ref(ck.pad_to_blocks(x, rows)[0],
                                            bits=bits, block_rows=rows)
             record("block_quantize", q, rq, f"{what} bits={bits}")
             record("block_quantize", s, rs, f"{what} bits={bits} scales")
-            if what == "nan tile" and not (float(s[1, 0]) == 1.0 and
-                                           int(q.view(-1)[1024 + 5]) == 0):
-                fail("NaN tile: its scale must be 1.0 and the NaN's code 0")
-            if what == "zero tile" and (float(s[0, 0]) != 1.0
-                                        or bool(q[:8].any())):
-                fail("zero tile: its scale must be 1.0 and its codes 0")
+            if special is not None:
+                kind, t, e = special
+                codes = q.view(-1)[t * rows * ck.LANE:(t + 1) * rows * ck.LANE]
+                bad = (bool(codes.any()) if kind == "zero"
+                       else int(q.view(-1)[e]) != 0)
+                if float(s[t, 0]) != 1.0 or bad:
+                    fail(f"{what}: tile {t}'s scale must be 1.0 and its "
+                         f"{'codes' if kind == 'zero' else 'NaN code'} 0")
             stacks.append((what, rows, q, s))
         for world in (1, 4):
             for what, rows, q, s in stacks:
@@ -199,7 +269,7 @@ def check_kernels(sizes):
 
     for dtype in (torch.bfloat16, torch.float32):
         for world in (1, 4):
-            for what, x, _ in cases:
+            for what, x, *_ in cases:
                 wire = torch.stack([x * (r + 1) for r in range(world)]).to(
                     dtype)
                 record("cast_sum", ck.cast_sum(wire), ck.cast_sum_ref(wire),
@@ -270,7 +340,43 @@ def time_kernels(sizes):
               f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
               f"library {lib}, bound {v['bound_ms']:.4f} ms "
               f"({v['bytes']} bytes at 3.35 TB/s)")
+    time_block_quantize_alone(max(sizes))
     return out
+
+
+def time_block_quantize_alone(resnet_max):
+    """block_quantize alone at two main-path sizes, the largest ResNet-18
+    gradient and the LM's token embedding (33,554,432 elements), 512-row
+    tiles: device time per launch from a CUDA graph (eight gradients in
+    turn for the ResNet one, 75 MB, so the 50 MB L2 does not hold the
+    input), and the host-loop time, against the bytes bound."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for what, n, copies in (("ResNet-18 largest", resnet_max, 8),
+                            ("LM embedding", LM["vocab_size"] * LM["d_model"],
+                             1)):
+        grads = [torch.randn(n, device="cuda", generator=gen) * 1e-2
+                 for _ in range(copies)]
+        n_blocks = -(-n // (ck.BLOCK_ROWS * ck.LANE))
+        nbytes = n * 4 + n_blocks * ck.BLOCK_ROWS * ck.LANE + n_blocks * 4
+
+        def run():
+            for g in grads:
+                ck.block_quantize(g)
+
+        graph_ms = time_graph_ms(run, copies)
+        loop_ms = time_ms(run) / copies
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        print(f"[kernels] block_quantize alone, {what} (n={n}, {n_blocks} "
+              f"tiles x {ck.cluster_ctas(ck.BLOCK_ROWS * ck.LANE)} CTAs): "
+              f"device {graph_ms * 1e3:.2f} us per launch (CUDA graph), "
+              f"host loop {loop_ms * 1e3:.2f} us, bound {bound * 1e3:.2f} us "
+              f"({nbytes} bytes at 3.35 TB/s), {bound / graph_ms:.3f} of "
+              f"the bound")
+        del grads
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +408,7 @@ FLASH_CASES = (
 )
 # Kernel against plain version, elementwise |a - b| <= atol + rtol * |b|.
 # Both compute the same tile math, but the products sum in other orders
-# (WMMA or FMA chains against cuBLAS) and exp differs in the last bit, so:
+# (wgmma or FMA chains against cuBLAS) and exp differs in the last bit, so:
 # f32 agrees to f32 rounding of sums of up to S terms; in bf16, p and ds
 # are rounded to bf16 in both, and a last-bit difference in a score can
 # move that rounding by one bf16 step (2^-8 relative), and every output is
@@ -399,13 +505,14 @@ def check_flash_kernels():
 
 
 def print_flash_occupancy():
-    """How the bf16 forward and dK/dV kernels occupy the card, at both
-    head dims, from cudaFuncGetAttributes and the occupancy calculator."""
+    """How the three bf16 flash kernels occupy the card, at both head dims,
+    from cudaFuncGetAttributes and the occupancy calculator; a spill
+    fails."""
     import torch
 
     from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
 
-    for kernel in ("flash_fwd", "flash_bwd_dkdv"):
+    for kernel in FLASH_REPLACES:
         for d in fa.HEAD_DIMS:
             info = fa.kernel_info(kernel, torch.bfloat16, d)
             print(f"[flash] {kernel} bf16 D={d}: {info['threads']} threads "

@@ -44,21 +44,41 @@ constexpr int kWarps = kThreads / 32;
 // Pallas: one grid step per (block_rows x 128) tile, the whole tile in VMEM;
 // amax -> scale -> round -> clip -> cast in one pass over it.
 //
-// Here: one CUDA block per tile (1,024 to 65,536 elements, 4 KB to 256 KB of
-// f32).  A tile does not fit a block's registers or shared memory at its
-// largest, so the block reads it twice: pass 1 reduces max|x| with float4
-// loads, through warp shuffles and then shared memory; thread 0 writes the
-// tile's scale; pass 2 reads the tile again (from L2, which holds 50 MB, so
-// device memory still sees each byte once) and writes the codes four at a
-// time.  The kernel reads the unpadded flat gradient and treats the tail past
-// n as zeros, which saves the padding copy; the codes keep the padded
-// (n_blocks * block_rows, 128) shape.
+// Bound: bytes (each f32 read once, each code written once), so the card's
+// SMs all need loads in flight: one block per tile would keep 36 of the 132
+// SMs busy on ResNet-18's largest gradient (36 tiles of 256 KB), and a tile
+// does not fit one block's registers, so it would be read twice.
+//
+// Here: a thread-block cluster of `c` CTAs per tile (c <= 8, the portable
+// cluster size; the wrapper's cluster_ctas picks it from the tile size), so
+// each CTA's share of the tile, at most kMaxVec float4 groups a thread,
+// sits in registers:
+//   1. each thread starts all of its float4 loads at once, so they are in
+//      flight together, and reduces max|x| over them;
+//   2. warp shuffles, then the CTA through shared memory, give the CTA's
+//      partial max, which its shared memory holds for the cluster;
+//   3. after a cluster barrier one warp reads the c partials through
+//      distributed shared memory (mapa + ld.shared::cluster), and every CTA
+//      derives the same scale; cluster rank 0 writes it to `scales`;
+//   4. each thread quantizes from its registers and stores its codes four
+//      at a time.  A second cluster barrier, arrived at once the partials
+//      are read and waited on before exit, keeps every CTA's shared memory
+//      alive while a peer may still read it.
+// So device memory sees each input byte once and each output byte once, and
+// a 36-tile gradient fills 288 CTAs.  A tile larger than c * kThreads *
+// kMaxVec groups (block_rows > 512) reads what its registers do not hold a
+// second time, from L2.  The kernel reads the unpadded flat gradient and
+// treats the tail past n as zeros, which saves the padding copy; the codes
+// keep the padded (n_blocks * block_rows, 128) shape.
 //
 // NaN: jnp.max propagates NaN, so a tile holding one gets amax = NaN, the
 // scale falls to 1.0 through `amax > 0`, and the NaN element converts to 0.
 // CUDA's fmaxf would drop the NaN, so the reduction runs over the bit
 // patterns of |x| as unsigned integers: for non-negative floats the integer
 // order is the float order, and every NaN sorts above +inf.
+
+constexpr int kMaxCluster = 8;  // CTAs per tile, the portable cluster size
+constexpr int kMaxVec = 8;      // float4 groups a thread holds in registers
 
 __device__ __forceinline__ float4 load4_tail(const float* __restrict__ x,
                                              long long e, long long n,
@@ -74,6 +94,11 @@ __device__ __forceinline__ float4 load4_tail(const float* __restrict__ x,
 
 __device__ __forceinline__ unsigned int abs_bits(float v) {
   return __float_as_uint(fabsf(v));
+}
+
+__device__ __forceinline__ unsigned int abs_bits4(float4 v) {
+  return max(max(abs_bits(v.x), abs_bits(v.y)),
+             max(abs_bits(v.z), abs_bits(v.w)));
 }
 
 __device__ __forceinline__ float quantize_one(float v, float scale,
@@ -96,23 +121,70 @@ __device__ __forceinline__ void store4(int16_t* p, float a, float b, float c,
 }
 
 template <typename QT>
+__device__ __forceinline__ void quantize4(QT* q, float4 v, float scale,
+                                          float qmax) {
+  store4(q, quantize_one(v.x, scale, qmax), quantize_one(v.y, scale, qmax),
+         quantize_one(v.z, scale, qmax), quantize_one(v.w, scale, qmax));
+}
+
+__device__ __forceinline__ unsigned int cluster_rank() {
+  unsigned int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// The word at `p` in the shared memory of cluster CTA `rank`.
+__device__ __forceinline__ unsigned int load_peer(const unsigned int* p,
+                                                  unsigned int rank) {
+  const unsigned int local =
+      static_cast<unsigned int>(__cvta_generic_to_shared(p));
+  unsigned int remote, v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.u32 %0, [%1];"
+               : "=r"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+template <typename QT>
 __global__ void __launch_bounds__(kThreads)
 block_quantize_kernel(const float* __restrict__ x, long long n, int tile,
-                      bool vec, float qmax, QT* __restrict__ q,
+                      int ctas, bool vec, float qmax, QT* __restrict__ q,
                       float* __restrict__ scales) {
-  const long long base = (long long)blockIdx.x * tile;
-  const int groups = tile / 4;
+  const unsigned int rank = cluster_rank();
+  const long long blk = blockIdx.x / ctas;
+  const int share = tile / 4 / ctas;  // float4 groups of this CTA
+  const long long base = blk * tile + 4LL * rank * share;
 
+  float4 v[kMaxVec];
   unsigned int m = 0u;
-  for (int g = threadIdx.x; g < groups; g += kThreads) {
-    float4 v = load4_tail(x, base + 4LL * g, n, vec);
-    m = max(max(m, abs_bits(v.x)), max(abs_bits(v.y), max(abs_bits(v.z),
-                                                           abs_bits(v.w))));
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int g = threadIdx.x + j * kThreads;
+    v[j] = g < share ? load4_tail(x, base + 4LL * g, n, vec)
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) m = max(m, abs_bits4(v[j]));
+  // What the registers do not hold (block_rows > 512 only).
+  for (int g = threadIdx.x + kMaxVec * kThreads; g < share; g += kThreads)
+    m = max(m, abs_bits4(load4_tail(x, base + 4LL * g, n, vec)));
   for (int off = 16; off > 0; off >>= 1)
     m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
 
   __shared__ unsigned int warp_max[kWarps];
+  __shared__ unsigned int cta_max;  // read by the whole cluster
   __shared__ float tile_scale;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -122,23 +194,34 @@ block_quantize_kernel(const float* __restrict__ x, long long n, int tile,
     m = lane < kWarps ? warp_max[lane] : 0u;
     for (int off = 16; off > 0; off >>= 1)
       m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) cta_max = m;
+  }
+  cluster_arrive();  // cta_max is published to the cluster
+  cluster_wait();
+  if (warp == 0) {
+    m = lane < ctas ? load_peer(&cta_max, lane) : 0u;
+    for (int off = 16; off > 0; off >>= 1)
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (lane == 0) {
       const float amax = __uint_as_float(m);
       const float scale = amax > 0.0f ? __fdiv_rn(amax, qmax) : 1.0f;
       tile_scale = scale;
-      scales[blockIdx.x] = scale;
+      if (rank == 0) scales[blk] = scale;
     }
   }
+  cluster_arrive();  // this CTA has read its peers' cta_max
   __syncthreads();
   const float scale = tile_scale;
 
-  for (int g = threadIdx.x; g < groups; g += kThreads) {
-    const long long e = base + 4LL * g;
-    float4 v = load4_tail(x, e, n, vec);
-    store4(q + e, quantize_one(v.x, scale, qmax),
-           quantize_one(v.y, scale, qmax), quantize_one(v.z, scale, qmax),
-           quantize_one(v.w, scale, qmax));
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int g = threadIdx.x + j * kThreads;
+    if (g < share) quantize4(q + base + 4LL * g, v[j], scale, qmax);
   }
+  for (int g = threadIdx.x + kMaxVec * kThreads; g < share; g += kThreads)
+    quantize4(q + base + 4LL * g, load4_tail(x, base + 4LL * g, n, vec),
+              scale, qmax);
+  cluster_wait();  // no peer reads this CTA's cta_max any more
 }
 
 // ---------------------------------------------------------------------------
@@ -272,22 +355,38 @@ inline unsigned int grid_for(long long groups) {
 extern "C" {
 
 // x: n contiguous f32 (16-byte aligned when vec); q: (n_blocks * tile)
-// int8 (bits 8) or int16 (bits 16); scales: n_blocks f32.
+// int8 (bits 8) or int16 (bits 16); scales: n_blocks f32.  ctas: the
+// cluster size, CTAs per tile (1, 2, 4 or 8, dividing the tile's float4
+// groups).
 int ps_block_quantize(const void* x, long long n, int tile,
-                      long long n_blocks, int bits, int vec, void* q,
-                      void* scales, void* stream) {
+                      long long n_blocks, int bits, int vec, int ctas,
+                      void* q, void* scales, void* stream) {
+  if (ctas < 1 || ctas > kMaxCluster || (ctas & (ctas - 1)) || tile % 4 ||
+      (tile / 4) % ctas || n_blocks * ctas > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   const float qmax = (float)((1 << (bits - 1)) - 1);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bits == 8) {
-    block_quantize_kernel<int8_t><<<(unsigned int)n_blocks, kThreads, 0, s>>>(
-        (const float*)x, n, tile, vec != 0, qmax, (int8_t*)q,
-        (float*)scales);
-  } else {
-    block_quantize_kernel<int16_t><<<(unsigned int)n_blocks, kThreads, 0, s>>>(
-        (const float*)x, n, tile, vec != 0, qmax, (int16_t*)q,
-        (float*)scales);
-  }
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned int)(n_blocks * ctas));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = (unsigned int)ctas;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  const float* xf = (const float*)x;
+  cudaError_t err;
+  if (bits == 8)
+    err = cudaLaunchKernelEx(&cfg, block_quantize_kernel<int8_t>, xf, n, tile,
+                             ctas, vec != 0, qmax, (int8_t*)q,
+                             (float*)scales);
+  else
+    err = cudaLaunchKernelEx(&cfg, block_quantize_kernel<int16_t>, xf, n,
+                             tile, ctas, vec != 0, qmax, (int16_t*)q,
+                             (float*)scales);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // q: world rows of `total` codes, q_rank_stride apart; scales: world rows of

@@ -23,18 +23,17 @@
 //
 // Two designs live here:
 //
-//   * bf16 forward and dK/dV (flash_fwd_bf16_kernel,
-//     flash_bwd_dkdv_bf16_kernel): Hopper kernels built from TMA, mbarriers
-//     and wgmma, with every score, probability and accumulator tile in
-//     registers.  Their notes stand beside them, below.
-//   * the f32 forward and dK/dV, and dQ in both dtypes
-//     (flash_fwd_f32_kernel, flash_bwd_dkdv_f32_kernel,
-//     flash_bwd_dq_kernel): one block of 256 threads per 64-row tile,
-//     every tile staged through shared memory as f32 with block barriers
-//     between phases, the softmax and masking one row per warp.  Their
-//     products run as WMMA 16x16x16 for bf16 (bf16 operands, f32 sums: the
-//     MXU's preferred_element_type=f32) and as f32 FMAs for f32, which keeps
-//     f32 exact (no TF32: the CLI's f32 LM would change function).
+//   * bf16, all three kernels (flash_fwd_bf16_kernel,
+//     flash_bwd_dkdv_bf16_kernel, flash_bwd_dq_bf16_kernel): Hopper kernels
+//     built from TMA, mbarriers and wgmma, with every score, probability
+//     and accumulator tile in registers.  Their notes stand beside them,
+//     below.
+//   * f32, all three kernels (flash_fwd_f32_kernel,
+//     flash_bwd_dkdv_f32_kernel, flash_bwd_dq_f32_kernel): one block of
+//     256 threads per 64-row tile, every tile staged through shared memory
+//     with block barriers between phases, the softmax and masking one row
+//     per warp, and the products as f32 FMAs, which keeps f32 exact (no
+//     TF32: the CLI's f32 LM would change function).
 //
 // In both, each block owns one tile of one (batch, head) and loops over the
 // other operand's tiles itself, as the Pallas grid's sequential axis did
@@ -62,18 +61,15 @@
                    // the runtime (tensor_map_encoder), so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
-// Geometry of the shared-memory kernels (f32, and dQ): 256 threads per
-// block, 64-row tiles.
+// Geometry of the shared-memory (f32) kernels: 256 threads per block,
+// 64-row tiles.
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;  // rows of a q or k tile
@@ -99,17 +95,6 @@ struct Args {
   int causal;
 };
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -127,24 +112,24 @@ __host__ __device__ constexpr size_t up128(size_t n) {
 }
 
 // Leading dims in shared memory: each row padded by 16 bytes (fewer bank
-// conflicts; still a multiple of 16 bytes, as WMMA and uint4 need).
-template <typename T, int D>
+// conflicts; still a multiple of 16 bytes, as uint4 needs).
+template <int D>
 struct Ld {
-  static constexpr int kT = D + 16 / (int)sizeof(T);  // q/k/v/do tiles
-  static constexpr int kS = kTile + 4;                 // f32 score tiles
-  static constexpr int kP = kTile + 8;                 // bf16 ds tiles (dQ)
-  static constexpr int kO = D + 4;                     // f32 accumulators
+  static constexpr int kT = D + 4;      // q/k/v/do tiles
+  static constexpr int kS = kTile + 4;  // score tiles
+  static constexpr int kO = D + 4;      // accumulators
 };
 
 // rows x D elements of one (b, h) slice, from sequence row row0 on, into
 // shared memory with leading dim ld; rows at or past L read as zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          const Strides& st, int b, int h,
-                                          int row0, int rows, int L) {
-  constexpr int kVec = 16 / (int)sizeof(T);
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld,
+                                          const float* src, const Strides& st,
+                                          int b, int h, int row0, int rows,
+                                          int L) {
+  constexpr int kVec = 4;
   constexpr int kChunks = D / kVec;
-  const T* base = src + b * st.b + h * st.h;
+  const float* base = src + b * st.b + h * st.h;
   for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * kVec;
     const int pos = row0 + r;
@@ -165,44 +150,11 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
   }
 }
 
-// C[M x N] (f32, row-major, ldc) = [C +] A[M x K] . B[K x N], all in shared
+// C[M x N] (row-major, ldc) = [C +] A[M x K] . B[K x N], all in shared
 // memory.  A(i, k) is A[i * lda + k], or A[k * lda + i] with TA; B(k, j) is
-// B[k * ldb + j], or B[j * ldb + k] with TB.  Warps (bf16) or threads (f32)
-// own disjoint output tiles, so no two write the same element.
-//
-// bf16: WMMA 16x16x16 on the tensor cores, bf16 operands and f32 sums.
-template <int M, int N, int K, bool TA, bool TB, bool ACC>
-__device__ __forceinline__ void gemm(const bf16* A, int lda, const bf16* B,
-                                     int ldb, float* C, int ldc) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<TA, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<TB, wmma::col_major,
-                                       wmma::row_major>::type;
-  static_assert(M % 16 == 0 && N % 16 == 0 && K % 16 == 0, "WMMA tiles");
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * (N / 16); t += kWarps) {
-    const int i0 = (t / (N / 16)) * 16, j0 = (t % (N / 16)) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (ACC)
-      wmma::load_matrix_sync(c, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> bm;
-      wmma::load_matrix_sync(a, TA ? A + k0 * lda + i0 : A + i0 * lda + k0,
-                             lda);
-      wmma::load_matrix_sync(bm, TB ? B + j0 * ldb + k0 : B + k0 * ldb + j0,
-                             ldb);
-      wmma::mma_sync(c, a, bm, c);
-    }
-    wmma::store_matrix_sync(C + i0 * ldc + j0, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// f32: FMAs, a 4x4 register tile of C per thread and step.
+// B[k * ldb + j], or B[j * ldb + k] with TB.  f32 FMAs, a 4x4 register tile
+// of C per thread and step; threads own disjoint output tiles, so no two
+// write the same element.
 template <int M, int N, int K, bool TA, bool TB, bool ACC>
 __device__ __forceinline__ void gemm(const float* A, int lda, const float* B,
                                      int ldb, float* C, int ldc) {
@@ -237,8 +189,8 @@ __device__ __forceinline__ void gemm(const float* A, int lda, const float* B,
   }
 }
 
-// Shared-memory carving: each buffer starts on a 128-byte boundary (WMMA
-// wants 32-byte aligned tile pointers, uint4 16).
+// Shared-memory carving: each buffer starts on a 128-byte boundary (uint4
+// wants 16).
 struct Carve {
   char* p;
   template <typename U>
@@ -256,7 +208,7 @@ struct Carve {
 
 template <int D>
 __host__ __device__ constexpr size_t fwd_f32_smem_bytes() {
-  using L = Ld<float, D>;
+  using L = Ld<D>;
   return 3 * up128(kTile * L::kT * 4)  // q, k, v
          + up128(kTile * L::kS * 4)    // scores, then p
          + up128(kTile * L::kO * 4)    // acc
@@ -265,7 +217,7 @@ __host__ __device__ constexpr size_t fwd_f32_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
-  using L = Ld<float, D>;
+  using L = Ld<D>;
   extern __shared__ __align__(128) char smem[];
   Carve cv{smem};
   float* sQ = cv.take<float>(kTile * L::kT);
@@ -283,8 +235,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
   int n_k = (a.L + kTile - 1) / kTile;
   if (a.causal) n_k = min(n_k, (q0 + kTile - 1) / kTile + 1);
 
-  load_tile<float, D>(sQ, L::kT, static_cast<const float*>(a.q), a.sq, b, h,
-                      q0, kTile, a.L);
+  load_tile<D>(sQ, L::kT, static_cast<const float*>(a.q), a.sq, b, h,
+               q0, kTile, a.L);
   for (int i = tid; i < kTile * L::kO; i += kThreads) sO[i] = 0.0f;
   for (int i = tid; i < kTile; i += kThreads) {
     sM[i] = kNegInf;
@@ -294,10 +246,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the last step's products are done with sK, sV, sS
-    load_tile<float, D>(sK, L::kT, static_cast<const float*>(a.k), a.sk, b, h,
-                        k0, kTile, a.L);
-    load_tile<float, D>(sV, L::kT, static_cast<const float*>(a.v), a.sv, b, h,
-                        k0, kTile, a.L);
+    load_tile<D>(sK, L::kT, static_cast<const float*>(a.k), a.sk, b, h,
+                 k0, kTile, a.L);
+    load_tile<D>(sV, L::kT, static_cast<const float*>(a.v), a.sv, b, h,
+                 k0, kTile, a.L);
     __syncthreads();
     gemm<kTile, kTile, D, false, true, false>(sQ, L::kT, sK, L::kT, sS,
                                               L::kS);
@@ -362,13 +314,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
 // ---------------------------------------------------------------------------
 
 // p and ds of one (q tile, k tile) pair from the scores sS and dP = do.v^T
-// in sdP.  f32: written over sS and sdP; bf16: ds rounded into sdS.
-template <typename T, int BQ>
+// in sdP, written over them.
+template <int BQ>
 __device__ __forceinline__ void bwd_probs(const Args& a, float* sS,
-                                          float* sdP, bf16* sdS,
-                                          const float* sLse,
+                                          float* sdP, const float* sLse,
                                           const float* sDelta, int q0,
-                                          int k0, int lds, int ldp) {
+                                          int k0, int lds) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BQ; r += kWarps) {
     const int qpos = q0 + r;
@@ -378,26 +329,20 @@ __device__ __forceinline__ void bwd_probs(const Args& a, float* sS,
       const bool ok = kpos < a.L && qpos < a.L && (!a.causal || qpos >= kpos);
       const float s = sS[r * lds + c] * a.scale;
       const float p = expf(ok ? s - lse : kNegInf);
-      const float ds = p * (sdP[r * lds + c] - dlt) * a.scale;
-      if constexpr (std::is_same<T, bf16>::value) {
-        sdS[r * ldp + c] = __float2bfloat16_rn(ds);
-      } else {
-        sS[r * lds + c] = p;
-        sdP[r * lds + c] = ds;
-      }
+      sdP[r * lds + c] = p * (sdP[r * lds + c] - dlt) * a.scale;
+      sS[r * lds + c] = p;
     }
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float* acc, int ld,
-                                           const Args& a, int b, int h,
-                                           int row0, int rows) {
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float* acc,
+                                           int ld, const Args& a, int b,
+                                           int h, int row0, int rows) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D, c = i % D, pos = row0 + r;
     if (pos >= a.L) continue;
-    out[(((long long)b * a.L + pos) * a.H + h) * D + c] =
-        from_f32<T>(acc[r * ld + c]);
+    out[(((long long)b * a.L + pos) * a.H + h) * D + c] = acc[r * ld + c];
   }
 }
 
@@ -414,7 +359,7 @@ __host__ __device__ constexpr int dkdv_f32_bq() {
 
 template <int D>
 __host__ __device__ constexpr size_t dkdv_f32_smem_bytes() {
-  using L = Ld<float, D>;
+  using L = Ld<D>;
   constexpr int BQ = dkdv_f32_bq<D>();
   return 2 * up128(kTile * L::kT * 4)   // k, v
          + 2 * up128(BQ * L::kT * 4)    // q, do
@@ -425,7 +370,7 @@ __host__ __device__ constexpr size_t dkdv_f32_smem_bytes() {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(Args a) {
-  using L = Ld<float, D>;
+  using L = Ld<D>;
   constexpr int BQ = dkdv_f32_bq<D>();
   extern __shared__ __align__(128) char smem[];
   Carve cv{smem};
@@ -447,10 +392,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(Args a) {
   // Causal: q tile i meets this k tile iff its last row (i+1)*BQ-1 >= k0.
   const int i0 = a.causal ? k0 / BQ : 0;
 
-  load_tile<float, D>(sK, L::kT, static_cast<const float*>(a.k), a.sk, b, h,
-                      k0, kTile, a.L);
-  load_tile<float, D>(sV, L::kT, static_cast<const float*>(a.v), a.sv, b, h,
-                      k0, kTile, a.L);
+  load_tile<D>(sK, L::kT, static_cast<const float*>(a.k), a.sk, b, h,
+               k0, kTile, a.L);
+  load_tile<D>(sV, L::kT, static_cast<const float*>(a.v), a.sv, b, h,
+               k0, kTile, a.L);
   for (int i = tid; i < kTile * L::kO; i += kThreads) {
     sdK[i] = 0.0f;
     sdV[i] = 0.0f;
@@ -459,10 +404,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(Args a) {
   for (int it = i0; it < n_q; ++it) {
     const int q0 = it * BQ;
     __syncthreads();  // the last step's products are done with the q side
-    load_tile<float, D>(sQ, L::kT, static_cast<const float*>(a.q), a.sq, b, h,
-                        q0, BQ, a.L);
-    load_tile<float, D>(sdO, L::kT, static_cast<const float*>(a.dout), a.sdo,
-                        b, h, q0, BQ, a.L);
+    load_tile<D>(sQ, L::kT, static_cast<const float*>(a.q), a.sq, b, h,
+                 q0, BQ, a.L);
+    load_tile<D>(sdO, L::kT, static_cast<const float*>(a.dout), a.sdo,
+                 b, h, q0, BQ, a.L);
     load_vec(sLse, a.lse, bh, a.L, q0, BQ);
     load_vec(sDelta, a.delta, bh, a.L, q0, BQ);
     __syncthreads();
@@ -470,47 +415,40 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_f32_kernel(Args a) {
     gemm<BQ, kTile, D, false, true, false>(sdO, L::kT, sV, L::kT, sdP,
                                            L::kS);
     __syncthreads();
-    bwd_probs<float, BQ>(a, sS, sdP, nullptr, sLse, sDelta, q0, k0, L::kS, 0);
+    bwd_probs<BQ>(a, sS, sdP, sLse, sDelta, q0, k0, L::kS);
     __syncthreads();
     gemm<kTile, D, BQ, true, false, true>(sS, L::kS, sdO, L::kT, sdV, L::kO);
     gemm<kTile, D, BQ, true, false, true>(sdP, L::kS, sQ, L::kT, sdK, L::kO);
   }
   __syncthreads();
-  store_rows<float, D>(static_cast<float*>(a.out0), sdK, L::kO, a, b, h, k0,
-                       kTile);
-  store_rows<float, D>(static_cast<float*>(a.out1), sdV, L::kO, a, b, h, k0,
-                       kTile);
+  store_rows<D>(static_cast<float*>(a.out0), sdK, L::kO, a, b, h, k0, kTile);
+  store_rows<D>(static_cast<float*>(a.out1), sdV, L::kO, a, b, h, k0, kTile);
 }
 
 // ---------------------------------------------------------------------------
-// backward, shared-memory design: dQ (one block per q tile, sweeping k
-// tiles)
+// backward, f32: dQ (one block per q tile, sweeping k tiles)
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__host__ __device__ constexpr size_t dq_smem_bytes() {
-  using L = Ld<T, D>;
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  return 4 * up128(kTile * L::kT * sizeof(T))   // q, do, k, v
-         + 2 * up128(kTile * L::kS * 4)         // s, dp
-         + (kBf16 ? up128(kTile * L::kP * 2) : 0)  // bf16 ds
-         + up128(kTile * L::kO * 4)             // dq
-         + 2 * up128(kTile * 4);                // lse, delta
+template <int D>
+__host__ __device__ constexpr size_t dq_f32_smem_bytes() {
+  using L = Ld<D>;
+  return 4 * up128(kTile * L::kT * 4)    // q, do, k, v
+         + 2 * up128(kTile * L::kS * 4)  // s then p, dp then ds
+         + up128(kTile * L::kO * 4)      // dq
+         + 2 * up128(kTile * 4);         // lse, delta
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
-  using L = Ld<T, D>;
-  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
+  using L = Ld<D>;
   extern __shared__ __align__(128) char smem[];
   Carve cv{smem};
-  T* sQ = cv.take<T>(kTile * L::kT);
-  T* sdO = cv.take<T>(kTile * L::kT);
-  T* sK = cv.take<T>(kTile * L::kT);
-  T* sV = cv.take<T>(kTile * L::kT);
+  float* sQ = cv.take<float>(kTile * L::kT);
+  float* sdO = cv.take<float>(kTile * L::kT);
+  float* sK = cv.take<float>(kTile * L::kT);
+  float* sV = cv.take<float>(kTile * L::kT);
   float* sS = cv.take<float>(kTile * L::kS);
   float* sdP = cv.take<float>(kTile * L::kS);
-  bf16* sdS = kBf16 ? cv.take<bf16>(kTile * L::kP) : nullptr;
   float* sdQ = cv.take<float>(kTile * L::kO);
   float* sLse = cv.take<float>(kTile);
   float* sDelta = cv.take<float>(kTile);
@@ -522,38 +460,34 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args a) {
   int n_k = (a.L + kTile - 1) / kTile;
   if (a.causal) n_k = min(n_k, (q0 + kTile - 1) / kTile + 1);
 
-  load_tile<T, D>(sQ, L::kT, static_cast<const T*>(a.q), a.sq, b, h, q0,
-                  kTile, a.L);
-  load_tile<T, D>(sdO, L::kT, static_cast<const T*>(a.dout), a.sdo, b, h, q0,
-                  kTile, a.L);
+  load_tile<D>(sQ, L::kT, static_cast<const float*>(a.q), a.sq, b, h, q0,
+               kTile, a.L);
+  load_tile<D>(sdO, L::kT, static_cast<const float*>(a.dout), a.sdo, b, h,
+               q0, kTile, a.L);
   load_vec(sLse, a.lse, bh, a.L, q0, kTile);
   load_vec(sDelta, a.delta, bh, a.L, q0, kTile);
   for (int i = tid; i < kTile * L::kO; i += kThreads) sdQ[i] = 0.0f;
 
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();  // the last step's product is done with sK and sdS
-    load_tile<T, D>(sK, L::kT, static_cast<const T*>(a.k), a.sk, b, h, k0,
-                    kTile, a.L);
-    load_tile<T, D>(sV, L::kT, static_cast<const T*>(a.v), a.sv, b, h, k0,
-                    kTile, a.L);
+    __syncthreads();  // the last step's product is done with sK and sdP
+    load_tile<D>(sK, L::kT, static_cast<const float*>(a.k), a.sk, b, h, k0,
+                 kTile, a.L);
+    load_tile<D>(sV, L::kT, static_cast<const float*>(a.v), a.sv, b, h, k0,
+                 kTile, a.L);
     __syncthreads();
     gemm<kTile, kTile, D, false, true, false>(sQ, L::kT, sK, L::kT, sS,
                                               L::kS);
     gemm<kTile, kTile, D, false, true, false>(sdO, L::kT, sV, L::kT, sdP,
                                               L::kS);
     __syncthreads();
-    bwd_probs<T, kTile>(a, sS, sdP, sdS, sLse, sDelta, q0, k0, L::kS, L::kP);
+    bwd_probs<kTile>(a, sS, sdP, sLse, sDelta, q0, k0, L::kS);
     __syncthreads();
-    if constexpr (kBf16)
-      gemm<kTile, D, kTile, false, false, true>(sdS, L::kP, sK, L::kT, sdQ,
-                                                L::kO);
-    else
-      gemm<kTile, D, kTile, false, false, true>(sdP, L::kS, sK, L::kT, sdQ,
-                                                L::kO);
+    gemm<kTile, D, kTile, false, false, true>(sdP, L::kS, sK, L::kT, sdQ,
+                                              L::kO);
   }
   __syncthreads();
-  store_rows<T, D>(static_cast<T*>(a.out0), sdQ, L::kO, a, b, h, q0, kTile);
+  store_rows<D>(static_cast<float*>(a.out0), sdQ, L::kO, a, b, h, q0, kTile);
 }
 
 // ---------------------------------------------------------------------------
@@ -1204,6 +1138,215 @@ __global__ void __launch_bounds__(DkdvBf16<D>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// backward, bf16: dQ (Hopper design)
+// ---------------------------------------------------------------------------
+//
+// Replaces _bwd_call's second call, _bwd_dq_kernel
+// (pytorch_ps_mpi_tpu/ops/flash_attention.py).
+//
+// Bound: operations (three products per (q, k) pair), so the products run
+// on wgmma from tiles that TMA keeps in flight, and nothing the products
+// make goes through shared memory.
+//
+// Design.  The dK/dV kernel with the owned and streamed operands swapped:
+// one block per q tile of one (batch, head), kConsumers warpgroups of 64 q
+// rows and one producer warp, sweeping the k tiles up to the causal
+// diagonal.
+//   * Q and dO (the block's rows) are loaded once by TMA; K and V stream
+//     through a ring of kStages stages of 64 k rows, with full/empty
+//     mbarriers as in the forward.  lse and delta belong to q rows, so each
+//     consumer thread loads its two rows' values once into registers (a TMA
+//     box of the flat [B * H * L] vectors would start at bh * L + q0, not
+//     16-byte aligned when L is odd); zero past L, as the plain version pads
+//     them.
+//   * S = Q.K^T and dP = dO.V^T run as wgmma m64n64k16 from shared memory
+//     (both operands K-major over D) into registers, so each thread owns q
+//     rows, the rows dQ sums over.  P = exp(mask ? S * scale - lse :
+//     NEG_INF) and dS = P (dP - delta) scale are formed a column pair at a
+//     time and rounded to bf16 pairs at once: the accumulator layout of one
+//     product is the register A layout of the next, so dS needs no shuffle.
+//   * dQ += dS.K runs as wgmma with dS in registers and K from shared memory
+//     as an MN-major B operand (N = D), as dK/dV reads Q for dK += dS^T.Q.
+//     The dQ accumulator stays in registers for the whole sweep and is
+//     written once, as bf16 pairs straight into [B, L, H, D].
+//   * Causal: the block stops at its last row's diagonal; a warpgroup waits
+//     for and releases the stages wholly above its own rows; the heaviest
+//     q tiles are launched first.  Only tiles on the diagonal or past L are
+//     masked, before the exp.
+// Registers: dQ (D / 2 f32 a thread), S and dP (32 each) and the packed dS
+// (16) are 112 values at D = 64 and 144 at D = 128; ptxas gives 128 and 160
+// registers a thread, no spill, under the 168 of a block of nine warps, so
+// both head dims take two consumer warpgroups.
+// Shared memory: Q, dO kRows x D plus kStages x (K, V) of 64 x D, bf16:
+// 64 KB at D = 64, 128 KB at D = 128, plus 1 KB of alignment and the
+// barriers.
+template <int D>
+struct DqBf16 {
+  static constexpr int kConsumers = 2;            // warpgroups
+  static constexpr int kRows = 64 * kConsumers;   // q rows per block
+  static constexpr int kKRows = 64;               // k rows per ring stage
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 128 * kConsumers + 32;
+  static constexpr int kQBytes = kRows * D * 2;    // one of Q, dO
+  static constexpr int kKVBytes = kKRows * D * 2;  // one of K, V per stage
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 128;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqBf16<D>::kThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             Args a) {
+  using C = DqBf16<D>;
+  constexpr int kBK = C::kKRows, kS = C::kStages, kPanels = D / 64;
+  constexpr int kConsumerThreads = 128 * C::kConsumers;
+  extern __shared__ char smem_raw[];
+  char* sQ = align1024(smem_raw);
+  char* sdO = sQ + C::kQBytes;
+  char* sK = sdO + C::kQBytes;  // stage s at s * kKVBytes
+  char* sV = sK + kS * C::kKVBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(sV + kS * C::kKVBytes);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + kS;
+
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int n_q = (a.L + C::kRows - 1) / C::kRows;
+  const int q0 = (n_q - 1 - (int)blockIdx.y) * C::kRows;  // heaviest first
+  int n_k = (a.L + kBK - 1) / kBK;
+  if (a.causal) n_k = min(n_k, (q0 + C::kRows - 1) / kBK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warp
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(full_q, 2 * C::kQBytes);
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load_4d(sQ + p * C::kRows * 128, &tq, full_q, 64 * p, h, q0, b);
+        tma_load_4d(sdO + p * C::kRows * 128, &tdo, full_q, 64 * p, h, q0,
+                    b);
+      }
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % kS;
+        mbar_wait(&empty[s], ((kt / kS) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::kKVBytes);
+        for (int p = 0; p < kPanels; ++p) {
+          const int off = s * C::kKVBytes + p * kBK * 128;
+          tma_load_4d(sK + off, &tk, &full[s], 64 * p, h, kt * kBK, b);
+          tma_load_4d(sV + off, &tv, &full[s], 64 * p, h, kt * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int wq0 = q0 + 64 * wg;                // this warpgroup's first row
+  const int r0 = wq0 + 16 * warp + lane / 4;   // q rows r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);               // k columns c0, c0 + 1 of 8
+  const int wn_k = a.causal ? min(n_k, (wq0 + 63) / kBK + 1) : n_k;
+  const char* sQw = sQ + wg * 64 * 128;
+  const char* sdOw = sdO + wg * 64 * 128;
+
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int pos = r0 + 8 * hr;
+    const long long at = (long long)bh * a.L + pos;
+    lse[hr] = pos < a.L ? a.lse[at] : 0.0f;
+    dlt[hr] = pos < a.L ? a.delta[at] : 0.0f;
+  }
+  float dq[D / 2], s[kBK / 2], dp[kBK / 2];
+  uint32_t da[kBK / 4];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) s[i] = dp[i] = 0.0f;
+
+  mbar_wait(full_q, 0);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int st = kt % kS;
+    mbar_wait(&full[st], (kt / kS) & 1);
+    if (kt < wn_k) {
+      const char* sKs = sK + st * C::kKVBytes;
+      const char* sVs = sV + st * C::kKVBytes;
+      // S = Q.K^T and dP = dO.V^T over D.
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(s, kmajor_desc(sQw, C::kRows, kk), kmajor_desc(sKs, kBK, kk),
+                 kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss(dp, kmajor_desc(sdOw, C::kRows, kk),
+                 kmajor_desc(sVs, kBK, kk), kk);
+      wg_commit();
+      wg_wait_all();
+      reg_fence(s);
+      reg_fence(dp);
+
+      const int k0 = kt * kBK;
+      const bool edge = (a.causal && k0 + kBK - 1 > wq0) || k0 + kBK > a.L ||
+                        wq0 + 64 > a.L;
+      // A column pair at a time, packed as soon as formed: S and dP die
+      // pair by pair.
+#pragma unroll
+      for (int i = 0; i < kBK / 4; ++i) {
+        const int hr = i & 1;  // elements 2i, 2i + 1 lie in row r0 + 8 hr
+        float ds[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = 2 * i + u;
+          bool ok = true;
+          if (edge) {
+            const int qpos = r0 + 8 * hr, kpos = k0 + 8 * (i >> 1) + c0 + u;
+            ok = qpos < a.L && kpos < a.L && (!a.causal || qpos >= kpos);
+          }
+          const float p = expf(ok ? s[e] * a.scale - lse[hr] : kNegInf);
+          ds[u] = p * (dp[e] - dlt[hr]) * a.scale;
+        }
+        da[i] = pack_bf16(ds[0], ds[1]);
+      }
+
+      // dQ += dS.K over the stage's k rows.
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs(dq, da + 4 * kk, mnmajor_desc(sKs, kBK, kk));
+      wg_commit();
+      wg_wait_all();
+      reg_fence(dq);
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+  bf16* out = static_cast<bf16*>(a.out0);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int pos = r0 + 8 * hr;
+    if (pos >= a.L) continue;
+    const long long row = (((long long)b * a.L + pos) * a.H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hr;
+      *reinterpret_cast<__nv_bfloat162*>(out + row + 8 * j + c0) =
+          __floats2bfloat162_rn(dq[i], dq[i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1228,16 +1371,16 @@ Geometry geometry(Kind kind, int dtype) {
     return {(const void*)flash_bwd_dkdv_bf16_kernel<D>, DkdvBf16<D>::kThreads,
             DkdvBf16<D>::kRows, DkdvBf16<D>::kQRows, DkdvBf16<D>::kSmem};
   if (dtype == 1)
-    return {(const void*)flash_bwd_dq_kernel<bf16, D>, kThreads, kTile, 0,
-            dq_smem_bytes<bf16, D>()};
+    return {(const void*)flash_bwd_dq_bf16_kernel<D>, DqBf16<D>::kThreads,
+            DqBf16<D>::kRows, DqBf16<D>::kKRows, DqBf16<D>::kSmem};
   if (kind == kFwd)
     return {(const void*)flash_fwd_f32_kernel<D>, kThreads, kTile, 0,
             fwd_f32_smem_bytes<D>()};
   if (kind == kDkdv)
     return {(const void*)flash_bwd_dkdv_f32_kernel<D>, kThreads, kTile, 0,
             dkdv_f32_smem_bytes<D>()};
-  return {(const void*)flash_bwd_dq_kernel<float, D>, kThreads, kTile, 0,
-          dq_smem_bytes<float, D>()};
+  return {(const void*)flash_bwd_dq_f32_kernel<D>, kThreads, kTile, 0,
+          dq_f32_smem_bytes<D>()};
 }
 
 bool find_geometry(Kind kind, int dtype, int d, Geometry* g) {
@@ -1320,20 +1463,21 @@ cudaError_t dispatch(Kind kind, int dtype, int d, const Args& a,
     return launch(g, params, a, s);
   }
   // The Hopper kernels read their operands through TMA tensor maps, passed
-  // by value (__grid_constant__).
+  // by value (__grid_constant__), in boxes of the rows a block owns (q and
+  // dO for the forward and dQ, k and v for dK/dV) or of a ring stage.
+  const bool owns_q = kind != kDkdv;
+  const int q_rows = owns_q ? g.rows : g.ring_rows;
+  const int k_rows = owns_q ? g.ring_rows : g.rows;
   CUtensorMap tq, tk, tv, tdo;
+  if (!rows_map(&tq, a.q, a.sq, d, a, q_rows) ||
+      !rows_map(&tk, a.k, a.sk, d, a, k_rows) ||
+      !rows_map(&tv, a.v, a.sv, d, a, k_rows))
+    return cudaErrorInvalidValue;
   if (kind == kFwd) {
-    if (!rows_map(&tq, a.q, a.sq, d, a, g.rows) ||
-        !rows_map(&tk, a.k, a.sk, d, a, g.ring_rows) ||
-        !rows_map(&tv, a.v, a.sv, d, a, g.ring_rows))
-      return cudaErrorInvalidValue;
     void* params[] = {&tq, &tk, &tv, &args};
     return launch(g, params, a, s);
   }
-  if (!rows_map(&tq, a.q, a.sq, d, a, g.ring_rows) ||
-      !rows_map(&tk, a.k, a.sk, d, a, g.rows) ||
-      !rows_map(&tv, a.v, a.sv, d, a, g.rows) ||
-      !rows_map(&tdo, a.dout, a.sdo, d, a, g.ring_rows))
+  if (!rows_map(&tdo, a.dout, a.sdo, d, a, q_rows))
     return cudaErrorInvalidValue;
   void* params[] = {&tq, &tk, &tv, &tdo, &args};
   return launch(g, params, a, s);

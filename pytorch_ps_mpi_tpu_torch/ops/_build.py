@@ -38,8 +38,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # ``ps_error_string``.
 _SIGNATURES = {
     "codec_kernels": {
-        # x, n, tile, n_blocks, bits, vec, q, scales, stream
-        "ps_block_quantize": (_P, _L, _I, _L, _I, _I, _P, _P, _P),
+        # x, n, tile, n_blocks, bits, vec, ctas, q, scales, stream
+        "ps_block_quantize": (_P, _L, _I, _L, _I, _I, _I, _P, _P, _P),
         # q, q_rank_stride, bits, scales, s_rank_stride, world, total, tile,
         # out, stream
         "ps_block_dequant_sum": (_P, _L, _I, _P, _L, _I, _L, _I, _P, _P),

@@ -7,6 +7,8 @@ kernels of the codec hot path become hand-written Hopper kernels in
 * ``block_quantize`` — per ``(block_rows, 128)`` tile: ``amax = max|x|``,
   ``scale = amax/qmax`` (1.0 unless ``amax > 0``), codes
   ``clip(round_half_even(x/scale), ±qmax)`` as int8 (int16 for 16 bits);
+  on the card one thread-block cluster of `cluster_ctas` CTAs per tile,
+  which reads the gradient once;
 * ``block_dequant_sum`` — given codes gathered across ranks (leading
   world dim), the f32 **sum** over ranks of ``q * scale``, in rank order;
 * ``cast_sum`` — the f32 sum over ranks of bf16/f16/f32 wire tensors,
@@ -35,6 +37,11 @@ from . import _build
 LANE = 128
 # Rows per tile: the scale granularity of the blockq wire format.
 BLOCK_ROWS = 512
+
+# The block_quantize kernel's clusters: at most MAX_CLUSTER CTAs (the
+# portable cluster size) of QUANT_THREADS threads per tile, each thread
+# holding at most QUANT_VEC groups of 4 elements in registers.
+MAX_CLUSTER, QUANT_THREADS, QUANT_VEC = 8, 256, 8
 
 LAUNCHES = {"block_quantize": 0, "block_dequant_sum": 0, "cast_sum": 0}
 
@@ -74,6 +81,20 @@ def rows_for_flat(n: int, block_rows: int = BLOCK_ROWS) -> int:
     need = -(-n // LANE)               # rows to hold n elements
     aligned = -(-need // 8) * 8        # multiple of 8
     return min(block_rows, max(8, aligned))
+
+
+def cluster_ctas(tile: int) -> int:
+    """CTAs in the cluster that quantizes one ``tile``-element tile on the
+    card: the fewest, a power of two up to ``MAX_CLUSTER``, whose threads
+    hold the whole tile in registers (8 for a 65,536-element tile, 1 for a
+    1,024-element one).  A power of two divides the tile's 4-element groups
+    whenever ``tile`` is a multiple of 32 elements, as every
+    ``rows * LANE`` tile is."""
+    groups = tile // 4
+    ctas = 1
+    while ctas < MAX_CLUSTER and groups > ctas * QUANT_THREADS * QUANT_VEC:
+        ctas *= 2
+    return ctas
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
@@ -140,8 +161,8 @@ def block_quantize(flat: torch.Tensor, *, bits: int = 8,
     with torch.cuda.device(flat.device):
         err = _build.library("codec_kernels").ps_block_quantize(
             flat.data_ptr(), n, tile, n_blocks, bits,
-            int(flat.data_ptr() % 16 == 0), q.data_ptr(), scales.data_ptr(),
-            _stream(flat))
+            int(flat.data_ptr() % 16 == 0), cluster_ctas(tile), q.data_ptr(),
+            scales.data_ptr(), _stream(flat))
     _build.check("codec_kernels", "block_quantize", err)
     LAUNCHES["block_quantize"] += 1
     return q, scales

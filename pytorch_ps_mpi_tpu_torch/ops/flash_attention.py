@@ -13,10 +13,11 @@ The three Pallas TPU kernels become hand-written Hopper kernels in
   tile, ``p`` recomputed as ``exp(s - lse)``;
 * ``flash_bwd_dq`` — dQ, sweeping k tiles per q tile.
 
-In bf16 the forward and dK/dV kernels are Hopper designs (TMA tile ring,
-wgmma, softmax in registers) over 128-row blocks; dQ and every f32 kernel
-stage their 64-row tiles through shared memory (WMMA for bf16, FMA for
-f32).  ``kernel_info`` reads back how each kernel occupies the card.
+In bf16 all three kernels are Hopper designs (TMA tile ring, wgmma,
+softmax and accumulators in registers) over blocks of ``BLOCK_ROWS`` rows;
+the f32 kernels stage their 64-row tiles through shared memory and
+multiply with FMAs.  ``kernel_info`` reads back how each kernel occupies
+the card.
 
 `flash_attention` wraps them in a `torch.autograd.Function` (the
 analogue of the JAX ``custom_vjp``).  Its backward computes
@@ -60,7 +61,9 @@ HEAD_DIMS = (64, 128)
 # (kernel, dtype, kernel head dim) -> rows, TILE for any not listed.
 BLOCK_ROWS = {("flash_fwd", torch.bfloat16, 64): 128,
               ("flash_fwd", torch.bfloat16, 128): 128,
-              ("flash_bwd_dkdv", torch.bfloat16, 64): 128}
+              ("flash_bwd_dkdv", torch.bfloat16, 64): 128,
+              ("flash_bwd_dq", torch.bfloat16, 64): 128,
+              ("flash_bwd_dq", torch.bfloat16, 128): 128}
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from pytorch_ps_mpi_tpu.ops import pallas_kernels as pk
+from pytorch_ps_mpi_tpu_torch.models import TransformerLM, resnet18
 from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
 
 
@@ -115,6 +116,39 @@ def test_cast_sum_bitwise_matches_jax(world, dtype):
     _bits_equal(ours.numpy(), pk.cast_sum_ref(x))
     _bits_equal(ours.numpy(), pk.cast_sum_tpu(x, block_rows=rows,
                                               interpret=True))
+
+
+def _main_path_rows():
+    """Every tile height `rows_for_flat` gives the parameters of ResNet-18
+    and of the bench LM (`bench.py::worker_lm_throughput`), built on the
+    meta device (shapes only), and the edge heights: 8 rows, 512 rows, and
+    a one-element gradient."""
+    with torch.device("meta"):
+        models = (resnet18(), TransformerLM(
+            vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
+            d_ff=4096, max_len=1024))
+    sizes = {p.numel() for m in models for p in m.parameters()}
+    return sorted({ck.rows_for_flat(n) for n in sizes | {1}} | {8, 512})
+
+
+@pytest.mark.parametrize("rows", _main_path_rows())
+def test_cluster_ctas_hold_each_tile_in_registers(rows):
+    """The block_quantize kernel's cluster per tile: at most 8 CTAs (the
+    portable cluster size), a power of two that splits the tile into whole
+    4-element groups, each CTA's share at most what its threads hold in
+    registers, and the fewest CTAs that do."""
+    tile = rows * ck.LANE
+    ctas = ck.cluster_ctas(tile)
+    assert ctas in (1, 2, 4, 8) and ctas <= ck.MAX_CLUSTER
+    groups = tile // 4
+    assert groups % ctas == 0
+    chunk = ck.QUANT_THREADS * ck.QUANT_VEC  # groups a CTA holds
+    assert groups // ctas <= chunk
+    assert ctas == 1 or groups // (ctas // 2) > chunk
+    if rows == 512:
+        assert ctas == 8
+    if rows == 8:
+        assert ctas == 1
 
 
 def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():

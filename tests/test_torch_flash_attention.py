@@ -197,7 +197,8 @@ def test_kernel_operand_row_layouts(name, as_is):
     ("flash_fwd", torch.bfloat16, 128, 128),
     ("flash_bwd_dkdv", torch.bfloat16, 64, 128),
     ("flash_bwd_dkdv", torch.bfloat16, 128, 64),
-    ("flash_bwd_dq", torch.bfloat16, 64, 64),
+    ("flash_bwd_dq", torch.bfloat16, 64, 128),
+    ("flash_bwd_dq", torch.bfloat16, 128, 128),
     ("flash_fwd", torch.float32, 64, 64),
     ("flash_bwd_dkdv", torch.float32, 128, 64)])
 def test_kernel_grid_limits(kernel, dtype, dk, rows):
