@@ -13,22 +13,30 @@ and carried on from):
    together — with ``nvcc``'s register report.
 2. Each kernel against its plain PyTorch version on the card:
    * the codec kernels bitwise, at the 62 ResNet-18 parameter sizes (world
-     1 and 4, bits 8 and 16, bf16 and f32 wires, an all-zero tile, a NaN
-     tile, ragged tails, unaligned and strided inputs), and
-     ``block_quantize``'s clusters: a tile for each cluster size, a tile
-     whose max lies in the last CTA of its cluster, a NaN outside rank 0
-     and a zero tile inside an 8-CTA cluster;
+     1 and 4, bits 8 and 16, bf16, f16 and f32 wires, an all-zero tile, a
+     NaN tile, ragged tails, unaligned and strided inputs; the decode sums
+     as groups of one), and ``block_quantize``'s clusters: a tile for each
+     cluster size, a tile whose max lies in the last CTA of its cluster, a
+     NaN outside rank 0 and a zero tile inside an 8-CTA cluster;
+   * the grouped decode sums against the per-leaf plain versions: the 62
+     ResNet-18 leaves, the 150 LM leaves and a mixed group, each as one
+     group laid out as the step gathers it (shared buckets with leaves at
+     odd offsets, solo leaves, tiles of 8 to 512 rows), at worlds 1 and 4,
+     bits 8 and 16, bf16, f16 and f32 wires, with their launch counts, and
+     a group long enough to be split across launches;
    * the flash attention kernels within stated tolerances, at the LM's
      main-path shape (strided q/k/v views, causal, bf16), D = 128, a ragged
      S, non-causal, a scale override, f32, odd head dims and the edges of
      the bf16 kernels' 128-row blocks, each output also against an f32
      dense reference, and how the three bf16 flash kernels occupy the card
      (registers, shared memory, blocks per SM; a spill fails the run);
-   then each timed with CUDA events at the main path's shapes beside its
-   plain version, a library call where one computes the same function,
-   and its bound, and ``block_quantize`` also alone on the largest
-   ResNet-18 gradient and on the LM's embedding (device time from a CUDA
-   graph of back-to-back launches).
+   then each timed at the main path's shapes beside its plain version, a
+   library call where one computes the same function, and its bound (the
+   decode sums: device time of one grouped launch over the 62 ResNet-18
+   leaves from a CUDA graph, and the call's host time), and
+   ``block_quantize`` also alone on the largest ResNet-18 gradient, it and
+   the decode sums on the LM's embedding (device time from a CUDA graph of
+   back-to-back launches).
 3. The ResNet slice through its public entry points: a one-rank NCCL
    group, full-width bf16 ResNet-18 and ``SGD(lr=0.1, momentum=0.9)`` on
    synthetic CIFAR-10 at batch 1024 — 3 warm-up and 10 timed steps with the
@@ -252,22 +260,25 @@ def check_kernels(sizes):
                        ck.block_dequant_sum_ref(qs, ss, block_rows=rows),
                        f"{what} bits={bits} world={world}")
         # Codes as a strided view of a gathered bucket: ranks a bucket
-        # apart, each rank's codes starting mid-bucket.
+        # apart, each rank's codes starting mid-bucket, 16-byte aligned
+        # (2,048) or not (2,049: the element-wise path, and ranks an odd
+        # number of codes apart).
         _, rows, q, s = stacks[1]
         world = 4
-        bucket = torch.zeros((world, 2048 + q.numel()), dtype=q.dtype,
-                             device="cuda")
-        bucket[:, 2048:] = q.view(-1)
-        scales = torch.zeros((world, 3 + s.numel()), device="cuda")
-        scales[:, 3:] = s.view(-1)
-        qv = bucket[:, 2048:].view(world, *q.shape)
-        sv = scales[:, 3:].view(world, *s.shape)
-        record("block_dequant_sum",
-               ck.block_dequant_sum(qv, sv, block_rows=rows),
-               ck.block_dequant_sum_ref(qv, sv, block_rows=rows),
-               f"strided bucket view bits={bits}")
+        for start in (2048, 2049):
+            bucket = torch.zeros((world, start + q.numel()), dtype=q.dtype,
+                                 device="cuda")
+            bucket[:, start:] = q.view(-1)
+            scales = torch.zeros((world, 3 + s.numel()), device="cuda")
+            scales[:, 3:] = s.view(-1)
+            qv = bucket[:, start:].view(world, *q.shape)
+            sv = scales[:, 3:].view(world, *s.shape)
+            record("block_dequant_sum",
+                   ck.block_dequant_sum(qv, sv, block_rows=rows),
+                   ck.block_dequant_sum_ref(qv, sv, block_rows=rows),
+                   f"strided bucket view at {start} bits={bits}")
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for world in (1, 4):
             for what, x, *_ in cases:
                 wire = torch.stack([x * (r + 1) for r in range(world)]).to(
@@ -280,6 +291,7 @@ def check_kernels(sizes):
             view = bucket[:, 3:]
             record("cast_sum", ck.cast_sum(view), ck.cast_sum_ref(view),
                    f"odd bucket offset {dtype} world={world}")
+    check_groups(record, sizes)
     torch.cuda.synchronize()
     for k in REPLACES:
         print(f"[kernels] {k}: {n_checks[k]} checks bitwise equal to the "
@@ -287,10 +299,170 @@ def check_kernels(sizes):
     return errs
 
 
+# A group laid out as the step gathers it (`allgather_tree_bucketed`,
+# default buckets): shared buckets holding leaves at odd element offsets
+# (1, 77, 10, 3 and 5 elements among them), solo leaves (the ones of 256
+# KiB or more: 147,456 elements but for int8 codes, 600,000, 2,359,299),
+# and blockq tiles of 8 to 512 rows.
+MIXED_SIZES = (1, 77, 10, 1728, 4099, 64, 36864, 147456, 3, 600000, 5, 513,
+               70001, 2359299)
+
+
+def _gathered(tree, world):
+    """``tree`` as `allgather_tree_bucketed` hands it to the decode on
+    ``world`` ranks, gathered in this process: the same buckets, each a
+    ``(world, length)`` tensor, shared leaves as strided views of it.  The
+    ranks' copies differ: codes negated on odd ranks, floats scaled by the
+    rank + 1."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.parallel import collectives as C
+
+    def gather(flat):
+        if flat.dtype.is_floating_point:
+            ranks = [(flat.float() * (r + 1)).to(flat.dtype)
+                     for r in range(world)]
+        else:
+            ranks = [flat if r % 2 == 0 else -flat for r in range(world)]
+        return torch.stack(ranks)
+
+    bucket = C.DEFAULT_BUCKET_BYTES
+    return C._bucketed_leafwise(tree, gather, bucket,
+                                C._solo_default(bucket, None))
+
+
+def _group_case(record, kind, leaves, what):
+    """One group call held bitwise against the per-leaf plain versions,
+    with its launch count and its layout (one f32 buffer, each leaf's view
+    at an offset padded to 4 elements).  Returns the launches."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    before = ck.LAUNCHES[kind]
+    if kind == "block_dequant_sum":
+        flat, views = ck.block_dequant_sum_group(leaves)
+        refs = [ck.block_dequant_sum_ref(q, s, block_rows=r).view(-1)[:n]
+                for q, s, n, r in leaves]
+    else:
+        flat, views = ck.cast_sum_group(leaves)
+        refs = [ck.cast_sum_ref(x) for x in leaves]
+    launches = ck.LAUNCHES[kind] - before
+    want = ck.group_launches(kind, len(leaves))
+    if launches != want:
+        fail(f"{kind} {what}: {launches} launches for {len(leaves)} leaves, "
+             f"expected {want}")
+    base = flat.data_ptr()
+    for v, ref in zip(views, refs):
+        if (v.shape != ref.shape or (v.data_ptr() - base) % 16
+                or not base <= v.data_ptr() < base + 4 * flat.numel()):
+            fail(f"{kind} {what}: a view of shape {tuple(v.shape)} at byte "
+                 f"{v.data_ptr() - base} of the group's buffer")
+    record(kind, torch.cat(views), torch.cat(refs),
+           f"group of {len(leaves)}: {what}")
+    return launches
+
+
+def check_groups(record, sizes):
+    """The grouped decode sums bitwise against the per-leaf plain versions:
+    the 62 ResNet-18 leaves, the 150 LM leaves and `MIXED_SIZES`, each as
+    one group laid out as the step gathers it, at worlds 1 and 4 (and 9,
+    past the kernels' 8 unrolled ranks, for the mixed group), bits 8 and
+    16, bf16, f16 and f32 wires; then a group long enough to be split
+    across launches."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.models import TransformerLM
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    with torch.device("meta"):
+        lm = TransformerLM(**LM)
+    groups = {"ResNet-18": list(sizes),
+              "LM": [p.numel() for p in lm.parameters()],
+              "mixed": list(MIXED_SIZES)}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for name, ns in groups.items():
+        worlds = (1, 4, 9) if name == "mixed" else (1, 4)
+        flat = torch.randn(sum(ns), device="cuda", generator=gen) * 1e-2
+        offs = [sum(ns[:i]) for i in range(len(ns))]
+        grads = {f"p{i:03d}": flat[o:o + n]
+                 for i, (o, n) in enumerate(zip(offs, ns))}
+        for bits in (8, 16):
+            codes = {k: dict(zip(("q", "scales"), ck.block_quantize(
+                g, bits=bits, block_rows=ck.rows_for_flat(g.numel()))))
+                for k, g in grads.items()}
+            for world in worlds:
+                got = _gathered(codes, world)
+                leaves = [(got[k]["q"], got[k]["scales"], g.numel(),
+                           ck.rows_for_flat(g.numel()))
+                          for k, g in grads.items()]
+                n = _group_case(record, "block_dequant_sum", leaves,
+                                f"{name} bits={bits} world={world}")
+            del codes, got, leaves
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            wires = {k: g.to(dtype) for k, g in grads.items()}
+            for world in worlds:
+                got = _gathered(wires, world)
+                m = _group_case(record, "cast_sum",
+                                [got[k] for k in grads],
+                                f"{name} {dtype} world={world}")
+            del wires, got
+        print(f"[kernels] {name}: {len(ns)} leaves as one group, "
+              f"{n} block_dequant_sum and {m} cast_sum launch(es)")
+        del flat, grads
+        torch.cuda.empty_cache()
+    # Split across launches: more leaves than the large table holds.
+    for kind in ("block_dequant_sum", "cast_sum"):
+        cap = ck.group_capacity(kind)
+        count = cap["large"] + 37
+        ns = torch.randint(1, 3000, (count,), generator=gen,
+                           device="cuda").tolist()
+        grads = {f"p{i:04d}": torch.randn(n, device="cuda", generator=gen)
+                 for i, n in enumerate(ns)}
+        if kind == "block_dequant_sum":
+            codes = {k: dict(zip(("q", "scales"), ck.block_quantize(
+                g, block_rows=ck.rows_for_flat(g.numel()))))
+                for k, g in grads.items()}
+            got = _gathered(codes, 2)
+            leaves = [(got[k]["q"], got[k]["scales"], g.numel(),
+                       ck.rows_for_flat(g.numel())) for k, g in grads.items()]
+        else:
+            got = _gathered({k: g.to(torch.bfloat16)
+                             for k, g in grads.items()}, 2)
+            leaves = [got[k] for k in grads]
+        n = _group_case(record, kind, leaves, "split, world=2")
+        print(f"[kernels] {kind}: {count} leaves in {n} launches of at "
+              f"most {cap['large']} leaves (a {cap['param_bytes']}-byte "
+              f"parameter table; 4,096 bytes would hold {cap['small']}; "
+              f"CUDA runtime {cap['runtime']}, CUDA driver "
+              f"{cap['cuda_driver']})")
+
+
+def host_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean host-clock time of ``fn()`` from its call to the device's end
+    of its work (synchronised after the last of ``reps`` calls)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def time_kernels(sizes):
-    """Time each kernel over one step's worth of calls at the main path's
-    shapes (the 62 ResNet-18 tensors, world 1) against its plain version,
-    a library call where one computes the same function, and its bound."""
+    """Time each codec kernel over one step's worth of work at the main
+    path's shapes (the 62 ResNet-18 tensors, world 1) against its plain
+    version, a library call where one computes the same function, and its
+    bound.  ``block_quantize``: CUDA events around the 62 calls of the
+    host loop.  The grouped decode sums: device time of one launch over
+    the 62 leaves as the step gathers them (CUDA graph; four copies of the
+    codes in turn, so L2 does not hold the input), beside the host-clock
+    time of the call; the per-leaf plain versions and the library call
+    timed the same two ways."""
     import torch
 
     from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
@@ -301,47 +473,113 @@ def time_kernels(sizes):
     grads = [torch.randn(n, device="cuda", generator=gen) * 1e-2
              for n in sizes]
     rows = [rows_for(n) for n in sizes]
-    codes = [ck.block_quantize(g, block_rows=r) for g, r in zip(grads, rows)]
-    stacked = [(q[None], s[None]) for q, s in codes]
-    wires = [g.to(torch.bfloat16)[None] for g in grads]
+    q_bytes = sum(g.numel() * 4 + -(-g.numel() // (r * ck.LANE)) * (
+        r * ck.LANE + 4) for g, r in zip(grads, rows))
+    out = {"block_quantize": dict(
+        ms=time_ms(lambda: [ck.block_quantize(g, block_rows=r)
+                            for g, r in zip(grads, rows)]),
+        plain_ms=time_ms(lambda: [
+            ck.block_quantize_ref(ck.pad_to_blocks(g, r)[0], block_rows=r)
+            for g, r in zip(grads, rows)]),
+        bytes=q_bytes, library_ms=None)}
+    tree = {f"p{i:02d}": g for i, g in enumerate(grads)}
+    copies = 4
+    dq = []
+    for _ in range(copies):
+        codes = _gathered({k: dict(zip(("q", "scales"), ck.block_quantize(
+            g, block_rows=rows_for(g.numel())))) for k, g in tree.items()}, 1)
+        dq.append([(codes[k]["q"], codes[k]["scales"], g.numel(),
+                    rows_for(g.numel())) for k, g in tree.items()])
+    casts = [[w.view(1, -1) for w in _gathered(
+        {k: g.to(torch.bfloat16) for k, g in tree.items()}, 1).values()]
+        for _ in range(copies)]
+    wires = [torch.cat([w.view(-1) for w in c]).view(1, -1) for c in casts]
+    d_bytes = sum(q.numel() * q.element_size() + s.numel() * 4 + n * 4
+                  for q, s, n, _ in dq[0])
+    c_bytes = sum(w.numel() * w.element_size() + w.shape[1] * 4
+                  for w in casts[0])
 
-    q_bytes = sum(g.numel() * 4 + q.numel() + s.numel() * 4
-                  for g, (q, s) in zip(grads, codes))
-    d_bytes = sum(q.numel() + s.numel() * 4 + q.numel() * 4
-                  for q, s in codes)
-    c_bytes = sum(w.numel() * 2 + w.shape[1] * 4 for w in wires)
-    out = {
-        "block_quantize": dict(
-            ms=time_ms(lambda: [ck.block_quantize(g, block_rows=r)
-                                for g, r in zip(grads, rows)]),
-            plain_ms=time_ms(lambda: [
-                ck.block_quantize_ref(ck.pad_to_blocks(g, r)[0],
-                                      block_rows=r)
-                for g, r in zip(grads, rows)]),
-            bytes=q_bytes, library_ms=None),
-        "block_dequant_sum": dict(
-            ms=time_ms(lambda: [ck.block_dequant_sum(q, s, block_rows=r)
-                                for (q, s), r in zip(stacked, rows)]),
-            plain_ms=time_ms(lambda: [
-                ck.block_dequant_sum_ref(q, s, block_rows=r)
-                for (q, s), r in zip(stacked, rows)]),
-            bytes=d_bytes, library_ms=None),
-        "cast_sum": dict(
-            ms=time_ms(lambda: [ck.cast_sum(w) for w in wires]),
-            plain_ms=time_ms(lambda: [ck.cast_sum_ref(w) for w in wires]),
-            bytes=c_bytes,
-            library_ms=time_ms(lambda: [w.float().sum(0) for w in wires])),
-    }
+    def each(fn, args):
+        return lambda: [fn(a) for a in args]
+
+    def plain_dq(leaves):
+        return [ck.block_dequant_sum_ref(q, s, block_rows=r)
+                for q, s, _, r in leaves]
+
+    def plain_cast(leaves):
+        return [ck.cast_sum_ref(x) for x in leaves]
+
+    def library(w):
+        return torch.sum(w, 0, dtype=torch.float32)
+
+    for k, group, plain, args, nbytes, lib in (
+            ("block_dequant_sum", ck.block_dequant_sum_group, plain_dq, dq,
+             d_bytes, None),
+            ("cast_sum", ck.cast_sum_group, plain_cast, casts, c_bytes,
+             library)):
+        ck.reset_launch_counts()
+        group(args[0])
+        launches = ck.LAUNCHES[k]
+        rec = dict(
+            ms=time_graph_ms(each(group, args), copies),
+            host_ms=host_ms(lambda: group(args[0])),
+            plain_ms=time_graph_ms(each(plain, args), copies),
+            plain_host_ms=host_ms(lambda: plain(args[0])),
+            bytes=nbytes, library_ms=None, launches=launches)
+        if lib is not None:
+            rec["library_ms"] = time_graph_ms(each(lib, wires), copies)
+            rec["library_host_ms"] = host_ms(lambda: lib(wires[0]))
+        out[k] = rec
     for k, v in out.items():
         v["bound_ms"] = v["bytes"] / H100_BYTES_PER_S * 1e3
         lib = ("null" if v["library_ms"] is None
                else f"{v['library_ms']:.4f} ms")
-        print(f"[kernels] {k}: {len(sizes)} calls (one step, world 1): "
-              f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
-              f"library {lib}, bound {v['bound_ms']:.4f} ms "
-              f"({v['bytes']} bytes at 3.35 TB/s)")
+        if k == "block_quantize":
+            print(f"[kernels] {k}: {len(sizes)} calls (one step, world 1): "
+                  f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, "
+                  f"library {lib}, bound {v['bound_ms']:.4f} ms "
+                  f"({v['bytes']} bytes at 3.35 TB/s)")
+            continue
+        lib_host = ("" if v["library_ms"] is None else
+                    f" (host {v['library_host_ms']:.4f} ms)")
+        print(f"[kernels] {k}: one group of {len(sizes)} leaves (one step, "
+              f"world 1), {v['launches']} launch(es): device {v['ms']:.4f} "
+              f"ms (CUDA graph), {v['bound_ms'] / v['ms']:.3f} of the bound; "
+              f"host {v['host_ms']:.4f} ms per call; plain versions, "
+              f"{len(sizes)} calls: device {v['plain_ms']:.4f} ms, host "
+              f"{v['plain_host_ms']:.4f} ms; library {lib}{lib_host}; bound "
+              f"{v['bound_ms']:.4f} ms ({v['bytes']} bytes at 3.35 TB/s)")
+    del dq, casts, wires
     time_block_quantize_alone(max(sizes))
+    time_decode_alone()
     return out
+
+
+def time_decode_alone():
+    """The two grouped decode sums alone on the LM's token embedding
+    (33,554,432 elements, one leaf, world 1; blockq codes in 512-row
+    tiles, a bf16 wire): device time per launch from a CUDA graph, against
+    the bytes bound."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = LM["vocab_size"] * LM["d_model"]
+    g = torch.randn(n, device="cuda", generator=gen) * 1e-2
+    q, s = ck.block_quantize(g)
+    leaf = [(q[None], s[None], n, ck.BLOCK_ROWS)]
+    wire = [g.to(torch.bfloat16)[None]]
+    for k, fn, args, nbytes in (
+            ("block_dequant_sum", ck.block_dequant_sum_group, leaf,
+             q.numel() + s.numel() * 4 + n * 4),
+            ("cast_sum", ck.cast_sum_group, wire, n * 2 + n * 4)):
+        ms = time_graph_ms(lambda: fn(args), 1)
+        bound = nbytes / H100_BYTES_PER_S * 1e3
+        print(f"[kernels] {k} alone, LM embedding (n={n}): device "
+              f"{ms * 1e3:.2f} us per launch (CUDA graph), bound "
+              f"{bound * 1e3:.2f} us ({nbytes} bytes at 3.35 TB/s), "
+              f"{bound / ms:.3f} of the bound")
 
 
 def time_block_quantize_alone(resnet_max):
@@ -664,8 +902,8 @@ def drive(code, named, loss_fn, batch, group, warm, timed, *, lr,
 
 _CATEGORIES = (
     ("block_quantize", ("block_quantize_kernel",)),
-    ("block_dequant_sum", ("block_dequant_sum_kernel",)),
-    ("cast_sum", ("cast_sum_kernel",)),
+    ("block_dequant_sum", ("dequant_sum_group_kernel",)),
+    ("cast_sum", ("cast_sum_group_kernel",)),
     ("flash_fwd", ("flash_fwd_",)),
     ("flash_bwd_dkdv", ("flash_bwd_dkdv_",)),
     ("flash_bwd_dq", ("flash_bwd_dq_",)),
@@ -781,6 +1019,7 @@ def run_slice(group, cpu_group):
     from pytorch_ps_mpi_tpu_torch.models import (build_model,
                                                  make_classifier_loss,
                                                  resnet18)
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
 
     model = resnet18(num_classes=10, small_inputs=True, dtype=torch.bfloat16)
     named, aux = build_model(model, seed=0)
@@ -791,6 +1030,10 @@ def run_slice(group, cpu_group):
     # Staged on the card once: the step is measured, not the input copy.
     batch = {"x": torch.from_numpy(x).cuda(), "y": torch.from_numpy(y).cuda()}
     per_step = len(named)
+    # The decode sums: one grouped launch for the step's 62 leaves (or the
+    # split count, if the card's parameter space cannot hold them).
+    dq_step = ck.group_launches("block_dequant_sum", per_step)
+    cast_step = ck.group_launches("cast_sum", per_step)
     common = dict(lr=0.1, has_aux=True, aux=aux)
 
     torch.cuda.reset_peak_memory_stats()
@@ -798,13 +1041,15 @@ def run_slice(group, cpu_group):
         "blockq", named, loss_fn, batch, group, WARM, TIMED, **common)
     steps = WARM + TIMED
     print(f"[slice] blockq: {steps} steps, losses {losses}")
-    print(f"[slice] blockq launches {counts} (expect {per_step}/step for "
-          f"each blockq kernel)")
+    print(f"[slice] blockq launches {counts} (expect {per_step}/step of "
+          f"block_quantize, one per leaf, and {dq_step}/step of "
+          f"block_dequant_sum: the {per_step} leaves in "
+          f"{'one grouped launch' if dq_step == 1 else 'grouped launches'})")
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"blockq losses must be finite and fall: {losses}")
     expect_counts("ResNet-18 blockq", counts,
                   block_quantize=per_step * steps,
-                  block_dequant_sum=per_step * steps)
+                  block_dequant_sum=dq_step * steps)
     if (metrics["packaged_bytes"] != 11445104
             or metrics["msg_bytes"] != 44695848):
         fail(f"byte metrics {metrics}")
@@ -824,10 +1069,11 @@ def run_slice(group, cpu_group):
 
     opt, losses, counts, seconds, _ = drive(
         "bf16", named, loss_fn, batch, group, SIDE, 0, **common)
-    print(f"[slice] bf16: losses {losses}, launches {counts}")
+    print(f"[slice] bf16: losses {losses}, launches {counts} (expect "
+          f"{cast_step}/step of cast_sum: the {per_step} leaves grouped)")
     if not all(math.isfinite(v) for v in losses):
         fail(f"bf16 run: losses {losses}")
-    expect_counts("ResNet-18 bf16", counts, cast_sum=per_step * SIDE)
+    expect_counts("ResNet-18 bf16", counts, cast_sum=cast_step * SIDE)
     check_params_finite(opt, "bf16")
     profile_steps(opt, batch, "ResNet-18 bf16")
     cast_counts = counts
@@ -932,6 +1178,7 @@ def run_lm(group, cpu_group):
     from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
     from pytorch_ps_mpi_tpu_torch.models import (TransformerLM, build_lm,
                                                  lm_batch, make_lm_loss)
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
 
     model = TransformerLM(**LM, dtype=torch.bfloat16,
                           attn=functools.partial(flash_attention, causal=True))
@@ -982,13 +1229,16 @@ def run_lm(group, cpu_group):
 
     opt, losses, counts, _, metrics = drive(
         "blockq", named, loss_fn, batch, group, LM_BLOCKQ, 0, lr=0.01)
-    print(f"[lm] blockq: losses {losses}, launches {counts}, "
+    dq_step = ck.group_launches("block_dequant_sum", LM_TENSORS)
+    print(f"[lm] blockq: losses {losses}, launches {counts} (expect "
+          f"{LM_TENSORS}/step of block_quantize and {dq_step}/step of "
+          f"block_dequant_sum: the {LM_TENSORS} leaves grouped), "
           f"packaged_bytes {metrics['packaged_bytes']:.0f}")
     if not all(math.isfinite(v) for v in losses):
         fail(f"LM blockq losses {losses}")
     expect_counts("LM blockq", counts,
                   block_quantize=LM_TENSORS * LM_BLOCKQ,
-                  block_dequant_sum=LM_TENSORS * LM_BLOCKQ,
+                  block_dequant_sum=dq_step * LM_BLOCKQ,
                   flash_fwd=per_step * LM_BLOCKQ,
                   flash_bwd_dkdv=per_step * LM_BLOCKQ,
                   flash_bwd_dq=per_step * LM_BLOCKQ)

@@ -40,11 +40,12 @@ _SIGNATURES = {
     "codec_kernels": {
         # x, n, tile, n_blocks, bits, vec, ctas, q, scales, stream
         "ps_block_quantize": (_P, _L, _I, _L, _I, _I, _I, _P, _P, _P),
-        # q, q_rank_stride, bits, scales, s_rank_stride, world, total, tile,
-        # out, stream
-        "ps_block_dequant_sum": (_P, _L, _I, _P, _L, _I, _L, _I, _P, _P),
-        # x, rank_stride, dtype, world, n, vec, out, stream
-        "ps_cast_sum": (_P, _L, _I, _I, _L, _I, _P, _P),
+        # rows (7 int64 a leaf), count, world, bits, stream, launches
+        "ps_block_dequant_sum_group": (_P, _I, _I, _I, _P, _P),
+        # rows (4 int64 a leaf), count, world, dtype, stream, launches
+        "ps_cast_sum_group": (_P, _I, _I, _I, _P, _P),
+        # kind, out[5]
+        "ps_group_info": (_I, _P),
     },
     "flash_attention": {
         # dtype, d, q, k, v, strides[12], o, lse, B, H, L, scale, causal,

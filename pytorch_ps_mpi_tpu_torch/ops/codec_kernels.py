@@ -14,13 +14,19 @@ kernels of the codec hot path become hand-written Hopper kernels in
 * ``cast_sum`` — the f32 sum over ranks of bf16/f16/f32 wire tensors,
   upcast per element, never materialising a ``(world, n)`` f32 copy.
 
+The two decode sums run on the card as grouped kernels:
+`block_dequant_sum_group` and `cast_sum_group` take all of a step's leaves
+and decode them into one f32 buffer in one launch (or as few as the
+kernel's parameter space needs, `group_launches`); `block_dequant_sum` and
+`cast_sum` are groups of one.
+
 Each wrapper runs the plain version when its input lies on the CPU and
 launches the kernel when it lies on a CUDA device (raising if the launch
 fails); there is no fallback from one to the other.  ``LAUNCHES`` counts
-the kernel launches per wrapper.  The plain versions (``*_ref``) repeat
-the JAX ``*_ref`` functions' arithmetic in the same order, so on the CPU
-they agree with the JAX package, and on the card with the kernels, bit
-for bit.
+the kernel launches per wrapper (launches, not leaves).  The plain
+versions (``*_ref``) repeat the JAX ``*_ref`` functions' arithmetic in the
+same order, so on the CPU they agree with the JAX package, and on the card
+with the kernels, bit for bit.
 
 Layout contract (a wire format, so it carries over from the TPU): a
 gradient of any shape is flattened and zero-padded to ``(rows, 128)`` with
@@ -29,6 +35,9 @@ codecs here.
 """
 
 from __future__ import annotations
+
+import array
+import ctypes
 
 import torch
 
@@ -169,6 +178,66 @@ def block_quantize(flat: torch.Tensor, *, bits: int = 8,
 
 
 # ---------------------------------------------------------------------------
+# Grouped decode sums: one launch for all of a step's leaves
+# ---------------------------------------------------------------------------
+
+
+def _pad4(n: int) -> int:
+    """A leaf's room in its group's f32 buffer: ``n`` padded to 4 elements,
+    so that every leaf starts 16-byte aligned for the kernels' stores."""
+    return -(-n // 4) * 4
+
+
+def _run_group(kernel, fn, rows, fields, total, world, kind, t):
+    """Launch a group on the card: ``rows`` holds ``fields`` int64 values
+    per leaf of ``t``'s device, the last an element offset into the
+    group's f32 buffer of ``total`` elements.  Allocates the buffer, calls
+    the C entry ``fn``, counts its launches under ``kernel`` and returns
+    the buffer."""
+    flat = torch.empty((total,), dtype=torch.float32, device=t.device)
+    base = flat.data_ptr()
+    rows[fields - 1::fields] = [base + 4 * o for o in rows[fields - 1::fields]]
+    table = array.array("q", rows)
+    launches = ctypes.c_int(0)
+    with torch.cuda.device(t.device):
+        err = getattr(_build.library("codec_kernels"), fn)(
+            table.buffer_info()[0], len(rows) // fields, world, kind,
+            _stream(t), ctypes.byref(launches))
+    _build.check("codec_kernels", kernel, err)
+    LAUNCHES[kernel] += launches.value
+    return flat
+
+
+def _views(flat, ns):
+    """Each leaf's ``n`` sums: 1-D views of ``flat`` at padded offsets."""
+    views, o = [], 0
+    for n in ns:
+        views.append(flat[o:o + n])
+        o += _pad4(n)
+    return views
+
+
+def group_capacity(kernel: str) -> "dict[str, int]":
+    """What one launch of ``kernel`` ("block_dequant_sum" or "cast_sum")
+    holds on this card: leaves in a 4 KB parameter table (``small``) and
+    in the table its launches use (``large``: 32,764 bytes where the
+    toolkit and CUDA driver are both >= 12.1, else 4 KB), that table's
+    bytes, and the CUDA runtime's and CUDA driver's versions."""
+    out = (ctypes.c_int * 5)()
+    err = _build.library("codec_kernels").ps_group_info(
+        {"block_dequant_sum": 0, "cast_sum": 1}[kernel], out)
+    _build.check("codec_kernels", "ps_group_info", err)
+    return dict(zip(("small", "large", "param_bytes", "runtime", "cuda_driver"),
+                    out))
+
+
+def group_launches(kernel: str, leaves: int) -> int:
+    """Launches a group of ``leaves`` non-empty leaves takes on this card:
+    as few as its launches' table needs."""
+    return max(1, -(-leaves // group_capacity(kernel)["large"]))
+
+
+# ---------------------------------------------------------------------------
 # block dequantize + cross-rank sum (decode_sum)
 # ---------------------------------------------------------------------------
 
@@ -188,42 +257,88 @@ def block_dequant_sum_ref(q: torch.Tensor, scales: torch.Tensor, *,
     return out.reshape(rows, LANE)
 
 
+def block_dequant_sum_group(leaves):
+    """Decode and sum a group of leaves, all in one launch on the card (or
+    as few as the kernel's parameter space needs).
+
+    ``leaves``: a sequence of ``(q, scales, n, block_rows)``, with ``q``
+    and ``scales`` as `block_dequant_sum` takes them (either may be a
+    strided view of a gathered bucket; one world and code dtype for the
+    group) and ``n`` the leaf's valid elements, at most ``rows * LANE``.
+    Returns ``(flat, views)``: one f32 buffer for the group and, for each
+    leaf, its ``n`` sums as a 1-D view of the buffer, at an offset padded
+    to 4 elements.  Only the valid elements are written.  On the CPU the
+    plain version runs leaf by leaf into the same layout."""
+    leaves = list(leaves)
+    if not leaves:
+        raise ValueError("block_dequant_sum_group takes at least one leaf")
+    first = leaves[0][0]
+    dev, qdtype, f32 = first.device, first.dtype, torch.float32
+    if qdtype not in (torch.int8, torch.int16):
+        raise ValueError(f"block_dequant_sum takes int8/int16 codes, got "
+                         f"{qdtype}")
+    world = first.shape[0] if first.dim() == 3 else None
+    cuda = _on_cuda(first, "q")
+    ns, rows, off = [], [], 0
+    for q, scales, n, block_rows in leaves:
+        qshape, sshape = q.shape, scales.shape
+        if len(qshape) != 3 or qshape[2] != LANE or len(sshape) != 3:
+            raise ValueError(f"block_dequant_sum takes q (world, rows, "
+                             f"{LANE}) and scales (world, n_blocks, 1), got "
+                             f"{tuple(qshape)} and {tuple(sshape)}")
+        w, r, _ = qshape
+        if r % block_rows or sshape != (w, r // block_rows, 1):
+            raise ValueError(f"rows {r} / block_rows {block_rows} do not "
+                             f"match scales {tuple(sshape)}")
+        if not 0 <= n <= r * LANE:
+            raise ValueError(f"a leaf of {n} elements does not fit codes "
+                             f"of {r} x {LANE}")
+        if q.device != dev or scales.device != dev:
+            raise ValueError(f"the group's leaves lie on {dev}, this one "
+                             f"on {q.device} and {scales.device}")
+        if q.dtype != qdtype or scales.dtype != f32:
+            raise ValueError(f"block_dequant_sum takes int8/int16 codes of "
+                             f"one dtype and f32 scales, got {q.dtype} "
+                             f"(group {qdtype}) and {scales.dtype}")
+        if w != world:
+            raise ValueError(f"the group's world is {world}, this leaf's "
+                             f"{w}")
+        if cuda and n:
+            qs, ss = q.stride(), scales.stride()
+            if qs[2] != 1 or (r > 1 and qs[1] != LANE) or (
+                    sshape[1] > 1 and ss[1] != 1):
+                raise ValueError("block_dequant_sum needs each rank's codes "
+                                 "and scales contiguous")
+            rows += (q.data_ptr(), scales.data_ptr(), qs[0], ss[0], n,
+                     block_rows * LANE, off)
+        ns.append(n)
+        off += _pad4(n)
+    if cuda:
+        flat = _run_group("block_dequant_sum", "ps_block_dequant_sum_group",
+                          rows, 7, off, world, 8 * first.element_size(),
+                          first)
+        return flat, _views(flat, ns)
+    flat = torch.empty((off,), dtype=f32, device=dev)
+    views = _views(flat, ns)
+    for (q, scales, n, block_rows), v in zip(leaves, views):
+        v.copy_(block_dequant_sum_ref(q, scales,
+                                      block_rows=block_rows).view(-1)[:n])
+    return flat, views
+
+
 def block_dequant_sum(q: torch.Tensor, scales: torch.Tensor, *,
                       block_rows: int = BLOCK_ROWS):
     """``q``: (world, rows, LANE) int8/int16; ``scales``: (world,
     n_blocks, 1) f32; either may be a strided view of a gathered bucket.
-    Returns f32 ``(rows, LANE)`` = sum over the world dim of q*scale."""
-    if q.dim() != 3 or q.shape[2] != LANE or scales.dim() != 3:
+    Returns f32 ``(rows, LANE)`` = sum over the world dim of q*scale: a
+    group of one (`block_dequant_sum_group`)."""
+    if q.dim() != 3:
         raise ValueError(f"block_dequant_sum takes q (world, rows, {LANE}) "
                          f"and scales (world, n_blocks, 1), got "
                          f"{tuple(q.shape)} and {tuple(scales.shape)}")
-    world, rows, _ = q.shape
-    n_blocks = rows // block_rows
-    if rows % block_rows or tuple(scales.shape) != (world, n_blocks, 1):
-        raise ValueError(f"rows {rows} / block_rows {block_rows} do not "
-                         f"match scales {tuple(scales.shape)}")
-    if not _on_cuda(q, "q"):
-        return block_dequant_sum_ref(q, scales, block_rows=block_rows)
-    if q.dtype not in (torch.int8, torch.int16) or scales.dtype != torch.float32:
-        raise ValueError(f"block_dequant_sum takes int8/int16 codes and f32 "
-                         f"scales, got {q.dtype} and {scales.dtype}")
-    item = q.element_size()
-    if (q.stride(2) != 1 or q.stride(1) != LANE
-            or (n_blocks > 1 and scales.stride(1) != 1)
-            or q.data_ptr() % (4 * item)
-            or (world > 1 and q.stride(0) % 4)):
-        raise ValueError("block_dequant_sum needs each rank's codes "
-                         "contiguous and 4-element aligned, and each rank's "
-                         "scales contiguous")
-    out = torch.empty((rows, LANE), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _build.library("codec_kernels").ps_block_dequant_sum(
-            q.data_ptr(), q.stride(0), 8 * item, scales.data_ptr(),
-            scales.stride(0), world, rows * LANE, block_rows * LANE,
-            out.data_ptr(), _stream(q))
-    _build.check("codec_kernels", "block_dequant_sum", err)
-    LAUNCHES["block_dequant_sum"] += 1
-    return out
+    flat, _ = block_dequant_sum_group(
+        [(q, scales, q.shape[1] * q.shape[2], block_rows)])
+    return flat.view(q.shape[1], q.shape[2])
 
 
 # ---------------------------------------------------------------------------
@@ -240,27 +355,64 @@ def cast_sum_ref(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def cast_sum_group(leaves):
+    """The f32 sums over ranks of a group of wire leaves, all in one
+    launch on the card (or as few as the kernel's parameter space needs).
+
+    ``leaves``: a sequence of ``(world, n)`` bf16/f16/f32 tensors of one
+    world and dtype, each rank's row contiguous (rows may be strided views
+    of a gathered bucket, at any element offset).  Returns ``(flat,
+    views)`` as `block_dequant_sum_group` does.  On the CPU the plain
+    version runs leaf by leaf into the same layout."""
+    leaves = list(leaves)
+    if not leaves:
+        raise ValueError("cast_sum_group takes at least one leaf")
+    first = leaves[0]
+    dev, dtype = first.device, first.dtype
+    if dtype not in _CAST_DTYPES:
+        raise ValueError(f"cast_sum takes bf16/f16/f32 rows, got {dtype}")
+    world = first.shape[0] if first.dim() == 2 else None
+    cuda = _on_cuda(first, "x")
+    ns, rows, off = [], [], 0
+    for x in leaves:
+        shape = x.shape
+        if len(shape) != 2:
+            raise ValueError(f"cast_sum takes (world, n), got "
+                             f"{tuple(shape)}")
+        w, n = shape
+        if x.device != dev:
+            raise ValueError(f"the group's leaves lie on {dev}, this one "
+                             f"on {x.device}")
+        if x.dtype != dtype:
+            raise ValueError(f"cast_sum takes bf16/f16/f32 rows of one "
+                             f"dtype, got {x.dtype} (group {dtype})")
+        if w != world:
+            raise ValueError(f"the group's world is {world}, this leaf's "
+                             f"{w}")
+        if cuda and n:
+            st = x.stride()
+            if n > 1 and st[1] != 1:
+                raise ValueError(f"the cast_sum kernel takes rows with unit "
+                                 f"stride, got strides {st}")
+            rows += (x.data_ptr(), st[0], n, off)
+        ns.append(n)
+        off += _pad4(n)
+    if cuda:
+        flat = _run_group("cast_sum", "ps_cast_sum_group", rows, 4, off,
+                          world, _CAST_DTYPES[dtype], first)
+        return flat, _views(flat, ns)
+    flat = torch.empty((off,), dtype=torch.float32, device=dev)
+    views = _views(flat, ns)
+    for x, v in zip(leaves, views):
+        v.copy_(cast_sum_ref(x))
+    return flat, views
+
+
 def cast_sum(x: torch.Tensor) -> torch.Tensor:
     """``x``: (world, n) wire-dtype (bf16/f16/f32), each rank's row
     contiguous (rows may be a strided view of a gathered bucket).  Returns
-    f32 ``(n,)``; the sum is always accumulated in f32."""
+    f32 ``(n,)``; the sum is always accumulated in f32.  A group of one
+    (`cast_sum_group`)."""
     if x.dim() != 2:
         raise ValueError(f"cast_sum takes (world, n), got {tuple(x.shape)}")
-    if not _on_cuda(x, "x"):
-        return cast_sum_ref(x)
-    if x.dtype not in _CAST_DTYPES or (x.shape[1] > 1 and x.stride(1) != 1):
-        raise ValueError(f"the cast_sum kernel takes bf16/f16/f32 rows with "
-                         f"unit stride, got {x.dtype}, strides {x.stride()}")
-    world, n = x.shape
-    out = torch.empty((n,), dtype=torch.float32, device=x.device)
-    if n == 0:
-        return out
-    vec = (x.data_ptr() % (4 * x.element_size()) == 0
-           and (world == 1 or x.stride(0) % 4 == 0))
-    with torch.cuda.device(x.device):
-        err = _build.library("codec_kernels").ps_cast_sum(
-            x.data_ptr(), x.stride(0), _CAST_DTYPES[x.dtype], world, n,
-            int(vec), out.data_ptr(), _stream(x))
-    _build.check("codec_kernels", "cast_sum", err)
-    LAUNCHES["cast_sum"] += 1
-    return out
+    return cast_sum_group([x])[1][0]

@@ -8,6 +8,10 @@ into the **sum** of the decoded gradients — the reference's
 decode-then-``sum(grads)``.  ``wire_bytes`` gives the on-wire payload for
 the ``packaged_bytes`` metric.
 
+``decode_sum_leaves`` decodes all the leaves of a step at once: the PS
+step calls it once after the gathers, and the codecs with a grouped
+kernel run every leaf in one launch.
+
 Ported: ``identity``, ``bf16`` (`CastCodec`, decode-sum on the
 ``cast_sum`` kernel) and ``blockq`` (`BlockQuantizeCodec`, on the
 ``block_quantize`` and ``block_dequant_sum`` kernels).  ``topk``,
@@ -17,6 +21,7 @@ Ported: ``identity``, ``bf16`` (`CastCodec`, decode-sum on the
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Any
 
 import torch
@@ -28,6 +33,20 @@ Code = Any
 
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
+
+
+def _as_grad(flat: torch.Tensor, shape, dtype) -> torch.Tensor:
+    """A decoded f32 leaf in its gradient's shape and dtype (f32 when
+    ``dtype`` is None)."""
+    out = flat.view(shape)
+    return out if dtype in (None, torch.float32) else out.to(dtype)
+
+
+def _as_grads(metas, views) -> "OrderedDict":
+    """A group's decoded leaves as the named gradients of ``metas``."""
+    return OrderedDict((name, _as_grad(v, shape, dtype))
+                       for (name, (shape, dtype)), v in zip(metas.items(),
+                                                            views))
 
 
 class Codec:
@@ -51,6 +70,16 @@ class Codec:
         for r in range(1, codes.shape[0]):
             out = out + self.decode(codes[r], shape=shape, dtype=dtype)
         return out
+
+    def decode_sum_leaves(self, gathered, metas) -> "OrderedDict":
+        """`decode_sum` over all the leaves of a step: ``gathered`` maps
+        each name to its codes with a leading world dim, ``metas`` is an
+        ordered dict ``name -> (shape, dtype)``.  Returns the summed
+        gradients in ``metas``' order.  This generic form decodes leaf by
+        leaf; codecs with a grouped kernel override it."""
+        return OrderedDict(
+            (name, self.decode_sum(gathered[name], shape=shape, dtype=dtype))
+            for name, (shape, dtype) in metas.items())
 
     def wire_bytes(self, shape, dtype) -> int:
         raise NotImplementedError
@@ -102,9 +131,15 @@ class CastCodec(Codec):
         the TPU; that padding is layout, not wire format, and the kernel
         here reads the flat ``(world, n)`` codes)."""
         world = codes.shape[0]
-        out = ck.cast_sum(codes.reshape(world, -1))
-        return out.reshape(shape).to(torch.float32 if dtype is None
-                                     else dtype)
+        out = ck.cast_sum(codes.reshape(world, math.prod(shape)))
+        return _as_grad(out, shape, dtype)
+
+    def decode_sum_leaves(self, gathered, metas):
+        """Every leaf in one grouped ``cast_sum`` launch."""
+        _, views = ck.cast_sum_group(
+            gathered[name].reshape(gathered[name].shape[0], math.prod(shape))
+            for name, (shape, _) in metas.items())
+        return _as_grads(metas, views)
 
     def wire_bytes(self, shape, dtype):
         return math.prod(shape) * _itemsize(self.wire_dtype)
@@ -146,12 +181,21 @@ class BlockQuantizeCodec(Codec):
         stacked = {"q": code["q"][None], "scales": code["scales"][None]}
         return self.decode_sum(stacked, shape=shape, dtype=dtype)
 
-    def decode_sum(self, codes, *, shape, dtype):
+    def _leaf(self, codes, shape):
+        """One gradient's gathered codes as a leaf of a decode group."""
         n = math.prod(shape)
-        out2d = ck.block_dequant_sum(codes["q"], codes["scales"],
-                                     block_rows=self._rows_for(n))
-        dtype = torch.float32 if dtype is None else dtype
-        return out2d.reshape(-1)[:n].reshape(shape).to(dtype)
+        return codes["q"], codes["scales"], n, self._rows_for(n)
+
+    def decode_sum(self, codes, *, shape, dtype):
+        _, (out,) = ck.block_dequant_sum_group([self._leaf(codes, shape)])
+        return _as_grad(out, shape, dtype)
+
+    def decode_sum_leaves(self, gathered, metas):
+        """Every leaf in one grouped ``block_dequant_sum`` launch."""
+        _, views = ck.block_dequant_sum_group(
+            self._leaf(gathered[name], shape)
+            for name, (shape, _) in metas.items())
+        return _as_grads(metas, views)
 
     def wire_bytes(self, shape, dtype):
         n = math.prod(shape)

@@ -210,17 +210,16 @@ class MPI_PS:
     def _summed_grads(self, grads):
         """Cross-rank gradient sum: the identity codec is a bucketed
         all-reduce; other codecs encode, all-gather the codes (bucketed)
-        and decode-sum per parameter."""
+        and decode-sum all the parameters at once (one grouped kernel
+        launch for the ported codecs)."""
         if isinstance(self.code, IdentityCodec):
             return collectives.psum_tree_bucketed(
                 grads, self.group, bucket_bytes=self.bucket_bytes)
         codes = OrderedDict((n, self.code.encode(g)) for n, g in grads.items())
         gathered = collectives.allgather_tree_bucketed(
             codes, self.group, bucket_bytes=self.bucket_bytes)
-        return OrderedDict(
-            (n, self.code.decode_sum(gathered[n], shape=g.shape,
-                                     dtype=g.dtype))
-            for n, g in grads.items())
+        metas = OrderedDict((n, (g.shape, g.dtype)) for n, g in grads.items())
+        return self.code.decode_sum_leaves(gathered, metas)
 
     def _apply_updates(self, d_ps):
         for n, p in self.params.items():

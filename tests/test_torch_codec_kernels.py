@@ -157,6 +157,8 @@ def test_wrappers_take_plain_version_on_cpu_and_count_no_launch():
     q, s = ck.block_quantize(flat, block_rows=8)
     ck.block_dequant_sum(q[None], s[None], block_rows=8)
     ck.cast_sum(flat[None].to(torch.bfloat16))
+    ck.block_dequant_sum_group([(q[None], s[None], 3000, 8)] * 3)
+    ck.cast_sum_group([flat[None].to(torch.bfloat16)] * 3)
     assert ck.LAUNCHES == {"block_quantize": 0, "block_dequant_sum": 0,
                            "cast_sum": 0}
 
@@ -174,3 +176,155 @@ def test_wrappers_reject_bad_shapes():
         ck.cast_sum(torch.zeros(4))
     with pytest.raises(ValueError, match="meta"):
         ck.cast_sum(torch.zeros(2, 4, device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# Grouped decode sums: every leaf of a step in one call
+# ---------------------------------------------------------------------------
+
+# (n, block_rows) of a dequant group: one element, leaves whose length is
+# not a multiple of 4, and tile heights 8, 64 and 512.  Leaves 1-3 share a
+# gathered bucket (leaf 2's codes and scales at odd offsets), the last is
+# a solo leaf.
+_DEQUANT_LEAVES = ((1, 8), (77, 8), (64 * 128 * 2 - 3, 64), (5000, 8),
+                   (512 * 128 + 5, 512))
+_SHARED = (1, 2, 3)
+
+
+def _check_group_layout(flat, views, ns):
+    """One f32 buffer; each view a 1-D slice of it of its leaf's length, at
+    an offset padded to 4 elements, the views in order and disjoint."""
+    assert flat.dtype == torch.float32 and flat.dim() == 1
+    end = 0
+    for v, n in zip(views, ns):
+        assert tuple(v.shape) == (n,) and v.is_contiguous()
+        assert v.untyped_storage().data_ptr() == (
+            flat.untyped_storage().data_ptr())
+        off = v.storage_offset() - flat.storage_offset()
+        assert off % 4 == 0 and off >= end
+        end = off + n
+    assert end <= flat.numel() < end + 4
+
+
+def _bucket_views(rows_per_rank, pad):
+    """Pack per-leaf ``(world, m)`` arrays into one ``(world, pad + sum m)``
+    bucket after ``pad`` elements, as a gather of a shared bucket lays
+    them out; returns the torch views ``(world, m)`` into it."""
+    world = rows_per_rank[0].shape[0]
+    bucket = np.concatenate(
+        [np.zeros((world, pad), rows_per_rank[0].dtype)] + list(
+            rows_per_rank), axis=1)
+    t = torch.from_numpy(bucket)
+    views, off = [], pad
+    for a in rows_per_rank:
+        views.append(t[:, off:off + a.shape[1]])
+        off += a.shape[1]
+    return views
+
+
+@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_block_dequant_sum_group_bitwise_matches_jax(world, bits):
+    """Each leaf of a group equals the JAX ``block_dequant_sum_ref`` of its
+    codes (padded to whole tiles as the JAX codec pads) cut to its
+    length, bit for bit."""
+    rng = np.random.RandomState(10 * world + bits)
+    codes = []
+    for n, rows in _DEQUANT_LEAVES:
+        qs, ss = [], []
+        for _ in range(world):
+            x2d, _ = pk.pad_to_blocks(jnp.asarray(_gradient(rng, n, "dense")),
+                                      rows)
+            q, s = pk.block_quantize_ref(x2d, bits=bits, block_rows=rows)
+            qs.append(np.asarray(q))
+            ss.append(np.asarray(s))
+        codes.append((np.stack(qs), np.stack(ss)))
+    q_views = _bucket_views([codes[i][0].reshape(world, -1)
+                             for i in _SHARED], pad=3)
+    s_views = _bucket_views([codes[i][1].reshape(world, -1)
+                             for i in _SHARED], pad=1)
+    leaves = []
+    for i, ((n, rows), (q, s)) in enumerate(zip(_DEQUANT_LEAVES, codes)):
+        if i in _SHARED:
+            k = _SHARED.index(i)
+            tq = q_views[k].view(q.shape)
+            ts = s_views[k].view(s.shape)
+        else:
+            tq, ts = torch.from_numpy(q), torch.from_numpy(s)
+        leaves.append((tq, ts, n, rows))
+    assert leaves[2][0].storage_offset() % 2 == 1
+    flat, views = ck.block_dequant_sum_group(leaves)
+    _check_group_layout(flat, views, [n for n, _ in _DEQUANT_LEAVES])
+    for (n, rows), (q, s), v in zip(_DEQUANT_LEAVES, codes, views):
+        ref = pk.block_dequant_sum_ref(jnp.asarray(q), jnp.asarray(s),
+                                       block_rows=rows)
+        _bits_equal(v.numpy(), np.asarray(ref).reshape(-1)[:n])
+
+
+_CAST_SIZES = (1, 77, 10, 4099, 64, 3, 2 * 8 * 128)
+
+
+@pytest.mark.parametrize("world", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_cast_sum_group_bitwise_matches_jax(world, dtype):
+    """A cast group laid out as a gather lays it out: all but the last
+    leaf in one shared bucket at odd element offsets (after a 1-element
+    head), the last a solo leaf.  Each leaf equals the JAX
+    ``cast_sum_ref`` of its wire rows, bit for bit."""
+    rng = np.random.RandomState(world)
+    wires = [jnp.asarray((3 * rng.randn(world, n)).astype(np.float32))
+             .astype(getattr(jnp, dtype)) for n in _CAST_SIZES]
+    rows = [np.array(w.astype(jnp.float32)) for w in wires]
+    bucket = torch.from_numpy(np.concatenate(
+        [np.zeros((world, 1), np.float32)] + rows[:-1], axis=1)).to(
+            getattr(torch, dtype))
+    offs = np.cumsum([1] + [r.shape[1] for r in rows[:-1]])
+    leaves = [bucket[:, offs[i]:offs[i + 1]] for i in range(len(rows) - 1)]
+    leaves.append(torch.from_numpy(rows[-1]).to(getattr(torch, dtype)))
+    assert any(x.storage_offset() % 2 for x in leaves)
+    flat, views = ck.cast_sum_group(leaves)
+    _check_group_layout(flat, views, list(_CAST_SIZES))
+    for w, v in zip(wires, views):
+        _bits_equal(v.numpy(), pk.cast_sum_ref(w))
+
+
+def _q(world=1, rows=8, dtype=torch.int8, device="cpu"):
+    return torch.zeros(world, rows, 128, dtype=dtype, device=device)
+
+
+def _s(world=1, n_blocks=1, dtype=torch.float32, device="cpu"):
+    return torch.ones(world, n_blocks, 1, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("leaves,match", [
+    ([(_q(), _s(), 10, 8), (_q(device="meta"), _s(device="meta"), 10, 8)],
+     "lie on"),
+    ([(_q(), _s(), 10, 8), (_q(), _s(device="meta"), 10, 8)], "lie on"),
+    ([(_q(dtype=torch.float32), _s(), 10, 8)], "int8/int16"),
+    ([(_q(), _s(), 10, 8), (_q(dtype=torch.int16), _s(), 10, 8)],
+     "int8/int16"),
+    ([(_q(), _s(dtype=torch.float64), 10, 8)], "int8/int16"),
+    ([(_q(rows=16), _s(), 10, 8)], "do not match"),
+    ([(_q(world=2), _s(), 10, 8)], "do not match"),
+    ([(_q(), _s(), 10, 8), (_q(world=2), _s(world=2), 10, 8)], "world"),
+    ([(_q(), _s(), 8 * 128 + 1, 8)], "does not fit"),
+    ([], "at least one"),
+])
+def test_block_dequant_sum_group_rejects_bad_leaves(leaves, match):
+    with pytest.raises(ValueError, match=match):
+        ck.block_dequant_sum_group(leaves)
+
+
+@pytest.mark.parametrize("leaves,match", [
+    ([torch.zeros(2, 4), torch.zeros(2, 4, device="meta")], "lie on"),
+    ([torch.zeros(2, 4, device="meta")], "meta"),
+    ([torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.bfloat16)],
+     "one dtype"),
+    ([torch.zeros(2, 4, dtype=torch.int32)], "bf16/f16/f32"),
+    ([torch.zeros(2, 4), torch.zeros(3, 4)], "world"),
+    ([torch.zeros(4)], r"\(world, n\)"),
+    ([], "at least one"),
+])
+def test_cast_sum_group_rejects_bad_leaves(leaves, match):
+    with pytest.raises(ValueError, match=match):
+        ck.cast_sum_group(leaves)

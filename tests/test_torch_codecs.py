@@ -111,6 +111,35 @@ def test_cast_codec_matches_jax(shape):
     np.testing.assert_array_equal(out.numpy(), generic.numpy())
 
 
+@pytest.mark.parametrize("name", ["identity", "bf16", "blockq"])
+def test_decode_sum_leaves_equals_per_leaf_decode_sum(name):
+    """The step's one call over all leaves gives, leaf by leaf, the bits
+    of `decode_sum`: codes of three ranks gathered leaf by leaf, shapes
+    from a scalar and a 1-element leaf to one past a 512-row tile."""
+    rng = np.random.RandomState(7)
+    world = 3
+    shapes = [(), (1,), (7, 33), (10,), (3, 3, 64, 64), (512 * 128 + 5,)]
+    codec = tcodecs.get_codec(name)
+    gathered, metas = {}, {}
+    for i, shape in enumerate(shapes):
+        codes = [codec.encode(torch.from_numpy(
+            np.asarray(rng.randn(*shape) * 0.1, np.float32)))
+            for _ in range(world)]
+        key = f"leaf{i}"
+        gathered[key] = ({k: torch.stack([c[k] for c in codes])
+                          for k in codes[0]} if isinstance(codes[0], dict)
+                         else torch.stack(codes))
+        metas[key] = (shape, torch.float32)
+    out = codec.decode_sum_leaves(gathered, metas)
+    assert list(out) == list(metas)
+    for key, (shape, dtype) in metas.items():
+        want = codec.decode_sum(gathered[key], shape=shape, dtype=dtype)
+        assert tuple(out[key].shape) == shape
+        assert out[key].dtype == want.dtype == torch.float32
+        np.testing.assert_array_equal(out[key].numpy().view(np.uint32),
+                                      want.numpy().view(np.uint32))
+
+
 def test_identity_codec_round_trip():
     codec = tcodecs.get_codec(None)
     assert isinstance(codec, tcodecs.IdentityCodec)

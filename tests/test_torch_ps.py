@@ -113,6 +113,28 @@ def test_world2_mlp_blockq_trajectory_matches_jax(mesh2, tmp_path):
                                       out["params"][n])
 
 
+def test_world2_mlp_bf16_trajectory_matches_jax(mesh2, tmp_path):
+    """The bf16 codec at world 2 with the default buckets: the MLP's four
+    leaves (1,584, 33, 330 and 10 elements) share one gathered bucket, so
+    the grouped cast_sum reads leaves at odd element offsets of rows an odd
+    number of elements apart.  Tolerance as for the blockq MLP."""
+    named = jmodels.init_mlp(np.random.RandomState(4), (48, 33, 10))
+    batches = _batches(np.random.RandomState(5), (4, 4, 3))
+    jl, jm, jp, _ = _jax_trajectory(mesh2, named, None,
+                                    jmodels.mlp_loss_fn, False, batches,
+                                    "bf16")
+    ranks = run_world("ps_trajectory", WORLD, tmp_path, "mlp", dict(named),
+                      None, batches, "bf16", 0.1, 0.9)
+    out = ranks[0]
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out["losses"], jl, **tol)
+    _check_metrics(out["metrics"], jm)
+    for n, p in jp.items():
+        np.testing.assert_allclose(out["params"][n], p, err_msg=n, **tol)
+        np.testing.assert_array_equal(ranks[1]["params"][n],
+                                      out["params"][n])
+
+
 # ---------------------------------------------------------------------------
 # Construction and step contract, in one process (a world of one)
 # ---------------------------------------------------------------------------
