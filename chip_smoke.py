@@ -24,6 +24,9 @@ and carried on from):
      odd offsets, solo leaves, tiles of 8 to 512 rows), at worlds 1 and 4,
      bits 8 and 16, bf16, f16 and f32 wires, with their launch counts, and
      a group long enough to be split across launches;
+   * the overlap engine's fused buckets: the 12 buckets of the ResNet-18
+     plan, each quantized as one tensor (tiles straddling its leaves), and
+     one grouped decode over the 12, at worlds 1 and 4, all bitwise;
    * the flash attention kernels within stated tolerances, at the LM's
      main-path shape (strided q/k/v views, causal, bf16), D = 128, a ragged
      S, non-causal, a scale override, f32, odd head dims and the edges of
@@ -40,17 +43,26 @@ and carried on from):
 3. The ResNet slice through its public entry points: a one-rank NCCL
    group, full-width bf16 ResNet-18 and ``SGD(lr=0.1, momentum=0.9)`` on
    synthetic CIFAR-10 at batch 1024 — 3 warm-up and 10 timed steps with the
-   blockq codec, then 3 steps each with bf16 and identity — with the
-   kernels' launch counts read around each run, a profile of two blockq and
-   two bf16 steps (device time by kernel category, busy share), and a small
-   MLP run on the card checked against the same run on the CPU (plain
-   versions).
+   blockq codec; the same through the overlap engine with the fused
+   per-bucket encode (``sync_mode="overlap", fused_encode=True``: 12
+   ``block_quantize`` launches a step), timed again in turns with the
+   bucketed run, 7 steps unfused (62) and 2 bf16 steps; then 3
+   steps each with bf16 and identity — with the kernels' launch counts
+   read around each run, a profile of two steps of each blockq run and of
+   bf16 (device time by kernel category, busy share); with cuDNN's
+   deterministic algorithms, two steps of bucketed identity twice (the
+   card's run-to-run difference), of the overlap engine's identity with
+   each reducer, and of bucketed and fused overlap blockq with and without
+   ``profile=True`` (the phase split), each held to that difference; and a
+   small MLP run on the card, bucketed and fused overlap blockq, checked
+   against the same runs on the CPU (plain versions).
 4. The transformer LM of the repo's LM benchmark at full width and depth
    (219,346,944 parameters, bf16, flash attention, batch 16 x 1024 tokens)
    with ``SGD(lr=0.01, momentum=0.9)``: 2 warm-up and 5 timed identity
    steps (tokens/s, flash launches per step, wire bytes), a profile of two
-   steps, 2 blockq steps, the f32 lm_head GEMMs timed alone, and a small
-   f32 LM run on the card checked against the same run on the CPU.
+   steps, 2 warm-up and 3 timed identity steps through the overlap engine,
+   2 blockq steps, the f32 lm_head GEMMs timed alone, and a small f32 LM
+   run on the card checked against the same run on the CPU.
 5. The card line, one JSON line per the kernels, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -78,6 +90,10 @@ FLASH_REPLACES = {
 }
 BATCH = 1024
 WARM, TIMED, SIDE = 3, 10, 3
+# The overlap engine's runs: the unfused side run's warm and timed steps,
+# and the steps of each run the identity and profile comparisons make.
+OVERLAP_SIDE, OVERLAP_SIDE_TIMED, COMPARE_STEPS = 2, 5, 2
+OVERLAP_BUCKET_BYTES = 4 << 20  # the step's default bucket_mb=4
 
 
 def fail(msg: str) -> None:
@@ -164,9 +180,10 @@ def time_graph_ms(fn, calls: int, reps: int = 20) -> float:
     return ms
 
 
-def check_kernels(sizes):
+def check_kernels(sizes, buckets):
     """Bitwise checks of every kernel against its plain version; returns
-    ``{kernel: max_abs_err}`` (0.0 when every check is bitwise)."""
+    ``{kernel: max_abs_err}`` (0.0 when every check is bitwise).
+    ``buckets``: the leaf sizes of each bucket of the overlap plan."""
     import torch
 
     from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
@@ -292,6 +309,7 @@ def check_kernels(sizes):
             record("cast_sum", ck.cast_sum(view), ck.cast_sum_ref(view),
                    f"odd bucket offset {dtype} world={world}")
     check_groups(record, sizes)
+    check_fused_buckets(record, buckets)
     torch.cuda.synchronize()
     for k in REPLACES:
         print(f"[kernels] {k}: {n_checks[k]} checks bitwise equal to the "
@@ -436,6 +454,44 @@ def check_groups(record, sizes):
               f"parameter table; 4,096 bytes would hold {cap['small']}; "
               f"CUDA runtime {cap['runtime']}, CUDA driver "
               f"{cap['cuda_driver']})")
+
+
+def check_fused_buckets(record, buckets):
+    """The fused overlap path's kernels at its shapes: each bucket of the
+    ResNet-18 overlap plan (``buckets``: leaf sizes) concatenated from a
+    seeded gradient and quantized as one tensor, tiles of
+    ``rows_for_flat(bucket size)`` rows straddling its leaves, against
+    `block_quantize_ref`; then one grouped `block_dequant_sum` with a leaf
+    per bucket, at worlds 1 and 4, against `block_dequant_sum_ref`.  All
+    bitwise."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    codes = []
+    for i, ns in enumerate(buckets):
+        flat = torch.cat([torch.randn(n, device="cuda", generator=gen)
+                          * 10.0 ** (j % 5 - 3) for j, n in enumerate(ns)])
+        n, rows = flat.numel(), ck.rows_for_flat(flat.numel())
+        q, s = ck.block_quantize(flat, block_rows=rows)
+        rq, rs = ck.block_quantize_ref(ck.pad_to_blocks(flat, rows)[0],
+                                       block_rows=rows)
+        what = f"fused bucket {i}: {len(ns)} leaves, n={n}, {rows} rows"
+        record("block_quantize", q, rq, what)
+        record("block_quantize", s, rs, f"{what}, scales")
+        codes.append((q, s, n, rows))
+    for world in (1, 4):
+        leaves = [(torch.stack([q if r % 2 == 0 else -q
+                                for r in range(world)]),
+                   torch.stack([s * (1 + r) for r in range(world)]), n, rows)
+                  for q, s, n, rows in codes]
+        launches = _group_case(record, "block_dequant_sum", leaves,
+                               f"{len(codes)} fused buckets world={world}")
+    print(f"[kernels] the {len(buckets)} fused buckets of the ResNet-18 "
+          f"overlap plan ({sum(c[2] for c in codes)} elements): "
+          f"block_quantize bitwise per bucket; block_dequant_sum bitwise in "
+          f"{launches} grouped launch(es) at worlds 1 and 4")
 
 
 def host_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -871,17 +927,18 @@ def expect_counts(what, counts, **want) -> None:
 
 
 def drive(code, named, loss_fn, batch, group, warm, timed, *, lr,
-          has_aux=False, aux=None):
+          has_aux=False, aux=None, **options):
     """Run ``warm`` blocking steps and ``timed`` queued steps of
-    ``SGD(lr, momentum=0.9)`` with ``code``; the launch counts are zeroed
-    just before and read just after.  Returns (optimizer, losses, counts,
-    seconds of the timed steps, last metrics)."""
+    ``SGD(lr, momentum=0.9)`` with ``code`` and the step ``options``
+    (``sync_mode``, ``fused_encode``, ``profile``, ...); the launch counts
+    are zeroed just before and read just after.  Returns (optimizer,
+    losses, counts, seconds of the timed steps, last metrics)."""
     import torch
 
     from pytorch_ps_mpi_tpu_torch import SGD
 
     opt = SGD(list(named.items()), lr=lr, momentum=0.9, code=code,
-              device="cuda", group=group)
+              device="cuda", group=group, **options)
     opt.compile_step(loss_fn, has_aux=has_aux, aux=aux)
     reset_launch_counts()
     losses = []
@@ -986,12 +1043,12 @@ def _assert_close_runs(what, out, rtol, atol):
           f"{out['cuda'][0]} vs {out['cpu'][0]}, max param diff {worst}")
 
 
-def small_reference_check(group, cpu_group):
-    """A small MLP trained 3 steps with blockq on the card (CUDA kernels)
-    and on the CPU (plain versions), from the same numpy init and batches.
-    Tolerance rtol=1e-4, atol=1e-5: float32 matmuls (TF32 off) sum in
-    other orders on the two devices; the codes then agree, or differ by
-    one quantum (lr * scale, ~1e-6 here)."""
+def small_reference_check(group, cpu_group, **options):
+    """A small MLP trained 3 steps with blockq and the step ``options`` on
+    the card (CUDA kernels) and on the CPU (plain versions), from the same
+    numpy init and batches.  Tolerance rtol=1e-4, atol=1e-5: float32
+    matmuls (TF32 off) sum in other orders on the two devices; the codes
+    then agree, or differ by one quantum (lr * scale, ~1e-6 here)."""
     import numpy as np
 
     from pytorch_ps_mpi_tpu_torch import SGD
@@ -1004,12 +1061,13 @@ def small_reference_check(group, cpu_group):
     out = {}
     for device, grp in (("cuda", group), ("cpu", cpu_group)):
         opt = SGD(list(named.items()), lr=0.05, momentum=0.9, code="blockq",
-                  device=device, group=grp)
+                  device=device, group=grp, **options)
         opt.compile_step(mlp_loss_fn)
         losses = [opt.step(batch)[0] for _ in range(3)]
         out[device] = (losses, {n: p.cpu().numpy()
                                 for n, p in opt.params.items()})
-    _assert_close_runs("small MLP blockq", out, 1e-4, 1e-5)
+    _assert_close_runs(f"small MLP blockq {options or ''}".strip(), out,
+                       1e-4, 1e-5)
 
 
 def run_slice(group, cpu_group):
@@ -1059,13 +1117,17 @@ def run_slice(group, cpu_group):
           f"{BATCH * TIMED / seconds:.1f} images/s per GPU "
           f"({TIMED} queued steps, host clock to synchronize); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    main_counts = counts
+    fused = run_overlap_fused(named, aux, loss_fn, batch, group, opt, ms)
     device_ms = profile_steps(opt, batch, "ResNet-18 blockq")
     if device_ms is not None:
         print(f"[slice] blockq device busy share without the profiler: "
               f"{device_ms / ms:.3f} (profiled device ms/step over the "
               f"timed ms/step)")
-    main_counts = counts
     del opt
+    profile_steps(fused, batch, "ResNet-18 overlap fused blockq")
+    del fused
+    run_overlap_unfused(named, aux, loss_fn, batch, group)
 
     opt, losses, counts, seconds, _ = drive(
         "bf16", named, loss_fn, batch, group, SIDE, 0, **common)
@@ -1087,11 +1149,205 @@ def run_slice(group, cpu_group):
     expect_counts("ResNet-18 identity", counts)
     check_params_finite(opt, "identity")
     del opt
+    compare_overlap_and_profile(named, aux, loss_fn, batch, group)
 
     small_reference_check(group, cpu_group)
+    small_reference_check(group, cpu_group, sync_mode="overlap",
+                          fused_encode=True)
     return {"block_quantize": main_counts["block_quantize"],
             "block_dequant_sum": main_counts["block_dequant_sum"],
             "cast_sum": cast_counts["cast_sum"]}
+
+
+def fused_wire_bytes(named, plan) -> int:
+    """Bytes a fused blockq step gathers from each rank: per bucket, the
+    int8 codes of its tiles and a float32 scale per tile, in one
+    transfer."""
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    total = 0
+    for names in plan.buckets:
+        n = sum(named[x].numel() for x in names)
+        tile = ck.rows_for_flat(n) * ck.LANE
+        tiles = -(-n // tile)
+        total += tiles * tile + tiles * 4
+    return total
+
+
+def queued_ms(opt, batch, steps: int) -> float:
+    """ms/step of ``steps`` queued steps, host clock to synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        opt.step(batch, block=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def run_overlap_fused(named, aux, loss_fn, batch, group, bucketed,
+                      bucketed_ms):
+    """ResNet-18 blockq through the overlap engine with the fused
+    per-bucket encode (one block_quantize launch per bucket), warmed and
+    timed like the bucketed run, then both timed again in turns (no
+    profiler has run yet); launch counts, losses, byte metrics.  Returns
+    the optimizer."""
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+    from pytorch_ps_mpi_tpu_torch.parallel import overlap as OV
+
+    plan = OV.plan_overlap(named, OVERLAP_BUCKET_BYTES, record=False)
+    n_buckets = plan.n_buckets
+    print(f"[overlap] ResNet-18 plan at {OVERLAP_BUCKET_BYTES} bytes: "
+          f"{plan.describe()}; the fused step gathers "
+          f"{fused_wire_bytes(named, plan)} bytes a step in {n_buckets} "
+          f"transfers (packaged_bytes, the per-leaf wire: 11445104)")
+    if n_buckets != 12:
+        fail(f"the ResNet-18 overlap plan has {n_buckets} buckets, not 12")
+    dq_step = ck.group_launches("block_dequant_sum", n_buckets)
+    opt, losses, counts, seconds, metrics = drive(
+        "blockq", named, loss_fn, batch, group, WARM, TIMED, lr=0.1,
+        has_aux=True, aux=aux, sync_mode="overlap", fused_encode=True)
+    steps = WARM + TIMED
+    print(f"[overlap] fused blockq: {steps} steps, losses {losses}, "
+          f"launches {counts} (expect {n_buckets}/step of block_quantize, "
+          f"one per bucket, and {dq_step}/step of block_dequant_sum)")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"overlap fused blockq losses must be finite and fall: {losses}")
+    expect_counts("ResNet-18 overlap fused blockq", counts,
+                  block_quantize=n_buckets * steps,
+                  block_dequant_sum=dq_step * steps)
+    if (metrics["packaged_bytes"] != 11445104
+            or metrics["msg_bytes"] != 44695848
+            or opt.fault_stats["fused_sync_encodes"] != steps):
+        fail(f"overlap fused byte metrics {metrics}, fault_stats "
+             f"{opt.fault_stats}")
+    check_params_finite(opt, "overlap fused blockq")
+    ms = seconds / TIMED * 1e3
+    print(f"[overlap] fused blockq ResNet-18 bf16 batch {BATCH}: {ms:.3f} "
+          f"ms/step, {BATCH * TIMED / seconds:.1f} images/s per GPU "
+          f"({TIMED} queued steps; the bucketed blockq run above: "
+          f"{bucketed_ms:.3f} ms/step)")
+    turns = [(queued_ms(bucketed, batch, TIMED), queued_ms(opt, batch, TIMED))
+             for _ in range(2)]
+    print(f"[overlap] in turns, {TIMED} queued steps each, bucketed vs fused "
+          f"overlap blockq ms/step: "
+          + "; ".join(f"{b:.3f} vs {f:.3f}" for b, f in turns))
+    return opt
+
+
+def run_overlap_unfused(named, aux, loss_fn, batch, group):
+    """ResNet-18 through the overlap engine, unfused: blockq (one
+    block_quantize launch per leaf; launch counts, losses, ms/step and the
+    profile), then a few bf16 steps (one grouped cast_sum a step)."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    per_step = len(named)
+    opt, losses, counts, seconds, _ = drive(
+        "blockq", named, loss_fn, batch, group, OVERLAP_SIDE,
+        OVERLAP_SIDE_TIMED, lr=0.1, has_aux=True, aux=aux,
+        sync_mode="overlap")
+    steps = OVERLAP_SIDE + OVERLAP_SIDE_TIMED
+    dq_step = ck.group_launches("block_dequant_sum", per_step)
+    print(f"[overlap] unfused blockq: losses {losses}, launches {counts} "
+          f"(expect {per_step}/step of block_quantize and {dq_step}/step of "
+          f"block_dequant_sum); {seconds / OVERLAP_SIDE_TIMED * 1e3:.3f} "
+          f"ms/step ({OVERLAP_SIDE_TIMED} queued steps)")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"overlap unfused blockq losses {losses}")
+    expect_counts("ResNet-18 overlap blockq", counts,
+                  block_quantize=per_step * steps,
+                  block_dequant_sum=dq_step * steps)
+    check_params_finite(opt, "overlap blockq")
+    profile_steps(opt, batch, "ResNet-18 overlap blockq (unfused)")
+    del opt
+
+    opt, losses, counts, _, _ = drive(
+        "bf16", named, loss_fn, batch, group, OVERLAP_SIDE, 0, lr=0.1,
+        has_aux=True, aux=aux, sync_mode="overlap")
+    cast_step = ck.group_launches("cast_sum", per_step)
+    print(f"[overlap] bf16: losses {losses}, launches {counts} (expect "
+          f"{cast_step}/step of cast_sum: the {per_step} leaves grouped)")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"overlap bf16 losses {losses}")
+    expect_counts("ResNet-18 overlap bf16", counts,
+                  cast_sum=cast_step * OVERLAP_SIDE)
+    check_params_finite(opt, "overlap bf16")
+    del opt
+    torch.cuda.empty_cache()
+
+
+def _max_diff(a, b) -> float:
+    return max(abs_err(a[n], b[n]) for n in a)
+
+
+def compare_overlap_and_profile(named, aux, loss_fn, batch, group):
+    """With cuDNN's deterministic algorithms: two bucketed identity runs
+    give the card's run-to-run difference; the overlap engine's identity
+    runs (rs_ag, psum: at world 1 the sums are the identity) must be no
+    further from the first than that.  Then a profiled run of bucketed and
+    of fused overlap blockq against the unprofiled run from the same
+    start, within the same difference; the profiled step's phase split is
+    printed."""
+    import torch
+
+    common = dict(lr=0.1, has_aux=True, aux=aux)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for what, code, options in (
+                ("bucketed identity", "identity", {}),
+                ("bucketed identity again", "identity", {}),
+                ("overlap identity rs_ag", "identity",
+                 dict(sync_mode="overlap")),
+                ("overlap identity psum", "identity",
+                 dict(sync_mode="overlap", overlap_reducer="psum")),
+                ("bucketed blockq", "blockq", {}),
+                ("bucketed blockq profiled", "blockq", dict(profile=True)),
+                ("overlap fused blockq", "blockq",
+                 dict(sync_mode="overlap", fused_encode=True)),
+                ("overlap fused blockq profiled", "blockq",
+                 dict(sync_mode="overlap", fused_encode=True,
+                      profile=True))):
+            opt, losses, counts, _, metrics = drive(
+                code, named, loss_fn, batch, group, COMPARE_STEPS, 0,
+                **common, **options)
+            runs[what] = (losses, dict(opt.params), metrics)
+            if code == "identity":
+                expect_counts(what, counts)
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"{what}: losses {losses}")
+            del opt
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    base = runs["bucketed identity"]
+    spread = _max_diff(base[1], runs["bucketed identity again"][1])
+    loss_spread = max(abs(a - b) for a, b in zip(
+        base[0], runs["bucketed identity again"][0]))
+    print(f"[overlap] {COMPARE_STEPS} identity steps, cuDNN deterministic: "
+          f"two bucketed runs differ by {spread} (params), {loss_spread} "
+          f"(losses)")
+    for what, ref in (("overlap identity rs_ag", "bucketed identity"),
+                      ("overlap identity psum", "bucketed identity"),
+                      ("bucketed blockq profiled", "bucketed blockq"),
+                      ("overlap fused blockq profiled",
+                       "overlap fused blockq")):
+        d = _max_diff(runs[what][1], runs[ref][1])
+        dl = max(abs(a - b) for a, b in zip(runs[what][0], runs[ref][0]))
+        print(f"[overlap] {what} vs {ref}: max param diff {d}, max loss "
+              f"diff {dl}")
+        if d > max(spread, 0.0) or dl > max(loss_spread, 0.0):
+            fail(f"{what} is further from {ref} than two bucketed runs "
+                 f"from each other")
+    for what in ("bucketed blockq profiled", "overlap fused blockq profiled"):
+        m = runs[what][2]
+        print(f"[overlap] phase split, {what} (step {COMPARE_STEPS}, ms): "
+              + ", ".join(f"{k} {m[k] * 1e3:.3f}" for k in (
+                  "backward_time", "code_wait", "isend_time", "comm_wait",
+                  "decode_time", "optim_step_time")))
 
 
 # ---------------------------------------------------------------------------
@@ -1103,6 +1359,7 @@ LM = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
           d_ff=4096, max_len=1024)
 LM_BATCH, LM_SEQ = 16, 1024
 LM_WARM, LM_TIMED, LM_BLOCKQ = 2, 5, 2
+LM_OVERLAP_WARM, LM_OVERLAP_TIMED = 2, 3
 LM_TENSORS, LM_PARAMS = 150, 219346944
 LM_MSG_BYTES, LM_BLOCKQ_BYTES = 877387776, 219360716
 
@@ -1218,13 +1475,39 @@ def run_lm(group, cpu_group):
           f"ms/step, {tokens * LM_TIMED / seconds:.1f} tokens/s per GPU "
           f"({LM_TIMED} queued steps, host clock to synchronize); peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    device_ms = profile_steps(opt, batch, "LM identity")
+    lm_counts = counts
+    bucketed = opt
+
+    opt, losses, counts, seconds, metrics = drive(
+        "identity", named, loss_fn, batch, group, LM_OVERLAP_WARM,
+        LM_OVERLAP_TIMED, lr=0.01, sync_mode="overlap")
+    steps = LM_OVERLAP_WARM + LM_OVERLAP_TIMED
+    print(f"[lm] overlap identity (rs_ag, {opt.overlap_plan.n_buckets} "
+          f"buckets): {steps} steps, losses {losses}, launches {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"LM overlap losses {losses}")
+    expect_counts("LM overlap identity", counts, flash_fwd=per_step * steps,
+                  flash_bwd_dkdv=per_step * steps,
+                  flash_bwd_dq=per_step * steps)
+    if metrics["msg_bytes"] != LM_MSG_BYTES:
+        fail(f"LM overlap byte metrics {metrics}")
+    check_params_finite(opt, "LM overlap identity")
+    print(f"[lm] overlap identity: "
+          f"{seconds / LM_OVERLAP_TIMED * 1e3:.3f} ms/step, "
+          f"{tokens * LM_OVERLAP_TIMED / seconds:.1f} tokens/s per GPU "
+          f"({LM_OVERLAP_TIMED} queued steps; bucketed above: {ms:.3f} "
+          f"ms/step); in turns, {LM_OVERLAP_TIMED} queued steps each, "
+          f"bucketed {queued_ms(bucketed, batch, LM_OVERLAP_TIMED):.3f} vs "
+          f"overlap {queued_ms(opt, batch, LM_OVERLAP_TIMED):.3f} ms/step; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"with both optimizers held")
+    del opt
+    device_ms = profile_steps(bucketed, batch, "LM identity")
     if device_ms is not None:
         print(f"[lm] device busy share without the profiler: "
               f"{device_ms / ms:.3f} (profiled device ms/step over the timed "
               f"ms/step)")
-    lm_counts = counts
-    del opt
+    del bucketed
     torch.cuda.empty_cache()
 
     opt, losses, counts, _, metrics = drive(
@@ -1292,10 +1575,13 @@ def main() -> int:
 
     # --- 2. kernels against their plain versions ---
     from pytorch_ps_mpi_tpu_torch.models import build_model, resnet18
+    from pytorch_ps_mpi_tpu_torch.parallel.overlap import plan_overlap
 
     named, _ = build_model(resnet18(), seed=0)
     sizes = [p.numel() for p in named.values()]
-    errs = check_kernels(sizes)
+    plan = plan_overlap(named, OVERLAP_BUCKET_BYTES, record=False)
+    errs = check_kernels(sizes, [[named[n].numel() for n in b]
+                                 for b in plan.buckets])
     times = time_kernels(sizes)
     print_flash_occupancy()
     errs.update(check_flash_kernels())

@@ -101,23 +101,64 @@ def _all_reduce_flat(flat: torch.Tensor, group) -> torch.Tensor:
     return flat
 
 
-def _all_gather_flat(flat: torch.Tensor, group) -> torch.Tensor:
+def _all_gather_flat(flat: torch.Tensor, group, works=None) -> torch.Tensor:
     """Gather a contiguous 1-D tensor from every rank into ``(world, n)``.
 
     A gather is pure data movement, so it moves the bytes: one path for
-    every dtype, including int16, which neither gloo nor NCCL takes."""
+    every dtype, including int16, which neither gloo nor NCCL takes.  With
+    a ``works`` list the gather is issued asynchronously and ``(work,
+    input)`` is appended to it; the result holds the gathered bytes once
+    the work has been waited for."""
     world = dist.get_world_size(group)
     raw = flat.view(torch.int8)
     out = torch.empty((world * raw.numel(),), dtype=torch.int8,
                       device=flat.device)
-    _all_gather_into(out, raw, group=group)
+    work = _all_gather_into(out, raw, group=group,
+                            async_op=works is not None)
+    if works is not None:
+        works.append((work, raw))
     return out.view(flat.dtype).view(world, flat.numel())
 
 
-# The same collective under its newer name, where PyTorch has it (the old
-# name warns there).
+# The same collectives under their newer names, where PyTorch has them (the
+# old names warn there).
 _all_gather_into = getattr(dist, "all_gather_single",
                            dist.all_gather_into_tensor)
+_reduce_scatter_into = getattr(dist, "reduce_scatter_single",
+                               dist.reduce_scatter_tensor)
+
+
+def _allreduce_rs_ag(x: torch.Tensor, group, world: int, *,
+                     async_op: bool = False):
+    """All-reduce one flat tensor as a reduce-scatter and an all-gather.
+
+    The same cross-rank sum as an all-reduce (an all-reduce is the two on
+    the wire), after the JAX package's `_allreduce_rs_ag`: pad to a
+    multiple of ``world``, reduce-scatter, all-gather, slice.  ``x`` is
+    not written.  With ``async_op=True`` returns ``(result, works)``:
+    ``works`` holds each collective's handle with the buffers it reads or
+    writes, and the result is valid once they have been waited for, in
+    order.  NCCL runs a group's collectives in issue order on one stream,
+    so there the gather is queued behind the scatter at once; gloo runs
+    them on several threads, so there the scatter is waited for first."""
+    n = x.numel()
+    pad = (-n) % world
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,))])
+    mine = x.new_empty((x.numel() // world,))
+    full = torch.empty_like(x)
+    rs = _reduce_scatter_into(mine, x, op=dist.ReduceOp.SUM, group=group,
+                              async_op=True)
+    if not x.is_cuda:
+        rs.wait()
+    ag = _all_gather_into(full, mine, group=group, async_op=True)
+    out = full[:n] if pad else full
+    works = [(rs, x), (ag, mine)]
+    if async_op:
+        return out, works
+    for work, _ in works:
+        work.wait()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -158,26 +199,41 @@ def _bucketed_leafwise(tree: Tree, collective, bucket_bytes: "int | None",
 
 def psum_tree_bucketed(tree: Tree, group=None, *,
                        bucket_bytes: "int | None" = DEFAULT_BUCKET_BYTES,
+                       decompose: bool = False,
                        solo_bytes: "int | None" = None) -> Tree:
     """Sum every leaf across ranks — the reference's ``sum(grads)``: a
     **sum, not a mean** — with dtype-bucketed flat all-reduces.  A
     contiguous leaf that goes solo is reduced in place (the PS step owns
-    its gradients); callers that need their tree intact pass a copy."""
+    its gradients); callers that need their tree intact pass a copy.
+    ``decompose=True`` sums each bucket (each leaf, with
+    ``bucket_bytes=None``) as a reduce-scatter and an all-gather
+    (`_allreduce_rs_ag`): the same sum, and no leaf is written."""
+    if decompose:
+        world = dist.get_world_size(group)
+
+        def reduce(x):
+            return _allreduce_rs_ag(x, group, world)
+    else:
+        def reduce(x):
+            return _all_reduce_flat(x, group)
     solo = _solo_default(bucket_bytes, solo_bytes) if bucket_bytes else 0
-    return _bucketed_leafwise(
-        tree, lambda x: _all_reduce_flat(x, group), bucket_bytes, solo)
+    return _bucketed_leafwise(tree, reduce, bucket_bytes, solo)
 
 
 def allgather_tree_bucketed(tree: Tree, group=None, *,
                             bucket_bytes: "int | None" = DEFAULT_BUCKET_BYTES,
-                            solo_bytes: "int | None" = None) -> Tree:
+                            solo_bytes: "int | None" = None,
+                            works: "list | None" = None) -> Tree:
     """All-gather every leaf (untiled: leaves grow a leading world dim)
     with dtype-bucketed flat all-gathers.  A leaf of a shared bucket comes
     back as a strided view ``(world, *shape)`` of the gathered bucket; the
-    codec kernels read it in place."""
+    codec kernels read it in place.  With a ``works`` list each gather is
+    issued asynchronously (see `_all_gather_flat`), and the leaves hold
+    the gathered codes once every work appended to it has been waited
+    for."""
     solo = _solo_default(bucket_bytes, solo_bytes) if bucket_bytes else 0
     return _bucketed_leafwise(
-        tree, lambda x: _all_gather_flat(x, group), bucket_bytes, solo)
+        tree, lambda x: _all_gather_flat(x, group, works), bucket_bytes, solo)
 
 
 def pmean_tree(tree: Tree, group=None, *,

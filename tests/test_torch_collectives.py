@@ -4,7 +4,9 @@
   package's on the same leaf lists — exactly: they decide which leaves
   share a collective.
 * A world-2 gloo run of `psum_tree_bucketed`, `allgather_tree_bucketed`
-  and `pmean_tree`, bucketed and per-leaf, against numpy.  Tolerance:
+  and `pmean_tree`, bucketed and per-leaf, against numpy; and of
+  `psum_tree_bucketed(decompose=True)` (reduce-scatter + all-gather, with
+  the padding of sizes that are not a multiple of the world).  Tolerance:
   none — a sum of two float32 values is exact in either order, and a
   gather moves bytes.
 """
@@ -80,3 +82,17 @@ def test_world2_psum_allgather_pmean(tmp_path, bucket_bytes):
             assert got.shape == (2,) + shape
             np.testing.assert_array_equal(got, np.stack([trees[0][n],
                                                          trees[1][n]]))
+
+
+def test_world2_psum_decomposed(tmp_path):
+    results = run_world("decomposed_case", 2, tmp_path, SHAPES)
+    trees = [{n: t.numpy() for n, t in rank_tree(r, SHAPES).items()
+              if t.dtype == torch.float32} for r in range(2)]
+    for rank, res in enumerate(results):
+        for bucket_bytes, got in res.items():
+            assert sorted(got["psum"]) == sorted(trees[0])
+            for n, x in trees[0].items():
+                np.testing.assert_array_equal(got["psum"][n],
+                                              x + trees[1][n])
+                np.testing.assert_array_equal(got["input"][n],
+                                              trees[rank][n])

@@ -171,14 +171,36 @@ def test_constructor_validates_like_jax():
 
 @pytest.mark.parametrize("kwargs", [
     dict(zero=True), dict(error_feedback=True), dict(ema_decay=0.99),
-    dict(clip_norm=1.0), dict(skip_nonfinite=True), dict(profile=True),
-    dict(sync_mode="overlap"), dict(fused_encode=True),
-    dict(consensus_every=5), dict(decompose_allreduce=True),
-    dict(cuda=True),
+    dict(consensus_every=5), dict(cuda=True),
 ])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):
         SGD(_named(), device="cpu", code="blockq", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(clip_norm=1.0), dict(skip_nonfinite=True), dict(profile=True),
+    dict(sync_mode="overlap"), dict(fused_encode=True),
+    dict(decompose_allreduce=True),
+])
+def test_ported_options_take_a_step(kwargs):
+    """The options ported with the overlap engine construct and run a CPU
+    step (``fused_encode`` needs the overlap mode, as in the JAX
+    package)."""
+    if kwargs.get("fused_encode"):
+        with pytest.raises(ValueError, match="fused_encode requires"):
+            SGD(_named(), device="cpu", code="blockq", **kwargs)
+        kwargs = dict(kwargs, sync_mode="overlap")
+    code = "identity" if kwargs.get("decompose_allreduce") else "blockq"
+    opt = SGD(_named(), lr=0.05, momentum=0.9, device="cpu", code=code,
+              **kwargs)
+    opt.compile_step(_loss)
+    before = {n: p.clone() for n, p in opt.params.items()}
+    loss, m = opt.step(_batch())
+    assert np.isfinite(loss) and m["nonfinite_skip"] == 0.0
+    for n, p in opt.params.items():
+        assert bool(torch.isfinite(p).all())
+        assert not torch.equal(p, before[n]), n
 
 
 def test_unported_compile_options_raise():

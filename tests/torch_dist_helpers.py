@@ -99,6 +99,23 @@ def collectives_case(rank, world, shapes, bucket_bytes):
             "pmean": np_(means)}
 
 
+def decomposed_case(rank, world, shapes):
+    """`psum_tree_bucketed(decompose=True)` of `rank_tree`'s float32 leaves,
+    per leaf and in 4,096-byte buckets, and the leaves it was given
+    afterwards (a reduce-scatter + all-gather writes no leaf)."""
+    from pytorch_ps_mpi_tpu_torch.parallel import collectives as C
+
+    out = {}
+    for bucket_bytes in (None, 4096):
+        tree = {n: t for n, t in rank_tree(rank, shapes).items()
+                if t.dtype == torch.float32}
+        summed = C.psum_tree_bucketed(tree, bucket_bytes=bucket_bytes,
+                                      decompose=True)
+        out[bucket_bytes] = {"psum": {n: v.numpy() for n, v in summed.items()},
+                             "input": {n: v.numpy() for n, v in tree.items()}}
+    return out
+
+
 def ps_trajectory(rank, world, kind, named, aux, batches, code, lr,
                   momentum):
     """A few SGD steps of the port's MPI_PS on ``kind`` ('resnet11': the
@@ -123,3 +140,144 @@ def ps_trajectory(rank, world, kind, named, aux, batches, code, lr,
     return {"losses": losses, "metrics": metrics,
             "params": {n: p.numpy() for n, p in opt.params.items()},
             "aux": {n: a.numpy() for n, a in opt.aux.items()}}
+
+
+def scaled_bucket(rank, shapes, seed):
+    """A bucket of float32 leaves ``g{i}`` of ``shapes``, drawn from a numpy
+    seed and scaled by ``rank + 1`` — the JAX overlap tests' rank-distinct
+    cotangents."""
+    from collections import OrderedDict
+
+    rng = np.random.RandomState(seed)
+    return OrderedDict(
+        (f"g{i}", torch.from_numpy(rng.randn(*s).astype(np.float32))
+         * (rank + 1)) for i, s in enumerate(shapes))
+
+
+def overlap_sync_case(rank, world, buckets):
+    """The overlap engine's bucket syncs on `scaled_bucket` cotangents: the
+    identity sync with both reducers, the fused blockq sync (8- and 16-bit
+    codes) and the per-leaf codec sync (blockq, bf16), for each ``(shapes,
+    seed)`` of ``buckets``; results as numpy."""
+    from pytorch_ps_mpi_tpu_torch.ops.codecs import (BlockQuantizeCodec,
+                                                     get_codec)
+    from pytorch_ps_mpi_tpu_torch.parallel import overlap as OV
+
+    out = {}
+    for key, (shapes, seed) in buckets.items():
+        cot = scaled_bucket(rank, shapes, seed)
+        res = {r: OV._sync_identity(cot, None, world, r)
+               for r in ("rs_ag", "psum")}
+        for bits in (8, 16):
+            res[f"fused{bits}"] = OV._sync_blockq_fused(
+                cot, None, BlockQuantizeCodec(bits=bits))
+        for code in ("blockq", "bf16"):
+            res[f"codec_{code}"] = OV._sync_codec(cot, None, get_codec(code))
+        out[key] = {k: {n: v.numpy() for n, v in d.items()}
+                    for k, d in res.items()}
+    return out
+
+
+def _mlp_with_unused(dims):
+    """MLP params of ``dims`` as tensors, plus two leaves outside the
+    loss: ``unused`` (float32, packed into a bucket with used leaves) and
+    ``unused_bf16`` (a bucket of its own)."""
+    from collections import OrderedDict
+
+    from pytorch_ps_mpi_tpu_torch.models import init_mlp
+
+    params = OrderedDict((n, torch.from_numpy(p)) for n, p in
+                         init_mlp(np.random.RandomState(0), dims).items())
+    params["unused"] = torch.ones(3)
+    params["unused_bf16"] = torch.ones(5, dtype=torch.bfloat16)
+    return params
+
+
+def overlap_hooks_case(rank, world, batch, bucket_bytes):
+    """`BucketHooks` on the MLP of `_mlp_with_unused`: how many buckets had
+    started when the first layer's activation gradient was computed, the
+    summed gradients against an all-reduce of the raw ones, `wrap_loss`'s
+    gradients against the same, and an overlap SGD step over the params
+    (the unused ones must come back unchanged)."""
+    from collections import OrderedDict
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.models import mlp_loss_fn
+    from pytorch_ps_mpi_tpu_torch.parallel import overlap as OV
+
+    params = _mlp_with_unused((16, 32, 32, 4))
+    per = batch["x"].shape[0] // world
+    mine = {k: torch.from_numpy(v[rank * per:(rank + 1) * per])
+            for k, v in batch.items()}
+    leaves = OrderedDict((n, p.clone().requires_grad_())
+                         for n, p in params.items())
+    plan = OV.plan_overlap(leaves, bucket_bytes, world=world, record=False)
+    sync = OV.make_bucket_sync_fn(group=None, world=world)
+    hooks = OV.BucketHooks(leaves, plan, sync)
+    started = []
+
+    def loss_fn(p, b):
+        h = b["x"] @ p["dense0/kernel"] + p["dense0/bias"]
+        h.register_hook(lambda g: started.append(len(hooks.pending)))
+        for i in (1, 2):
+            h = F.relu(h) @ p[f"dense{i}/kernel"] + p[f"dense{i}/bias"]
+        logp = F.log_softmax(h, dim=-1)
+        return -logp.gather(-1, b["y"].long()[:, None]).mean()
+
+    raw = torch.autograd.grad(loss_fn(leaves, mine), list(leaves.values()),
+                              allow_unused=True)
+    summed = hooks.finish()
+    ref = OrderedDict()
+    for (n, x), g in zip(leaves.items(), raw):
+        g = torch.zeros_like(x) if g is None else g.clone()
+        dist.all_reduce(g)
+        ref[n] = g
+    wrapped_leaves = OrderedDict((n, p.clone().requires_grad_())
+                                 for n, p in params.items())
+    wrapped = OV.wrap_loss(mlp_loss_fn, plan, sync)
+    # A bucket none of whose leaves reach the loss never runs its
+    # backward: its gradient is materialized as zeros.
+    via_wrap = torch.autograd.grad(wrapped(wrapped_leaves, mine),
+                                   list(wrapped_leaves.values()),
+                                   allow_unused=True, materialize_grads=True)
+
+    opt = SGD(list(params.items()), lr=0.1, momentum=0.9, device="cpu",
+              sync_mode="overlap", bucket_mb=bucket_bytes / (1 << 20))
+    opt.compile_step(mlp_loss_fn)
+    opt.step(batch)
+
+    def np_(t):
+        return t.to(torch.float32).numpy()
+
+    return {"started": started, "buckets": plan.buckets,
+            "summed": {n: np_(g) for n, g in summed.items()},
+            "ref": {n: np_(g) for n, g in ref.items()},
+            "wrap": {n: np_(g) for n, g in zip(params, via_wrap)},
+            "stepped": {n: np_(p) for n, p in opt.params.items()},
+            "params": {n: np_(p) for n, p in params.items()}}
+
+
+def overlap_trajectories(rank, world, named, variants, batches):
+    """A few steps of the port's MPI_PS on the MLP for each variant
+    ``name -> (optimizer, kwargs, batch list key)``; returns each run's
+    losses, metrics, fault_stats and final params as numpy."""
+    from pytorch_ps_mpi_tpu_torch import SGD, Adam
+    from pytorch_ps_mpi_tpu_torch.models import mlp_loss_fn
+
+    out = {}
+    for name, (optim, kw, key) in variants.items():
+        cls = {"sgd": SGD, "adam": Adam}[optim]
+        opt = cls(list(named.items()), device="cpu", **kw)
+        opt.compile_step(mlp_loss_fn)
+        losses, metrics = [], []
+        for b in batches[key]:
+            loss, m = opt.step(b)
+            losses.append(loss)
+            metrics.append(m)
+        out[name] = {"losses": losses, "metrics": metrics,
+                     "fault_stats": dict(opt.fault_stats),
+                     "params": {n: p.numpy() for n, p in opt.params.items()}}
+    return out
