@@ -56,13 +56,27 @@ and carried on from):
    ``profile=True`` (the phase split), each held to that difference; and a
    small MLP run on the card, bucketed and fused overlap blockq, checked
    against the same runs on the CPU (plain versions).
+   Then the step's features on the same model: the kernels a step of the
+   bucketed and fused blockq runs beside those before the element-order
+   repair (the repair: each order-dependent codec encodes in the JAX package's
+   layout); the topk (1%), topk_approx, quantize and sign codecs (losses
+   finite and falling, ``packaged_bytes`` the sum of ``wire_bytes``, and
+   the small MLP card vs CPU with each); blockq with error feedback (62
+   ``block_quantize`` and 2 ``block_dequant_sum`` launches a step), ZeRO
+   with the identity codec and with blockq, bf16 with ZeRO and EMA (one
+   ``cast_sum`` a step) and the consensus guard every 2 steps; and a ``state_dict`` round trip (3 steps, a fresh
+   optimizer loads the state, 2 more) against 5 steps in one run, cuDNN
+   deterministic, to a difference of 0.0.
 4. The transformer LM of the repo's LM benchmark at full width and depth
    (219,346,944 parameters, bf16, flash attention, batch 16 x 1024 tokens)
    with ``SGD(lr=0.01, momentum=0.9)``: 2 warm-up and 5 timed identity
    steps (tokens/s, flash launches per step, wire bytes), a profile of two
    steps, 2 warm-up and 3 timed identity steps through the overlap engine,
-   2 blockq steps, the f32 lm_head GEMMs timed alone, and a small f32 LM
-   run on the card checked against the same run on the CPU.
+   2 blockq steps, the consensus guard's time on the 219M parameters,
+   3 steps with ``accum_steps=4, remat=True`` (flash_fwd 96 launches a
+   step, each backward kernel 48; peak memory against the plain step's;
+   a profile of one step), the f32 lm_head GEMMs timed alone, and a small
+   f32 LM run on the card checked against the same run on the CPU.
 5. The card line, one JSON line per the kernels, and the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -927,19 +941,21 @@ def expect_counts(what, counts, **want) -> None:
 
 
 def drive(code, named, loss_fn, batch, group, warm, timed, *, lr,
-          has_aux=False, aux=None, **options):
+          has_aux=False, aux=None, compile_kw=None, **options):
     """Run ``warm`` blocking steps and ``timed`` queued steps of
     ``SGD(lr, momentum=0.9)`` with ``code`` and the step ``options``
-    (``sync_mode``, ``fused_encode``, ``profile``, ...); the launch counts
-    are zeroed just before and read just after.  Returns (optimizer,
-    losses, counts, seconds of the timed steps, last metrics)."""
+    (``sync_mode``, ``fused_encode``, ``profile``, ``zero``, ...) and
+    ``compile_step``'s ``compile_kw`` (``accum_steps``, ``remat``); the
+    launch counts are zeroed just before and read just after.  Returns
+    (optimizer, losses, counts, seconds of the timed steps, last
+    metrics)."""
     import torch
 
     from pytorch_ps_mpi_tpu_torch import SGD
 
     opt = SGD(list(named.items()), lr=lr, momentum=0.9, code=code,
               device="cuda", group=group, **options)
-    opt.compile_step(loss_fn, has_aux=has_aux, aux=aux)
+    opt.compile_step(loss_fn, has_aux=has_aux, aux=aux, **(compile_kw or {}))
     reset_launch_counts()
     losses = []
     for _ in range(warm):
@@ -981,7 +997,8 @@ def profile_steps(opt, batch, what, steps: int = 2):
     """Device time of ``steps`` queued steps by kernel category, from
     torch.profiler's CUDA events, and the device's busy share of the wall
     time under the profiler (kernel time over host-clock time to
-    synchronize).  Returns the device kernel ms per step, or None."""
+    synchronize).  Returns the device kernel ms per step and the kernels
+    a step, or (None, None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -998,7 +1015,7 @@ def profile_steps(opt, batch, what, steps: int = 2):
     if not kernels:
         print("[profile] the profiler saw no CUDA kernels: device time "
               "not measured")
-        return None
+        return None, None
     by_cat, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -1018,7 +1035,7 @@ def profile_steps(opt, batch, what, steps: int = 2):
               f"({us / busy:.3f} of device time)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   top: {us / steps / 1e3:.3f} ms/step  {name[:110]}")
-    return busy / steps / 1e3
+    return busy / steps / 1e3, len(kernels) // steps
 
 
 def check_params_finite(opt, what):
@@ -1043,12 +1060,14 @@ def _assert_close_runs(what, out, rtol, atol):
           f"{out['cuda'][0]} vs {out['cpu'][0]}, max param diff {worst}")
 
 
-def small_reference_check(group, cpu_group, **options):
-    """A small MLP trained 3 steps with blockq and the step ``options`` on
-    the card (CUDA kernels) and on the CPU (plain versions), from the same
-    numpy init and batches.  Tolerance rtol=1e-4, atol=1e-5: float32
+def small_reference_check(group, cpu_group, code="blockq", **options):
+    """A small MLP trained 3 steps with ``code`` and the step ``options``
+    on the card (CUDA kernels) and on the CPU (plain versions), from the
+    same numpy init and batches.  Tolerance rtol=1e-4, atol=1e-5: float32
     matmuls (TF32 off) sum in other orders on the two devices; the codes
-    then agree, or differ by one quantum (lr * scale, ~1e-6 here)."""
+    then agree, or differ by one quantum (lr * scale, ~1e-6 here; topk may
+    swap two magnitudes within float32 noise of each other at the k-th,
+    which moves a parameter by about lr * |g| of the two)."""
     import numpy as np
 
     from pytorch_ps_mpi_tpu_torch import SGD
@@ -1060,13 +1079,13 @@ def small_reference_check(group, cpu_group, **options):
     batch = {"x": x, "y": y}
     out = {}
     for device, grp in (("cuda", group), ("cpu", cpu_group)):
-        opt = SGD(list(named.items()), lr=0.05, momentum=0.9, code="blockq",
+        opt = SGD(list(named.items()), lr=0.05, momentum=0.9, code=code,
                   device=device, group=grp, **options)
         opt.compile_step(mlp_loss_fn)
         losses = [opt.step(batch)[0] for _ in range(3)]
         out[device] = (losses, {n: p.cpu().numpy()
                                 for n, p in opt.params.items()})
-    _assert_close_runs(f"small MLP blockq {options or ''}".strip(), out,
+    _assert_close_runs(f"small MLP {code} {options or ''}".strip(), out,
                        1e-4, 1e-5)
 
 
@@ -1119,13 +1138,14 @@ def run_slice(group, cpu_group):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     main_counts = counts
     fused = run_overlap_fused(named, aux, loss_fn, batch, group, opt, ms)
-    device_ms = profile_steps(opt, batch, "ResNet-18 blockq")
+    device_ms, kernels = profile_steps(opt, batch, "ResNet-18 blockq")
     if device_ms is not None:
         print(f"[slice] blockq device busy share without the profiler: "
               f"{device_ms / ms:.3f} (profiled device ms/step over the "
               f"timed ms/step)")
     del opt
-    profile_steps(fused, batch, "ResNet-18 overlap fused blockq")
+    _, fused_kernels = profile_steps(fused, batch,
+                                     "ResNet-18 overlap fused blockq")
     del fused
     run_overlap_unfused(named, aux, loss_fn, batch, group)
 
@@ -1150,6 +1170,9 @@ def run_slice(group, cpu_group):
     check_params_finite(opt, "identity")
     del opt
     compare_overlap_and_profile(named, aux, loss_fn, batch, group)
+    print_kernels_a_step({"ResNet-18 blockq": kernels,
+                          "ResNet-18 overlap fused blockq": fused_kernels})
+    run_features(named, aux, loss_fn, batch, group, cpu_group)
 
     small_reference_check(group, cpu_group)
     small_reference_check(group, cpu_group, sync_mode="overlap",
@@ -1351,6 +1374,185 @@ def compare_overlap_and_profile(named, aux, loss_fn, batch, group):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the step's features (codecs, EF, ZeRO, EMA, consensus, state)
+# ---------------------------------------------------------------------------
+
+# Each feature run: blocking warm-up steps, then queued timed steps.
+FEATURE_WARM, FEATURE_TIMED = 2, 2
+FEATURE_STEPS = FEATURE_WARM + FEATURE_TIMED
+# Kernels a profiled step of the same runs before the element-order
+# repair (PERF.md §5).
+KERNELS_BEFORE_REPAIR = {"ResNet-18 blockq": 1195,
+                         "ResNet-18 overlap fused blockq": 1171}
+
+
+def print_kernels_a_step(measured):
+    """Kernels a step (``measured``: label -> count, None if not measured)
+    of the bucketed and fused blockq runs beside those before the
+    element-order repair, which copies each permuted leaf where the
+    codec's input was a view (f32 leaves; the bf16 ResNet's cast to f32
+    already copies) and each permuted leaf of a fused bucket."""
+    for what, before in KERNELS_BEFORE_REPAIR.items():
+        now = measured[what]
+        print(f"[features] kernels a step, {what}: "
+              f"{'not measured' if now is None else now} after the "
+              f"element-order repair (before it: {before})")
+
+
+def _falls(losses) -> bool:
+    return (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0])
+
+
+def run_codecs(named, aux, loss_fn, batch, group, cpu_group):
+    """topk (1%), topk_approx, quantize and sign on ResNet-18: a few steps
+    each, losses finite and falling, ``packaged_bytes`` the sum of the
+    codec's ``wire_bytes``, no codec kernel launched (their decodes are
+    plain PyTorch, as their JAX counterparts are jnp); then the small
+    MLP card against CPU with each."""
+    from pytorch_ps_mpi_tpu_torch.ops.codecs import get_codec
+
+    for code in ("topk", "topk_approx", "quantize", "sign"):
+        opt, losses, counts, seconds, metrics = drive(
+            code, named, loss_fn, batch, group, FEATURE_WARM, FEATURE_TIMED,
+            lr=0.1, has_aux=True, aux=aux)
+        wire = sum(get_codec(code).wire_bytes(p.shape, p.dtype)
+                   for p in named.values())
+        print(f"[features] {code}: losses {losses}, packaged_bytes "
+              f"{metrics['packaged_bytes']:.0f} (sum of wire_bytes {wire}), "
+              f"launches {counts}, {seconds / FEATURE_TIMED * 1e3:.3f} "
+              f"ms/step ({FEATURE_TIMED} queued steps)")
+        if not _falls(losses):
+            fail(f"{code}: losses must be finite and fall: {losses}")
+        if metrics["packaged_bytes"] != wire:
+            fail(f"{code}: packaged_bytes {metrics['packaged_bytes']} != "
+                 f"{wire}")
+        expect_counts(f"ResNet-18 {code}", counts)
+        check_params_finite(opt, code)
+        del opt
+    for code in ("topk", "topk_approx", "quantize", "sign"):
+        small_reference_check(group, cpu_group, code=code)
+
+
+def run_ef_zero_ema(named, aux, loss_fn, batch, group):
+    """Blockq with error feedback (62 block_quantize and 2 grouped
+    block_dequant_sum launches a step: the own codes' decode and the
+    sum's), ZeRO with the identity codec (bucketed reduce-scatter) and
+    with blockq, and bf16 with ZeRO and EMA (one grouped cast_sum a step)
+    and the consensus guard every 2 steps."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    per_step = len(named)
+    dq_step = ck.group_launches("block_dequant_sum", per_step)
+    cast_step = ck.group_launches("cast_sum", per_step)
+    common = dict(lr=0.1, has_aux=True, aux=aux)
+    runs = (
+        ("blockq + error_feedback", "blockq", dict(error_feedback=True),
+         dict(block_quantize=per_step, block_dequant_sum=2 * dq_step)),
+        ("zero identity", "identity", dict(zero=True), {}),
+        ("zero blockq", "blockq", dict(zero=True),
+         dict(block_quantize=per_step, block_dequant_sum=dq_step)),
+        ("bf16 + zero + ema 0.999 + consensus_every=2", "bf16",
+         dict(zero=True, ema_decay=0.999, consensus_every=2),
+         dict(cast_sum=cast_step)))
+    for what, code, options, per in runs:
+        opt, losses, counts, seconds, metrics = drive(
+            code, named, loss_fn, batch, group, FEATURE_WARM, FEATURE_TIMED,
+            **common, **options)
+        print(f"[features] {what}: losses {losses}, launches {counts}, "
+              f"{seconds / FEATURE_TIMED * 1e3:.3f} ms/step "
+              f"({FEATURE_TIMED} queued steps)")
+        if not _falls(losses):
+            fail(f"{what}: losses must be finite and fall: {losses}")
+        expect_counts(f"ResNet-18 {what}", counts,
+                      **{k: v * FEATURE_STEPS for k, v in per.items()})
+        check_params_finite(opt, what)
+        if options.get("error_feedback"):
+            ef = opt.ef_state
+            worst = max(float(v.abs().max()) for v in ef.values())
+            print(f"[features] EF residual: {len(ef)} leaves [1, ...] f32, "
+                  f"max |residual| {worst}")
+            if not math.isfinite(worst) or worst == 0.0:
+                fail(f"EF residual max {worst}")
+        if options.get("zero"):
+            shard = sum(v.numel() for st in opt.state.values()
+                        for v in st.values() if v.dim() == 1)
+            print(f"[features] zero: this rank's state holds {shard} "
+                  f"elements (world 1: every chunk)")
+        if "ema_decay" in options:
+            fs = opt.fault_stats
+            print(f"[features] ema: {len(opt.ema_params)} leaves; consensus "
+                  f"checks {fs['sdc_checks']}, mismatches "
+                  f"{fs['sdc_mismatches']}")
+            if fs["sdc_checks"] != FEATURE_STEPS // 2 or fs["sdc_mismatches"]:
+                fail(f"consensus guard: {fs}")
+            for n, e in opt.ema_params.items():
+                if not bool(torch.isfinite(e).all()):
+                    fail(f"EMA {n} is not finite")
+        del opt
+
+
+def check_state_round_trip(named, aux, loss_fn, batch, group):
+    """3 steps, `state_dict`, a fresh optimizer loads it and takes 2 more,
+    against 5 steps in one run (blockq, error feedback, ZeRO, EMA), under
+    cuDNN's deterministic algorithms: params, EMA, EF residual and
+    BatchNorm statistics must agree to 0.0."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import SGD
+
+    options = dict(code="blockq", error_feedback=True, zero=True,
+                   ema_decay=0.999)
+
+    def fresh():
+        opt = SGD(list(named.items()), lr=0.1, momentum=0.9, device="cuda",
+                  group=group, **options)
+        opt.compile_step(loss_fn, has_aux=True, aux=aux)
+        return opt
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        whole = fresh()
+        for _ in range(5):
+            whole.step(batch)
+        first = fresh()
+        for _ in range(3):
+            first.step(batch)
+        t0 = time.perf_counter()
+        sd = first.state_dict()
+        save_s = time.perf_counter() - t0
+        del first
+        resumed = fresh()
+        t0 = time.perf_counter()
+        resumed.load_state_dict(sd)
+        load_s = time.perf_counter() - t0
+        for _ in range(2):
+            resumed.step(batch)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = max(_max_diff(whole.params, resumed.params),
+               _max_diff(whole.ema_params, resumed.ema_params),
+               _max_diff(whole.extras["ef"], resumed.extras["ef"]),
+               _max_diff(whole.aux, resumed.aux))
+    print(f"[features] state_dict round trip (blockq, EF, ZeRO, EMA; 3 + 2 "
+          f"steps against 5, cuDNN deterministic): max difference {diff} "
+          f"over params, EMA, EF residual and BatchNorm statistics; "
+          f"state_dict {save_s * 1e3:.1f} ms, load_state_dict "
+          f"{load_s * 1e3:.1f} ms")
+    if diff != 0.0:
+        fail(f"state_dict round trip differs by {diff}")
+
+
+def run_features(named, aux, loss_fn, batch, group, cpu_group):
+    run_codecs(named, aux, loss_fn, batch, group, cpu_group)
+    run_ef_zero_ema(named, aux, loss_fn, batch, group)
+    check_state_round_trip(named, aux, loss_fn, batch, group)
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: the transformer LM
 # ---------------------------------------------------------------------------
 
@@ -1385,6 +1587,57 @@ def time_lm_head_gemms(named):
                       for k, v in out.items())
           + f"; {sum(out.values()):.3f} ms per step")
     return out
+
+
+def time_fingerprint(opt):
+    """The replica-consensus guard on the LM's 219M parameters: the
+    fingerprint (a wrapping sum and an xor-fold of every leaf's bits) and
+    the cross-rank compare, host clock to the host's read of the result,
+    three times after one warm-up."""
+    import torch
+
+    opt.check_consensus()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = opt.check_consensus()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not out["ok"]:
+        fail(f"consensus guard on one rank: {out}")
+    print(f"[lm] consensus guard (fingerprint of {LM_PARAMS} parameters in "
+          f"{LM_TENSORS} leaves and the compare): "
+          + ", ".join(f"{t:.3f}" for t in times) + " ms")
+
+
+def run_lm_remat(named, loss_fn, batch, group, plain_peak):
+    """The bench LM with ``accum_steps=4, remat=True`` (identity): 4
+    microbatches of 4 x 1024 tokens a step, each layer's forward run again
+    in backward, so flash_fwd launches 2 x 12 x 4 = 96 times a step and
+    each backward kernel 48; peak memory against the plain step's."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt, losses, counts, seconds, _ = drive(
+        "identity", named, loss_fn, batch, group, 1, 2, lr=0.01,
+        compile_kw=dict(accum_steps=4, remat=True))
+    steps = 3
+    per_step = LM["n_layers"] * 4
+    print(f"[lm] accum_steps=4, remat=True: losses {losses}, launches "
+          f"{counts}; {seconds / 2 * 1e3:.3f} ms/step (2 queued steps); "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"against {plain_peak / 2**30:.2f} GiB for the plain step")
+    if not _falls(losses):
+        fail(f"LM remat losses must be finite and fall: {losses}")
+    expect_counts("LM accum_steps=4 remat", counts,
+                  flash_fwd=2 * per_step * steps,
+                  flash_bwd_dkdv=per_step * steps,
+                  flash_bwd_dq=per_step * steps)
+    check_params_finite(opt, "LM remat")
+    profile_steps(opt, batch, "LM accum_steps=4 remat", steps=1)
+    del opt
+    torch.cuda.empty_cache()
 
 
 def small_lm_reference_check(group, cpu_group):
@@ -1475,8 +1728,10 @@ def run_lm(group, cpu_group):
           f"ms/step, {tokens * LM_TIMED / seconds:.1f} tokens/s per GPU "
           f"({LM_TIMED} queued steps, host clock to synchronize); peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    plain_peak = torch.cuda.max_memory_allocated()
     lm_counts = counts
     bucketed = opt
+    time_fingerprint(bucketed)
 
     opt, losses, counts, seconds, metrics = drive(
         "identity", named, loss_fn, batch, group, LM_OVERLAP_WARM,
@@ -1502,7 +1757,7 @@ def run_lm(group, cpu_group):
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"with both optimizers held")
     del opt
-    device_ms = profile_steps(bucketed, batch, "LM identity")
+    device_ms, _ = profile_steps(bucketed, batch, "LM identity")
     if device_ms is not None:
         print(f"[lm] device busy share without the profiler: "
               f"{device_ms / ms:.3f} (profiled device ms/step over the timed "
@@ -1530,6 +1785,7 @@ def run_lm(group, cpu_group):
     check_params_finite(opt, "LM blockq")
     del opt
     torch.cuda.empty_cache()
+    run_lm_remat(named, loss_fn, batch, group, plain_peak)
     time_lm_head_gemms(named)
     small_lm_reference_check(group, cpu_group)
     return {k: lm_counts[k] for k in FLASH_REPLACES}

@@ -3,18 +3,21 @@
 The JAX package `pytorch_ps_mpi_tpu` is the reference each part of this
 one is held against; this package imports ``torch`` and numpy, never JAX
 and nothing of the JAX package.  Ported so far: the synchronous PS step
-(`MPI_PS`, `SGD`, `Adam`, `AdamW`) with the ``identity``, ``bf16`` and
-``blockq`` gradient codecs, whose codec kernels are hand-written CUDA for
-Hopper (``csrc/codec_kernels.cu``); the ResNet/MLP models and the
-transformer LM, whose flash attention forward and backward are
-hand-written CUDA too (``csrc/flash_attention.cu``,
-`ops.flash_attention`); and the synthetic data the step trains on.
-Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
+(`MPI_PS`, `SGD`, `Adam`, `AdamW`) with every gradient codec of the JAX
+package, error feedback, ZeRO, EMA, gradient accumulation, remat, the lr
+schedules, the replica-consensus guard and in-memory checkpoint state;
+the blockq and bf16 codecs' kernels are hand-written CUDA for Hopper
+(``csrc/codec_kernels.cu``); the ResNet/MLP models and the transformer
+LM, whose flash attention forward and backward are hand-written CUDA too
+(``csrc/flash_attention.cu``, `ops.flash_attention`); and the synthetic
+data the step trains on.  Entry points run on ``device="cuda"`` unless the
+caller asks for the CPU.
 """
 
-from .errors import NotCompiledError, PSRuntimeError
+from .errors import (ElasticResumeError, NotCompiledError, PSRuntimeError,
+                     SDCDetectedError)
 from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
-                         get_codec)
+                         QuantizeCodec, SignCodec, TopKCodec, get_codec)
 from .ops.flash_attention import flash_attention
 from .parallel.mesh import make_ps_group
 from .ps import MPI_PS, SGD, Adam, AdamW
@@ -29,8 +32,13 @@ __all__ = [
     "IdentityCodec",
     "CastCodec",
     "BlockQuantizeCodec",
+    "TopKCodec",
+    "QuantizeCodec",
+    "SignCodec",
     "get_codec",
     "flash_attention",
     "PSRuntimeError",
     "NotCompiledError",
+    "SDCDetectedError",
+    "ElasticResumeError",
 ]

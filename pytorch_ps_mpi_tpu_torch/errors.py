@@ -1,10 +1,12 @@
 """Typed runtime errors of the PyTorch port.
 
-Counterpart of `pytorch_ps_mpi_tpu/errors.py`, copied (not imported: the
-port never imports the JAX package) for the errors this slice raises.
-Every class subclasses ``RuntimeError`` so ``except RuntimeError`` call
-sites keep working.  ``ValueError``/``TypeError`` on eager configuration
-validation stay builtins, as in the JAX package.
+Counterpart of `pytorch_ps_mpi_tpu/errors.py` (and of the two errors the
+JAX package's ``ps.py`` defines), copied, not imported: the port never
+imports the JAX package.  The operational failures subclass
+``RuntimeError`` so ``except RuntimeError`` call sites keep working;
+`ElasticResumeError` is a ``ValueError``, as in the JAX package, since it
+refuses a checkpoint's contents.  ``ValueError``/``TypeError`` on eager
+configuration validation stay builtins, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,3 +18,19 @@ class PSRuntimeError(RuntimeError):
 
 class NotCompiledError(PSRuntimeError):
     """A train entry point was called before ``compile_step``."""
+
+
+class SDCDetectedError(RuntimeError):
+    """The replica-consensus guard found data-parallel replicas that are
+    not bitwise identical — silent data corruption or a desync bug.
+    Raised under ``consensus_policy="abort"``; the message names the first
+    diverging parameter leaf."""
+
+
+class ElasticResumeError(ValueError):
+    """A checkpoint that cannot be remapped onto this optimizer's topology.
+
+    Elastic N→M resume de-chunks and re-chunks ZeRO shards and remaps the
+    error-feedback residual across world sizes; when a component is
+    genuinely topology-bound (or reflects a model change, not a topology
+    change), this names it instead of loading a silently wrong state."""

@@ -12,10 +12,18 @@ the ``packaged_bytes`` metric.
 step calls it once after the gathers, and the codecs with a grouped
 kernel run every leaf in one launch.
 
-Ported: ``identity``, ``bf16`` (`CastCodec`, decode-sum on the
-``cast_sum`` kernel) and ``blockq`` (`BlockQuantizeCodec`, on the
-``block_quantize`` and ``block_dequant_sum`` kernels).  ``topk``,
-``quantize`` and ``sign`` are not ported yet, and `get_codec` refuses them.
+Every gradient codec of the JAX package is ported: ``identity``, ``bf16``
+(`CastCodec`, decode-sum on the ``cast_sum`` kernel), ``blockq``
+(`BlockQuantizeCodec`, on the ``block_quantize`` and ``block_dequant_sum``
+kernels), ``topk``/``topk_approx`` (`TopKCodec`), ``quantize``
+(`QuantizeCodec`) and ``sign`` (`SignCodec`, signs packed 8 to a byte);
+the last three decode through the generic per-leaf loop (their JAX
+counterparts are jnp, not Pallas kernels).
+
+A codec whose wire depends on the element order (``ordered``: blockq's
+tiles, topk's indices, sign's packed bytes, quantize's code array) is
+handed each gradient in the JAX package's layout by the PS step
+(`utils.interop.jax_order`), so its codes equal the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Any
 
 import torch
 
+from ..utils.flatten import tree_leaves, tree_map
 from . import codec_kernels as ck
 
 Code = Any
@@ -56,6 +65,10 @@ class Codec:
     ``wire_bytes(shape, dtype)`` the on-wire payload size."""
 
     name = "codec"
+    # Whether the wire depends on the elements' order (the PS step then
+    # encodes each gradient in the JAX package's layout); False for the
+    # codecs that are elementwise end to end.
+    ordered = True
 
     def encode(self, grad: torch.Tensor) -> Code:
         raise NotImplementedError
@@ -64,11 +77,15 @@ class Codec:
         raise NotImplementedError
 
     def decode_sum(self, codes: Code, *, shape, dtype) -> torch.Tensor:
-        """Generic form for a single-tensor code: decode each rank's code
-        and add them in rank order (codecs with a fused kernel override)."""
-        out = self.decode(codes[0], shape=shape, dtype=dtype)
-        for r in range(1, codes.shape[0]):
-            out = out + self.decode(codes[r], shape=shape, dtype=dtype)
+        """Generic form: decode each rank's code (each leaf of the code
+        indexed by rank) and add them in rank order (codecs with a fused
+        kernel override)."""
+        world = tree_leaves(codes)[0].shape[0]
+        out = None
+        for r in range(world):
+            d = self.decode(tree_map(lambda c, r=r: c[r], codes),
+                            shape=shape, dtype=dtype)
+            out = d if out is None else out + d
         return out
 
     def decode_sum_leaves(self, gathered, metas) -> "OrderedDict":
@@ -93,6 +110,7 @@ class IdentityCodec(Codec):
     gather+decode+sum is a single all-reduce."""
 
     name = "identity"
+    ordered = False
 
     def encode(self, grad):
         return grad
@@ -110,6 +128,8 @@ class CastCodec(Codec):
     Halves the all-gather payload of f32 gradients; the decode-sum
     accumulates in f32 (`ops.codec_kernels.cast_sum`), so only the per-rank
     *representation* is lossy, not the reduction."""
+
+    ordered = False
 
     def __init__(self, dtype=torch.bfloat16):
         if dtype not in (torch.bfloat16, torch.float16):
@@ -170,7 +190,10 @@ class BlockQuantizeCodec(Codec):
         return ck.rows_for_flat(n, self.block_rows)
 
     def encode(self, grad):
-        flat = grad.reshape(-1).to(torch.float32)
+        # A permuted (non-contiguous) leaf costs one copy: the cast to f32
+        # writes it in order, or the reshape copies it.
+        flat = grad.to(torch.float32,
+                       memory_format=torch.contiguous_format).reshape(-1)
         q, scales = ck.block_quantize(flat, bits=self.bits,
                                       block_rows=self._rows_for(flat.numel()))
         return {"q": q, "scales": scales}
@@ -205,21 +228,165 @@ class BlockQuantizeCodec(Codec):
         return n_blocks * per_block * (self.bits // 8) + n_blocks * 4
 
 
-_PORTED = {"identity": IdentityCodec, "bf16": CastCodec,
-           "blockq": BlockQuantizeCodec}
-_NOT_PORTED = ("topk", "topk_approx", "quantize", "sign")
+class TopKCodec(Codec):
+    """Magnitude top-k sparsification: ``k`` (value, int32 index) pairs a
+    leaf, ``k`` fixed per shape (``fraction`` of the element count,
+    floored at 1, or ``k``), so codes have static shapes.  ``decode_sum``
+    scatter-adds the rank-flattened values into a zero tensor with
+    ``index_put_(accumulate=True)``: indices repeat across ranks, and on
+    the card that call sorts the indices and adds each one's values in
+    rank order, so the sum does not depend on the order of atomics.
+
+    ``approx=True`` is the JAX package's ``lax.approx_max_k``, which
+    returns at least ``recall_target`` of the true top-k; here the exact
+    ``torch.topk`` selects (recall 1.0 meets any target), as the JAX
+    package's own selection does on the CPU.  The wire format is the
+    same, so exact and approximate ranks interoperate."""
+
+    name = "topk"
+
+    def __init__(self, fraction: float = 0.01, k: int | None = None,
+                 approx: bool = False, recall_target: float = 0.95):
+        if k is not None and k <= 0:
+            raise ValueError(f"k must be positive, got {k}")
+        if k is None and not 0.0 < fraction <= 1.0:
+            raise ValueError(f"fraction must be in (0, 1], got {fraction}")
+        if not 0.0 < recall_target <= 1.0:
+            raise ValueError(
+                f"recall_target must be in (0, 1], got {recall_target}")
+        self.fraction = fraction
+        self.k = k
+        self.approx = approx
+        self.recall_target = recall_target
+
+    def _k_for(self, n: int) -> int:
+        k = (self.k if self.k is not None
+             else max(1, int(math.ceil(self.fraction * n))))
+        return min(k, n)
+
+    def encode(self, grad):
+        flat = grad.reshape(-1)
+        _, idx = torch.topk(flat.abs(), self._k_for(flat.numel()))
+        return {"values": flat[idx], "indices": idx.to(torch.int32)}
+
+    def decode(self, code, *, shape=None, dtype=None):
+        if shape is None:
+            raise ValueError("TopKCodec.decode needs the dense shape")
+        values = code["values"]
+        dense = values.new_zeros((math.prod(shape),),
+                                 dtype=dtype or values.dtype)
+        dense[code["indices"].long()] = values.to(dense.dtype)
+        return dense.view(shape)
+
+    def decode_sum(self, codes, *, shape, dtype):
+        values = codes["values"].reshape(-1)
+        dense = values.new_zeros((math.prod(shape),),
+                                 dtype=dtype or values.dtype)
+        dense.index_put_((codes["indices"].reshape(-1).long(),),
+                         values.to(dense.dtype), accumulate=True)
+        return dense.view(shape)
+
+    def wire_bytes(self, shape, dtype):
+        k = self._k_for(math.prod(shape))
+        return k * (_itemsize(dtype) + 4)  # value + int32 index
+
+
+class QuantizeCodec(Codec):
+    """Symmetric per-tensor linear quantization to int8 (or int16):
+    ``scale = max|g| / qmax``, code ``{q: int[shape], scale: f32[]}``.  The
+    scale divides by a tensor (on the card a division by a Python number
+    is a multiply by its reciprocal), in the gradient's dtype as JAX's
+    weak-typed ``amax / qmax`` is; the codes round half to even, and a NaN
+    becomes code 0, as XLA's conversion makes it."""
+
+    name = "quantize"
+
+    def __init__(self, bits: int = 8):
+        if bits not in (8, 16):
+            raise ValueError("bits must be 8 or 16")
+        self.bits = bits
+        self.qdtype = torch.int8 if bits == 8 else torch.int16
+        self.qmax = float(2 ** (bits - 1) - 1)
+
+    def encode(self, grad):
+        amax = grad.abs().amax()
+        scale = torch.where(amax > 0, amax / amax.new_full((), self.qmax),
+                            amax.new_ones(())).to(torch.float32)
+        q = torch.clamp(torch.round(grad.to(torch.float32) / scale),
+                        -self.qmax, self.qmax)
+        q = torch.where(torch.isnan(q), q.new_zeros(()), q)
+        return {"q": q.to(self.qdtype), "scale": scale}
+
+    def decode(self, code, *, shape=None, dtype=None):
+        dtype = torch.float32 if dtype is None else dtype
+        return code["q"].to(dtype) * code["scale"].to(dtype)
+
+    def wire_bytes(self, shape, dtype):
+        return math.prod(shape) * (self.bits // 8) + 4
+
+
+_SHIFTS = (0, 1, 2, 3, 4, 5, 6, 7)
+
+
+def pack_signs(flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` ``(n,)`` with n % 8 == 0 -> uint8 ``(n//8,)`` of sign bits
+    (bit k of byte b is the sign of element 8*b+k; 1 means >= 0; NaN is
+    0).  Torch bit operations, the JAX package's jnp ``pack_signs``."""
+    shifts = torch.tensor(_SHIFTS, dtype=torch.int32, device=flat.device)
+    bits = (flat >= 0).to(torch.int32).view(-1, 8)
+    return (bits << shifts).sum(dim=1).to(torch.uint8)
+
+
+def unpack_signs(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of `pack_signs`: uint8 ``(n//8,)`` -> f32 ``(n,)`` of ±1."""
+    shifts = torch.tensor(_SHIFTS, dtype=torch.int32, device=packed.device)
+    bits = (packed.to(torch.int32)[:, None] >> shifts) & 1
+    return (bits.to(torch.float32) * 2.0 - 1.0).reshape(-1)[:n]
+
+
+class SignCodec(Codec):
+    """1-bit sign compression with a mean-|g| scale: the signs packed 8 to
+    a byte (`pack_signs`; the tail padded with +1s, which decode drops)
+    and one f32 scale, the mean in f32 rounded to the gradient's dtype as
+    ``jnp.mean`` gives it.  The mean sums in another order than XLA's, so
+    the scale agrees with the JAX package's to a few ulps, not bitwise."""
+
+    name = "sign"
+
+    def encode(self, grad):
+        flat = grad.reshape(-1)
+        pad = (-flat.numel()) % 8
+        if pad:
+            flat = torch.cat([flat, flat.new_ones((pad,))])
+        scale = grad.abs().mean(dtype=torch.float32).to(grad.dtype).to(
+            torch.float32)
+        return {"sign": pack_signs(flat), "scale": scale}
+
+    def decode(self, code, *, shape=None, dtype=None):
+        if shape is None:
+            raise ValueError("SignCodec.decode needs the dense shape")
+        dtype = torch.float32 if dtype is None else dtype
+        sign = unpack_signs(code["sign"], math.prod(shape)).to(dtype)
+        return (sign * code["scale"].to(dtype)).view(shape)
+
+    def wire_bytes(self, shape, dtype):
+        n = math.prod(shape)
+        return (n + (-n) % 8) // 8 + 4
+
+
+_TABLE = {"identity": IdentityCodec, "bf16": CastCodec, "topk": TopKCodec,
+          "topk_approx": lambda: TopKCodec(approx=True),
+          "quantize": QuantizeCodec, "sign": SignCodec,
+          "blockq": BlockQuantizeCodec}
 
 
 def get_codec(spec) -> Codec:
-    """Resolve a codec from an instance, ``None`` (identity) or a name."""
+    """Resolve a codec from an instance, ``None`` (identity) or a name
+    (the JAX package's table)."""
     if spec is None:
         return IdentityCodec()
     if isinstance(spec, Codec):
         return spec
-    if spec in _NOT_PORTED:
-        raise NotImplementedError(
-            f"codec {spec!r} is not ported to the PyTorch package yet; "
-            f"ported: {sorted(_PORTED)}")
-    if spec not in _PORTED:
-        raise ValueError(f"unknown codec {spec!r}; have {sorted(_PORTED)}")
-    return _PORTED[spec]()
+    if spec not in _TABLE:
+        raise ValueError(f"unknown codec {spec!r}; have {sorted(_TABLE)}")
+    return _TABLE[spec]()

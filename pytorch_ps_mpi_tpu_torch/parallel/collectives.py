@@ -245,3 +245,38 @@ def pmean_tree(tree: Tree, group=None, *,
     summed = psum_tree_bucketed(tree_map(torch.clone, tree), group,
                                 bucket_bytes=bucket_bytes)
     return tree_map(lambda x: x / world, summed)
+
+
+def reduce_scatter_flats_bucketed(
+        tree: Tree, group=None, *, world: int,
+        bucket_bytes: "int | None" = DEFAULT_BUCKET_BYTES) -> Tree:
+    """Bucketed ZeRO gradient sync: every leaf is a padded flat
+    ``(world * chunk_leaf,)`` whose tile ``r`` belongs to rank ``r``;
+    returns ``(chunk_leaf,)`` leaves holding the cross-rank SUM of this
+    rank's tile.  A bucket concatenates the per-rank tiles of its leaves
+    into one ``(world, total)`` block, so a single reduce-scatter serves
+    them all — the same elementwise sums as the per-leaf lowering.  The
+    JAX package's plan: same-dtype buckets, large leaves solo."""
+    def per_leaf(x):
+        mine = x.new_empty((x.numel() // world,))
+        _reduce_scatter_into(mine, x.contiguous(), op=dist.ReduceOp.SUM,
+                             group=group)
+        return mine
+
+    leaves, treedef = tree_flatten(tree)
+    if not bucket_bytes:
+        return tree_unflatten(treedef, [per_leaf(x) for x in leaves])
+    out: list[Any] = [None] * len(leaves)
+    for idxs in _plan_buckets(leaves, bucket_bytes,
+                              _solo_default(bucket_bytes, None)):
+        if len(idxs) == 1:
+            out[idxs[0]] = per_leaf(leaves[idxs[0]])
+            continue
+        cat = torch.cat([leaves[i].reshape(world, -1) for i in idxs], dim=1)
+        mine = per_leaf(cat.reshape(-1))
+        off = 0
+        for i in idxs:
+            chunk = leaves[i].numel() // world
+            out[i] = mine[off:off + chunk]
+            off += chunk
+    return tree_unflatten(treedef, out)

@@ -50,6 +50,8 @@ import torch.distributed as dist
 
 from ..ops import codec_kernels as ck
 from ..ops.codecs import BlockQuantizeCodec, Codec
+from ..utils.interop import from_jax_order as _unwire
+from ..utils.interop import to_jax_order as _wire
 from ..utils.timing import record_overlap_schedule
 from . import collectives
 from .collectives import _allreduce_rs_ag, _plan_buckets
@@ -184,20 +186,28 @@ def _metas(cot) -> "OrderedDict[str, tuple]":
     return OrderedDict((n, (g.shape, g.dtype)) for n, g in cot.items())
 
 
-def _concat(cot) -> torch.Tensor:
+def _concat(cot, orders=None) -> torch.Tensor:
     """The bucket's gradients as one new flat tensor (a copy even for one
-    leaf: a collective may write it, and autograd may share a
-    cotangent)."""
-    return torch.cat([g.reshape(-1) for g in cot.values()])
+    leaf: a collective may write it, and autograd may share a cotangent),
+    each leaf in the element order of ``orders`` (name -> permutation;
+    a permuted leaf is copied in that order on its way into the
+    concatenation)."""
+    orders = orders or {}
+    return torch.cat([_wire(g, orders.get(n)).reshape(-1)
+                      for n, g in cot.items()])
 
 
-def _split(flat: torch.Tensor, metas) -> "OrderedDict":
-    """Slice a bucket's flat sums back into its leaves' shapes and
-    dtypes."""
+def _split(flat: torch.Tensor, metas, orders=None) -> "OrderedDict":
+    """Slice a bucket's flat sums back into its leaves' shapes and dtypes
+    (a leaf of ``orders`` is sliced in that order and handed back as the
+    inverse-permuted view)."""
+    orders = orders or {}
     out, off = OrderedDict(), 0
     for n, (shape, dtype) in metas.items():
         size = shape.numel()
-        out[n] = flat[off:off + size].view(shape).to(dtype)
+        order = orders.get(n)
+        wire = shape if order is None else torch.Size(shape[i] for i in order)
+        out[n] = _unwire(flat[off:off + size].view(wire).to(dtype), order)
         off += size
     return out
 
@@ -251,20 +261,25 @@ class _IdentitySync(_BucketSync):
 
 
 class _CodecSync(_BucketSync):
-    """Codec-encoded bucket exchange: encode each leaf, all-gather the
-    bucket's codes as one flat transfer per code dtype; after backward,
-    the decode-sums of every bucket of the step in one grouped launch
-    (`Codec.decode_sum_leaves`)."""
+    """Codec-encoded bucket exchange: encode each leaf (in the element
+    order of ``orders``), all-gather the bucket's codes as one flat
+    transfer per code dtype; after backward, the decode-sums of every
+    bucket of the step in one grouped launch (`Codec.decode_sum_leaves`),
+    each handed back as the inverse-permuted view."""
 
-    def __init__(self, group, codec: Codec):
+    def __init__(self, group, codec: Codec, orders=None):
         self.group, self.codec = group, codec
+        self.orders = orders or {}
 
     def start(self, cot):
-        codes = OrderedDict((n, self.codec.encode(g)) for n, g in cot.items())
+        wire = OrderedDict((n, _wire(g, self.orders.get(n)))
+                           for n, g in cot.items())
+        codes = OrderedDict((n, self.codec.encode(g))
+                            for n, g in wire.items())
         works: list = []
         gathered = collectives.allgather_tree_bucketed(
             codes, self.group, bucket_bytes=_WHOLE, works=works)
-        return _Pending(_metas(cot), works, gathered)
+        return _Pending(_metas(wire), works, gathered)
 
     def finish(self, pendings):
         _wait(pendings)
@@ -274,7 +289,9 @@ class _CodecSync(_BucketSync):
             metas.update(p.metas)
         if not metas:
             return OrderedDict()
-        return self.codec.decode_sum_leaves(gathered, metas)
+        out = self.codec.decode_sum_leaves(gathered, metas)
+        return OrderedDict((n, _unwire(g, self.orders.get(n)))
+                           for n, g in out.items())
 
 
 class _BlockqFusedSync(_BucketSync):
@@ -284,13 +301,16 @@ class _BlockqFusedSync(_BucketSync):
     wire is the bucket's, not the leaves'), and one gather of the codes
     with the scales behind them; after backward, every bucket of the step
     is one leaf of one grouped ``block_dequant_sum`` launch, and each
-    bucket's sums are sliced back and cast to its leaves' dtype."""
+    bucket's sums are sliced back and cast to its leaves' dtype.  Leaves
+    of ``orders`` enter the bucket in that element order and come back
+    as inverse-permuted views."""
 
-    def __init__(self, group, codec: BlockQuantizeCodec):
+    def __init__(self, group, codec: BlockQuantizeCodec, orders=None):
         self.group, self.codec = group, codec
+        self.orders = orders or {}
 
     def start(self, cot):
-        flat = _concat(cot).to(torch.float32)
+        flat = _concat(cot, self.orders).to(torch.float32)
         rows = self.codec._rows_for(flat.numel())
         q, scales = ck.block_quantize(flat, bits=self.codec.bits,
                                       block_rows=rows)
@@ -319,7 +339,7 @@ class _BlockqFusedSync(_BucketSync):
         _, views = ck.block_dequant_sum_group(leaves)
         out = OrderedDict()
         for p, v in zip(pendings, views):
-            out.update(_split(v, p.metas))
+            out.update(_split(v, p.metas, self.orders))
         return out
 
 
@@ -345,11 +365,13 @@ def _sync_blockq_fused(cot: "OrderedDict", group, codec: BlockQuantizeCodec):
 
 def make_bucket_sync_fn(*, group, world: int, codec=None,
                         reducer: str = "rs_ag",
-                        fused_encode: bool = False) -> _BucketSync:
+                        fused_encode: bool = False,
+                        orders=None) -> _BucketSync:
     """The per-bucket sync (applied to every bucket's cotangents).
     ``codec=None`` (the caller passes None for the identity codec) uses the
     flat-sum reducers; otherwise each bucket rides the codec's
-    encode/gather/decode-sum.
+    encode/gather/decode-sum, each leaf named in ``orders`` (name ->
+    `utils.interop.jax_order` permutation) encoded in that order.
 
     ``fused_encode=True`` swaps in the fused twin: the identity path is
     already one flat sum per bucket, so it is unchanged there, and the
@@ -362,13 +384,13 @@ def make_bucket_sync_fn(*, group, world: int, codec=None,
     if codec is None:
         return _IdentitySync(group, world, reducer)
     if not fused_encode:
-        return _CodecSync(group, codec)
+        return _CodecSync(group, codec, orders)
     if not isinstance(codec, BlockQuantizeCodec):
         raise ValueError(
             f"fused_encode supports the identity and blockq codecs; "
             f"got {type(codec).__name__} — run it unfused, or switch "
             f"the sync codec to 'blockq'")
-    return _BlockqFusedSync(group, codec)
+    return _BlockqFusedSync(group, codec, orders)
 
 
 # ---------------------------------------------------------------------------

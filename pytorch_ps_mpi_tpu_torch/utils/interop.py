@@ -1,4 +1,4 @@
-"""Weights and statistics across from the JAX package.
+"""Weights, statistics and optimizer state across from the JAX package.
 
 Counterpart of `pytorch_ps_mpi_tpu/utils/interop.py`, in the other
 direction: `params_from_jax` turns the flat flax names and arrays that the
@@ -14,10 +14,17 @@ and BatchNorm buffers, undoing its layout rules:
 It serves flax module trees (the ResNets and the transformer LM).  The
 MLP's plain dict keeps ``(in, out)`` in both packages and crosses
 unchanged.
+
+`jax_order` gives, per port leaf, the permutation back to flax's layout:
+a codec whose wire depends on element order (blockq's tiles, topk's
+indices) encodes the gradient in that order, so the wire equals the JAX
+package's.  `state_from_jax` and `state_to_jax` carry a whole
+``MPI_PS.state_dict()`` across, in either direction.
 """
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 
 import numpy as np
@@ -28,10 +35,27 @@ from .flatten import SEP, named_params
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
+# The port's names of the flax kernels, by rank: conv kernels of the
+# ResNets, the ResNets' Dense head and the LM's PDense kernels.  Embedding
+# tables, norms and biases keep one layout in both packages.
+_CONV = re.compile(r"(^|\.)Conv_\d+\.weight$")
+_DENSE = re.compile(
+    r"((^|\.)Dense_\d+|^block_\d+\.(qkv|out|fc1|fc2)|^lm_head)\.weight$")
+_CONV_ORDER = (2, 3, 1, 0)  # OIHW -> HWIO
+
 
 def _torch_name(flax_name: str) -> str:
     *path, leaf = flax_name.split(SEP)
     return ".".join([*path, _LEAF[leaf]])
+
+
+def _flax_name(torch_name: str, kind: str) -> str:
+    """Inverse of `_torch_name`; ``kind`` says which flax leaf a
+    ``weight`` was (``kernel``, ``scale`` or ``embedding``)."""
+    *path, leaf = torch_name.split(".")
+    flax_leaf = {"weight": kind, "bias": "bias", "running_mean": "mean",
+                 "running_var": "var"}[leaf]
+    return SEP.join([*path, flax_leaf])
 
 
 def _to_torch_layout(name: str, a: np.ndarray) -> np.ndarray:
@@ -41,6 +65,42 @@ def _to_torch_layout(name: str, a: np.ndarray) -> np.ndarray:
         if a.ndim == 2:
             return a.T                      # (in, out) -> (out, in)
     return a
+
+
+def jax_order(name: str, shape) -> "tuple[int, ...] | None":
+    """The permutation that takes the port's leaf ``name`` of ``shape`` to
+    its flax layout (``x.permute(order)``), or None where the layouts
+    agree: ``(2, 3, 1, 0)`` for a conv kernel, ``(1, 0)`` for a Dense or
+    PDense kernel of the flax-tree models.  The inverse of
+    `_to_torch_layout`, keyed by the port's names; a name the repo's
+    models do not give (a user's own model, the MLP's plain dict) gets
+    None."""
+    rank = len(shape)
+    if rank == 4 and _CONV.search(name):
+        return _CONV_ORDER
+    if rank == 2 and _DENSE.search(name):
+        return (1, 0)
+    return None
+
+
+def invert(order) -> "tuple[int, ...]":
+    """The inverse of a permutation: ``x.permute(order).permute(
+    invert(order))`` is ``x``."""
+    inv = [0] * len(order)
+    for i, o in enumerate(order):
+        inv[o] = i
+    return tuple(inv)
+
+
+def to_jax_order(x: torch.Tensor, order) -> torch.Tensor:
+    """``x`` in the element order of ``order`` (a `jax_order` result, None
+    for none): a permuted view, no copy."""
+    return x if order is None else x.permute(order)
+
+
+def from_jax_order(x: torch.Tensor, order) -> torch.Tensor:
+    """Inverse of `to_jax_order`: the port's layout as a view, no copy."""
+    return x if order is None else x.permute(invert(order))
 
 
 def params_from_jax(named_np, aux_np=None):
@@ -55,3 +115,95 @@ def params_from_jax(named_np, aux_np=None):
         (_torch_name(n), torch.from_numpy(np.array(a)))
         for n, a in named_params(aux_np or {}).items())
     return params, aux
+
+
+# ---------------------------------------------------------------------------
+# Optimizer state, both ways
+# ---------------------------------------------------------------------------
+
+
+def _relayout(name: str, shape, a, order, lead: int):
+    """One state leaf of parameter ``name`` (of ``shape``) with its
+    parameter dims permuted by ``order`` (None: kept); the first ``lead``
+    dims (the EF residual's world) stay.  A scalar passes; a leaf of
+    another shape — a raw ZeRO shard, in one package's flat order — is
+    refused."""
+    a = np.asarray(a)
+    if a.ndim == 0:
+        return a
+    if a.shape[lead:] != tuple(shape):
+        raise ValueError(
+            f"state leaf of {name!r} has shape {a.shape}, not the "
+            f"parameter's {tuple(shape)}: a raw ZeRO shard cannot cross "
+            f"packages (save it with state_dict(raw_shards=False))")
+    if order is None:
+        return np.array(a)
+    return np.ascontiguousarray(
+        a.transpose(*range(lead), *(lead + p for p in order)))
+
+
+def _map_state(sd: dict, names: dict, orders: dict) -> dict:
+    """``sd`` with every per-parameter tree renamed through ``names``
+    (source name -> destination name) and each array's parameter dims
+    permuted by ``orders[source name]``."""
+    shapes = {n: np.shape(a) for n, a in sd["params"].items()}
+
+    def leaf(n, a, lead=0):
+        return _relayout(n, shapes[n], a, orders[n], lead)
+
+    out = {k: v for k, v in sd.items()
+           if k not in ("params", "state", "aux", "ef", "ema")}
+    out["params"] = OrderedDict((names[n], leaf(n, a))
+                                for n, a in sd["params"].items())
+    out["state"] = OrderedDict(
+        (names[n], {k: leaf(n, v) for k, v in st.items()})
+        for n, st in sd["state"].items())
+    out["ef"] = (None if sd.get("ef") is None else OrderedDict(
+        (names[n], leaf(n, a, 1)) for n, a in sd["ef"].items()))
+    out["ema"] = (None if sd.get("ema") is None else OrderedDict(
+        (names[n], leaf(n, a)) for n, a in sd["ema"].items()))
+    return out
+
+
+def state_from_jax(sd: dict) -> dict:
+    """A JAX ``MPI_PS.state_dict()`` of a flax-tree model (the ResNets, the
+    LM) as the port's: params, per-parameter optimizer state, the EF
+    residual ``[world, ...]`` and the EMA weights in the port's names and
+    layouts, the BatchNorm statistics as the port's flat buffers;
+    ``optim``, ``hyper`` and ``topology`` as they are.  (The MLP's plain
+    dict has one layout in both packages: its state crosses as it is.)"""
+    orders = {}
+    for n, a in sd["params"].items():
+        tshape = _to_torch_layout(n, np.empty(np.shape(a), np.uint8)).shape
+        order = jax_order(_torch_name(n), tshape)
+        orders[n] = None if order is None else invert(order)
+    out = _map_state(sd, {n: _torch_name(n) for n in sd["params"]}, orders)
+    out["aux"] = OrderedDict(
+        (_torch_name(n), np.array(a))
+        for n, a in named_params(sd.get("aux") or {}).items())
+    return out
+
+
+def state_to_jax(sd: dict) -> dict:
+    """The port's ``MPI_PS.state_dict()`` of a flax-tree model as the JAX
+    package's (the inverse of `state_from_jax`); the BatchNorm statistics
+    become flax's nested ``batch_stats`` tree.  A ``weight`` is a flax
+    ``scale`` when 1-D, an ``embedding`` in a module named ``*embed``, a
+    ``kernel`` otherwise — the repo models' rule."""
+    names = {}
+    for n, a in sd["params"].items():
+        module = n.rsplit(".", 2)[-2] if "." in n else n
+        kind = ("scale" if np.ndim(a) == 1 else
+                "embedding" if module.endswith("embed") else "kernel")
+        names[n] = _flax_name(n, kind)
+    orders = {n: jax_order(n, np.shape(a)) for n, a in sd["params"].items()}
+    out = _map_state(sd, names, orders)
+    aux: dict = {}
+    for n, a in (sd.get("aux") or {}).items():
+        *path, leaf = _flax_name(n, "scale").split(SEP)
+        node = aux
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(a)
+    out["aux"] = aux
+    return out

@@ -1,13 +1,20 @@
 """Gradient codecs of the port against the JAX package's.
 
-* ``wire_bytes`` — exact, for every ResNet-18 parameter shape: it is the
-  ``packaged_bytes`` metric and the blockq wire format.
+* ``wire_bytes`` — exact, for every ResNet-18 parameter shape and every
+  codec: it is the ``packaged_bytes`` metric and the wire format.
 * encode, decode and decode_sum — the same numpy gradients through both
   packages.  Tolerance: none for blockq codes, scales and sums, and for
   the bf16 cast and its f32 sum (the same float32 operations in the same
-  order, see ``tests/test_torch_codec_kernels.py``).
+  order, see ``tests/test_torch_codec_kernels.py``); none for topk's
+  values, indices and scatter-add sums, quantize's codes, scale and sums,
+  and sign's packed bytes; ``rtol=1e-6`` for sign's mean-|g| scale and
+  what it scales (a float32 mean summed in another order than XLA's).
+* blockq in the JAX package's element order: for every ResNet-18 and
+  transformer-LM parameter shape, the port's gradient permuted by
+  `utils.interop.jax_order` quantizes to JAX's codes and scales bitwise.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +22,13 @@ import torch
 
 from pytorch_ps_mpi_tpu.models import build_model as jbuild_model
 from pytorch_ps_mpi_tpu.models import resnet18 as jresnet18
+from pytorch_ps_mpi_tpu.models import transformer as jt
 from pytorch_ps_mpi_tpu.ops import codecs as jcodecs
+from pytorch_ps_mpi_tpu.ops import pallas_kernels as jpk
+from pytorch_ps_mpi_tpu.utils.flatten import named_params as jnamed_params
 from pytorch_ps_mpi_tpu_torch.models import build_model, resnet18
 from pytorch_ps_mpi_tpu_torch.ops import codecs as tcodecs
+from pytorch_ps_mpi_tpu_torch.utils import interop
 
 _TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -47,7 +58,11 @@ def _leaves(tree):
     return [x for v in tree.values() for x in _leaves(v)]
 
 
-@pytest.mark.parametrize("name", ["identity", "bf16", "blockq"])
+ALL_CODECS = ["identity", "bf16", "blockq", "topk", "topk_approx",
+              "quantize", "sign"]
+
+
+@pytest.mark.parametrize("name", ALL_CODECS)
 def test_wire_bytes_match_jax_for_every_resnet18_shape(name):
     shapes = _resnet18_shapes()
     ours = tcodecs.get_codec(name)
@@ -57,8 +72,22 @@ def test_wire_bytes_match_jax_for_every_resnet18_shape(name):
             shape, jnp.float32), shape
     total = sum(ours.wire_bytes(s, torch.float32) for s in shapes)
     expect = {"identity": 44_695_848, "bf16": 22_347_924,
-              "blockq": 11_445_104}[name]
-    assert total == expect
+              "blockq": 11_445_104}.get(name)
+    assert total == (expect if expect is not None else sum(
+        ref.wire_bytes(s, jnp.float32) for s in shapes))
+
+
+@pytest.mark.parametrize("name", ALL_CODECS)
+def test_get_codec_resolves_every_jax_name(name):
+    """The port's table is the JAX package's: the same class names, codec
+    names and settings."""
+    ours, ref = tcodecs.get_codec(name), jcodecs.get_codec(name)
+    assert type(ours).__name__ == type(ref).__name__
+    assert ours.name == ref.name
+    for attr in ("fraction", "k", "approx", "recall_target", "bits",
+                 "qmax", "block_rows"):
+        assert getattr(ours, attr, None) == getattr(ref, attr, None), attr
+    assert ours.ordered == (name not in ("identity", "bf16"))
 
 
 @pytest.mark.parametrize("bits", [8, 16])
@@ -111,7 +140,7 @@ def test_cast_codec_matches_jax(shape):
     np.testing.assert_array_equal(out.numpy(), generic.numpy())
 
 
-@pytest.mark.parametrize("name", ["identity", "bf16", "blockq"])
+@pytest.mark.parametrize("name", ALL_CODECS)
 def test_decode_sum_leaves_equals_per_leaf_decode_sum(name):
     """The step's one call over all leaves gives, leaf by leaf, the bits
     of `decode_sum`: codes of three ranks gathered leaf by leaf, shapes
@@ -150,14 +179,221 @@ def test_identity_codec_round_trip():
     np.testing.assert_array_equal(out.numpy(), 3 * g.numpy())
 
 
-@pytest.mark.parametrize("name", ["topk", "topk_approx", "quantize", "sign"])
-def test_unported_codecs_raise(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tcodecs.get_codec(name)
-
-
 def test_unknown_codec_and_bad_bits_raise():
     with pytest.raises(ValueError, match="unknown codec"):
         tcodecs.get_codec("nope")
     with pytest.raises(ValueError, match="bits"):
         tcodecs.BlockQuantizeCodec(bits=4)
+
+
+# ---------------------------------------------------------------------------
+# topk, quantize and sign against the JAX package
+# ---------------------------------------------------------------------------
+
+WORLD = 3
+
+
+def _distinct(rng, shape, scale=1.0):
+    """A gradient with no two equal magnitudes (a tie at the k-th
+    magnitude would let the two packages pick different indices)."""
+    n = int(np.prod(shape))
+    mags = (rng.permutation(n) + 1).astype(np.float32) * np.float32(scale / n)
+    signs = np.where(rng.rand(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    return (mags * signs).reshape(shape)
+
+
+def _stack(codes, lib):
+    return {k: lib.stack([c[k] for c in codes]) for k in codes[0]}
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("shape,kw", [((1000,), dict(fraction=0.01)),
+                                      ((7, 33), dict(fraction=0.25)),
+                                      ((3, 3, 4, 8), dict(k=5)),
+                                      ((10,), dict(k=40))])
+def test_topk_matches_jax(approx, shape, kw):
+    """Values and indices bitwise (exact selection also meets the approx
+    codec's recall target, as the JAX package's does on the CPU); decode
+    and the scatter-add decode_sum over three ranks, whose indices repeat
+    across ranks, bitwise."""
+    rng = np.random.RandomState(11)
+    grads = [_distinct(rng, shape) for _ in range(WORLD)]
+    ours = tcodecs.TopKCodec(approx=approx, **kw)
+    ref = jcodecs.TopKCodec(approx=approx, **kw)
+    codes = [ours.encode(torch.from_numpy(g)) for g in grads]
+    jcodes = [ref.encode(jnp.asarray(g)) for g in grads]
+    for c, jc in zip(codes, jcodes):
+        assert c["indices"].dtype == torch.int32
+        if approx:  # approx_max_k may return its set in another order
+            o, jo = np.argsort(_np(c["indices"])), np.argsort(
+                _np(jc["indices"]))
+        else:
+            o = jo = slice(None)
+        np.testing.assert_array_equal(_np(c["indices"])[o],
+                                      _np(jc["indices"])[jo])
+        np.testing.assert_array_equal(_np(c["values"])[o],
+                                      _np(jc["values"])[jo])
+        np.testing.assert_array_equal(
+            _np(ours.decode(c, shape=shape, dtype=torch.float32)),
+            _np(ref.decode(jc, shape=shape, dtype=jnp.float32)))
+    out = ours.decode_sum(_stack(codes, torch), shape=shape,
+                          dtype=torch.float32)
+    want = ref.decode_sum(_stack(jcodes, jnp), shape=shape,
+                          dtype=jnp.float32)
+    assert tuple(out.shape) == shape
+    np.testing.assert_array_equal(_np(out), _np(want))
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("shape", [(1000,), (7, 33), (3, 3, 4, 8), ()])
+def test_quantize_matches_jax(bits, shape):
+    """Codes and scale bitwise (the scale divides by a tensor, rounding
+    is half to even), decode and the decode_sum over three ranks bitwise;
+    an all-zero gradient gets scale 1.0, a NaN code 0 (XLA's
+    conversion)."""
+    rng = np.random.RandomState(bits)
+    grads = [np.asarray(rng.randn(*shape) * 0.1, np.float32)
+             for _ in range(WORLD)]
+    grads[1] = np.zeros(shape, np.float32)
+    if shape:
+        grads[2].reshape(-1)[0] = np.nan
+    ours, ref = tcodecs.QuantizeCodec(bits), jcodecs.QuantizeCodec(bits)
+    codes = [ours.encode(torch.from_numpy(g)) for g in grads]
+    jcodes = [ref.encode(jnp.asarray(g)) for g in grads]
+    for c, jc in zip(codes, jcodes):
+        assert c["q"].dtype == (torch.int8 if bits == 8 else torch.int16)
+        np.testing.assert_array_equal(_np(c["q"]), _np(jc["q"]))
+        np.testing.assert_array_equal(_np(c["scale"]), _np(jc["scale"]))
+    out = ours.decode_sum(_stack(codes, torch), shape=shape,
+                          dtype=torch.float32)
+    np.testing.assert_array_equal(_np(out), _np(ref.decode_sum(
+        _stack(jcodes, jnp), shape=shape, dtype=jnp.float32)))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 1001])
+def test_pack_signs_matches_jax(n):
+    """The sign plane bitwise (1 for >= 0, so -0.0 packs as +; a NaN as
+    -), and its unpacking."""
+    rng = np.random.RandomState(n)
+    flat = rng.randn(n + (-n) % 8).astype(np.float32)
+    flat[0] = -0.0
+    if n > 1:
+        flat[1] = np.nan
+    packed = tcodecs.pack_signs(torch.from_numpy(flat))
+    jpacked = jpk.pack_signs(jnp.asarray(flat))
+    assert packed.dtype == torch.uint8
+    np.testing.assert_array_equal(_np(packed), _np(jpacked))
+    np.testing.assert_array_equal(
+        _np(tcodecs.unpack_signs(packed, n)),
+        _np(jpk.unpack_signs(jpacked, n)))
+
+
+@pytest.mark.parametrize("shape", [(1000,), (7, 33), (3, 3, 4, 8), (5,)])
+def test_sign_matches_jax(shape):
+    """Packed signs bitwise; the mean-|g| scale, the decode and the
+    decode_sum over three ranks within ``rtol=1e-6`` (the mean sums in
+    another order than XLA's)."""
+    rng = np.random.RandomState(3)
+    grads = [np.asarray(rng.randn(*shape), np.float32) for _ in range(WORLD)]
+    ours, ref = tcodecs.SignCodec(), jcodecs.SignCodec()
+    codes = [ours.encode(torch.from_numpy(g)) for g in grads]
+    jcodes = [ref.encode(jnp.asarray(g)) for g in grads]
+    tol = dict(rtol=1e-6, atol=0)
+    for c, jc in zip(codes, jcodes):
+        np.testing.assert_array_equal(_np(c["sign"]), _np(jc["sign"]))
+        np.testing.assert_allclose(_np(c["scale"]), _np(jc["scale"]), **tol)
+        np.testing.assert_allclose(
+            _np(ours.decode(c, shape=shape, dtype=torch.float32)),
+            _np(ref.decode(jc, shape=shape, dtype=jnp.float32)), **tol)
+    out = ours.decode_sum(_stack(codes, torch), shape=shape,
+                          dtype=torch.float32)
+    np.testing.assert_allclose(_np(out), _np(ref.decode_sum(
+        _stack(jcodes, jnp), shape=shape, dtype=jnp.float32)), **tol)
+
+
+def test_codec_settings_are_validated_like_jax():
+    for bad in (dict(k=0), dict(fraction=0.0), dict(fraction=1.5),
+                dict(recall_target=0.0)):
+        with pytest.raises(ValueError):
+            jcodecs.TopKCodec(**bad)
+        with pytest.raises(ValueError):
+            tcodecs.TopKCodec(**bad)
+    with pytest.raises(ValueError, match="bits"):
+        tcodecs.QuantizeCodec(bits=4)
+    with pytest.raises(ValueError, match="dense shape"):
+        tcodecs.TopKCodec().decode({"values": torch.ones(1),
+                                    "indices": torch.zeros(1, dtype=torch.int32)})
+
+
+# ---------------------------------------------------------------------------
+# blockq in the JAX package's element order, every ResNet-18 and LM shape
+# ---------------------------------------------------------------------------
+
+# The bench LM (`bench.py::worker_lm_throughput`), full width and depth.
+BENCH_LM = dict(vocab_size=32768, d_model=1024, n_heads=16, n_layers=12,
+                d_ff=4096, max_len=1024)
+
+
+def _flax_shapes(model):
+    """``flax name -> shape`` of a model's parameters (no arrays)."""
+    if model == "resnet18":
+        jm = jresnet18()
+        variables = jax.eval_shape(
+            lambda: jm.init(jax.random.PRNGKey(0),
+                            jnp.zeros((1, 32, 32, 3), jnp.float32),
+                            train=False))
+    else:
+        jm = jt.TransformerLM(**BENCH_LM)
+        variables = jax.eval_shape(
+            lambda: jm.init(jax.random.PRNGKey(0),
+                            jnp.zeros((1, 8), jnp.int32)))
+    return {n: tuple(a.shape)
+            for n, a in jnamed_params(variables["params"]).items()}
+
+
+def _distinct_layouts(model):
+    """One ``(flax name, flax shape)`` per distinct (shape, permutation)."""
+    seen, out = set(), []
+    for n, shape in _flax_shapes(model).items():
+        tname = interop._torch_name(n)
+        tshape = interop._to_torch_layout(n, np.empty(shape, np.uint8)).shape
+        key = (shape, interop.jax_order(tname, tshape))
+        if key not in seen:
+            seen.add(key)
+            out.append((n, shape))
+    return out
+
+
+@pytest.mark.parametrize("model", ["resnet18", "lm"])
+def test_blockq_codes_in_jax_order_match_jax_bitwise(model):
+    """The port's gradient (flax's, in the port's layout) handed to the
+    codec in `jax_order`'s element order quantizes to JAX's codes and
+    scales bitwise at the default tiles, for each distinct parameter shape
+    of ResNet-18 (62 leaves) and the bench LM (150 leaves, 219,346,944
+    elements); the decode of one rank's code, back in the port's layout
+    (`from_jax_order`), is the port-layout view of JAX's decode."""
+    rng = np.random.default_rng(5)
+    ours, ref = tcodecs.BlockQuantizeCodec(), jcodecs.BlockQuantizeCodec()
+    layouts = _distinct_layouts(model)
+    assert len(layouts) >= (10 if model == "lm" else 12)
+    for name, shape in layouts:
+        g = (rng.standard_normal(shape, dtype=np.float32)
+             * np.float32(0.01))
+        tg = torch.from_numpy(np.ascontiguousarray(
+            interop._to_torch_layout(name, g)))
+        order = interop.jax_order(interop._torch_name(name), tg.shape)
+        code = ours.encode(interop.to_jax_order(tg, order))
+        jcode = ref.encode(jnp.asarray(g))
+        np.testing.assert_array_equal(_np(code["q"]), _np(jcode["q"]),
+                                      err_msg=name)
+        np.testing.assert_array_equal(_np(code["scales"]),
+                                      _np(jcode["scales"]), err_msg=name)
+        dec = interop.from_jax_order(
+            ours.decode(code, shape=shape, dtype=torch.float32), order)
+        want = interop._to_torch_layout(
+            name, _np(ref.decode(jcode, shape=shape, dtype=jnp.float32)))
+        np.testing.assert_array_equal(_np(dec), want, err_msg=name)

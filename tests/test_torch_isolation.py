@@ -13,6 +13,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -83,8 +84,17 @@ def test_cuda_device_raises_without_a_card():
 
 
 def test_unported_codec_raises():
+    """Every codec name of the JAX package resolves in the port; a name
+    neither package has raises, and a mesh option (the sp/tp slice's)
+    is refused as not ported."""
+    for name in ("identity", "bf16", "topk", "topk_approx", "quantize",
+                 "sign", "blockq"):
+        assert isinstance(port.get_codec(name), port.Codec)
+    with pytest.raises(ValueError, match="unknown codec"):
+        port.get_codec("nope")
     with pytest.raises(NotImplementedError, match="not ported"):
-        port.get_codec("topk")
+        port.SGD([("w", np.zeros(3, np.float32))], device="cpu",
+                 batch_spec=("ps", "sp"))
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

@@ -157,6 +157,8 @@ def test_refusals_match_jax(mesh2):
          "overlap_reducer must be"),
         (dict(clip_norm=0.0), "clip_norm must be positive"),
         (dict(clip_norm=float("nan")), "clip_norm must be positive"),
+        (dict(code="blockq", sync_mode="overlap", error_feedback=True),
+         "does not compose with\\s+error_feedback"),
     ]
     for kw, match in cases:
         with pytest.raises(ValueError, match=match):
@@ -179,8 +181,6 @@ def test_refusals_match_jax(mesh2):
             opt.compile_step(mlp_loss_fn, **kw)
     with pytest.raises(ValueError, match="unknown overlap reducer"):
         OV.make_bucket_sync_fn(group=None, world=1, reducer="ring")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SGD(named, device="cpu", sync_mode="overlap", error_feedback=True)
 
 
 # ---------------------------------------------------------------------------

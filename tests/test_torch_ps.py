@@ -7,6 +7,10 @@ batches:
 
 * the identity codec on `ResNet((1, 1))` (f32, 8x8 inputs), weights and
   statistics carried across by `params_from_jax`;
+* the blockq codec on the same ResNet at 1,024-element tiles
+  (``block_rows=8``), so that its conv kernels span many tiles and the
+  codes equal the JAX package's only if each gradient is quantized in
+  flax's element order (`utils.interop.jax_order`);
 * the blockq codec on the MLP (the same numpy parameters in both).
 
 ``msg_bytes``/``packaged_bytes`` must be equal exactly.  Parameters,
@@ -15,7 +19,14 @@ PyTorch sum convolutions in other orders (a few ulps per op, see
 ``tests/test_torch_models.py``) and three steps of momentum carry that
 forward; ``rtol=1e-5, atol=1e-6`` for the MLP, whose gradients differ by
 ulps only (one matmul per layer) and whose blockq codes must then come
-out the same, so the update matches to float32 rounding.
+out the same, so the update matches to float32 rounding.  The blockq
+ResNet is held to the same tolerance, except that at most one element in
+10,000 may fall outside it: a gradient element within float32 noise of a
+rounding boundary rounds to the neighbouring code in one package and not
+the other (one element of the ~306,000 on this tree, 5.2e-5 apart).  A code
+quantized in another element order moves a parameter by a quantum
+(``lr * amax / 127``); on the parent of the element-order repair 8,279
+elements fell outside the tolerance.
 """
 
 import jax
@@ -26,8 +37,10 @@ import torch
 
 from pytorch_ps_mpi_tpu import SGD as JSGD
 from pytorch_ps_mpi_tpu import models as jmodels
+from pytorch_ps_mpi_tpu.ops import codecs as jcodecs
 from pytorch_ps_mpi_tpu_torch import SGD, Adam, AdamW, MPI_PS, NotCompiledError
 from pytorch_ps_mpi_tpu_torch import models as tmodels
+from pytorch_ps_mpi_tpu_torch.ops import codecs as tcodecs
 from pytorch_ps_mpi_tpu_torch.utils.interop import params_from_jax
 
 from torch_dist_helpers import run_world
@@ -62,21 +75,43 @@ def _check_metrics(ours, ref):
         assert set(jm) <= set(m) | {"nonfinite_skip"}
 
 
-def test_world2_resnet_identity_trajectory_matches_jax(mesh2, tmp_path):
+def _resnet_world2(mesh2, tmp_path, jcode, tcode):
+    """The ResNet((1, 1)) trajectory in both packages with the given
+    codecs; returns the port's ranks and the JAX run."""
     jmodel = jmodels.ResNet((1, 1), num_classes=10, dtype=jnp.float32)
     named, aux = jmodels.build_model(jmodel, (1, 8, 8, 3), seed=1)
     named = {n: np.asarray(p) for n, p in named.items()}
     aux = jax.tree.map(np.asarray, aux)
     batches = _batches(np.random.RandomState(0), (8, 8, 3))
     loss_fn, _ = jmodels.make_classifier_loss(jmodel, has_aux=True)
-    jl, jm, jp, jaux = _jax_trajectory(mesh2, named, aux, loss_fn, True,
-                                       batches, None)
-
+    jrun = _jax_trajectory(mesh2, named, aux, loss_fn, True, batches, jcode)
     tparams, taux = params_from_jax(named, aux)
     ranks = run_world("ps_trajectory", WORLD, tmp_path, "resnet11",
                       {n: t.numpy() for n, t in tparams.items()},
                       {n: t.numpy() for n, t in taux.items()}, batches,
-                      None, 0.1, 0.9)
+                      tcode, 0.1, 0.9)
+    return ranks, jrun
+
+
+def test_world2_resnet_identity_trajectory_matches_jax(mesh2, tmp_path):
+    ranks, (jl, jm, jp, jaux) = _resnet_world2(mesh2, tmp_path, None, None)
+    _check_resnet(ranks, jl, jm, jp, jaux)
+
+
+def test_world2_resnet_blockq_in_jax_order_matches_jax(mesh2, tmp_path):
+    """Blockq at 1,024-element tiles: every conv kernel of the narrow
+    ResNet spans several tiles (36 for a 3x3x64x64 kernel), so which
+    elements share a scale depends on the element order.  The port must
+    quantize each gradient in flax's order to match."""
+    ranks, (jl, jm, jp, jaux) = _resnet_world2(
+        mesh2, tmp_path, jcodecs.BlockQuantizeCodec(block_rows=8),
+        tcodecs.BlockQuantizeCodec(block_rows=8))
+    _check_resnet(ranks, jl, jm, jp, jaux, flips=1e-4)
+
+
+def _check_resnet(ranks, jl, jm, jp, jaux, flips=0.0):
+    """Port ranks against the JAX run; ``flips``: the share of parameter
+    elements allowed outside the tolerance (codes one quantum apart)."""
     for r in ranks[1:]:  # replicated state: every rank holds the same
         for n in r["params"]:
             np.testing.assert_array_equal(r["params"][n],
@@ -87,9 +122,16 @@ def test_world2_resnet_identity_trajectory_matches_jax(mesh2, tmp_path):
     _check_metrics(out["metrics"], jm)
     jp_t, jaux_t = params_from_jax(jp, jaux)
     assert set(out["params"]) == set(jp_t)
-    for n, p in jp_t.items():
-        np.testing.assert_allclose(out["params"][n], p.numpy(), err_msg=n,
-                                   **tol)
+    if flips:
+        outside = sum(int((~np.isclose(out["params"][n], p.numpy(),
+                                       **tol)).sum())
+                      for n, p in jp_t.items())
+        total = sum(p.numel() for p in jp_t.values())
+        assert outside <= flips * total, (outside, total)
+    else:
+        for n, p in jp_t.items():
+            np.testing.assert_allclose(out["params"][n], p.numpy(),
+                                       err_msg=n, **tol)
     for n, a in jaux_t.items():
         np.testing.assert_allclose(out["aux"][n], a.numpy(), err_msg=n,
                                    **tol)
@@ -169,10 +211,7 @@ def test_constructor_validates_like_jax():
         SGD(_named(), bucket_mb=-1, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(zero=True), dict(error_feedback=True), dict(ema_decay=0.99),
-    dict(consensus_every=5), dict(cuda=True),
-])
+@pytest.mark.parametrize("kwargs", [dict(cuda=True)])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported"):
         SGD(_named(), device="cpu", code="blockq", **kwargs)
@@ -181,12 +220,13 @@ def test_unported_options_raise(kwargs):
 @pytest.mark.parametrize("kwargs", [
     dict(clip_norm=1.0), dict(skip_nonfinite=True), dict(profile=True),
     dict(sync_mode="overlap"), dict(fused_encode=True),
-    dict(decompose_allreduce=True),
+    dict(decompose_allreduce=True), dict(zero=True),
+    dict(error_feedback=True), dict(ema_decay=0.99),
+    dict(consensus_every=1),
 ])
 def test_ported_options_take_a_step(kwargs):
-    """The options ported with the overlap engine construct and run a CPU
-    step (``fused_encode`` needs the overlap mode, as in the JAX
-    package)."""
+    """The ported options construct and run a CPU step (``fused_encode``
+    needs the overlap mode, as in the JAX package)."""
     if kwargs.get("fused_encode"):
         with pytest.raises(ValueError, match="fused_encode requires"):
             SGD(_named(), device="cpu", code="blockq", **kwargs)
@@ -204,13 +244,18 @@ def test_ported_options_take_a_step(kwargs):
 
 
 def test_unported_compile_options_raise():
+    """``compile_step`` validates as the JAX package does: accum_steps
+    below 1 and a per-rank batch that does not split into the microbatches
+    are refused; accum_steps and remat are accepted and take a step."""
     opt = SGD(_named(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        opt.compile_step(_loss, accum_steps=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        opt.compile_step(_loss, remat=True)
     with pytest.raises(ValueError, match="accum_steps"):
         opt.compile_step(_loss, accum_steps=0)
+    opt.compile_step(_loss, accum_steps=3, remat=True)
+    with pytest.raises(ValueError, match="does not split"):
+        opt.step(_batch())
+    opt.compile_step(_loss, accum_steps=2, remat=True)
+    loss, _ = opt.step(_batch())
+    assert np.isfinite(loss)
 
 
 def test_step_contract():

@@ -281,3 +281,99 @@ def overlap_trajectories(rank, world, named, variants, batches):
                      "fault_stats": dict(opt.fault_stats),
                      "params": {n: p.numpy() for n, p in opt.params.items()}}
     return out
+
+
+# ---------------------------------------------------------------------------
+# The step's features: one spec, several runs a spawn
+# ---------------------------------------------------------------------------
+
+
+def build_codec(module, spec):
+    """A codec of ``module`` (either package's ``ops.codecs``) from a spec:
+    None, a name, or ``(class name, kwargs)``."""
+    if spec is None or isinstance(spec, str):
+        return module.get_codec(spec)
+    cls, kw = spec
+    return getattr(module, cls)(**kw)
+
+
+def build_schedule(module, spec):
+    """An lr schedule of ``module`` (either package's
+    ``optim.schedules``) from ``(name, args, kwargs)``; a float passes."""
+    if not isinstance(spec, tuple):
+        return spec
+    name, args, kw = spec
+    return getattr(module, name)(*args, **kw)
+
+
+def port_optimizer(spec, device="cpu"):
+    """The port's optimizer for a run spec (see `ps_runs`), compiled."""
+    from pytorch_ps_mpi_tpu_torch import SGD, Adam, AdamW, models
+    from pytorch_ps_mpi_tpu_torch.ops import codecs
+    from pytorch_ps_mpi_tpu_torch.optim import schedules
+
+    cls = {"sgd": SGD, "adam": Adam, "adamw": AdamW}[spec.get("optim", "sgd")]
+    hyper = dict(spec.get("hyper", dict(lr=0.1, momentum=0.9)))
+    hyper["lr"] = build_schedule(schedules, hyper["lr"])
+    kw = dict(spec.get("kwargs", {}))
+    kw["code"] = build_codec(codecs, kw.get("code"))
+    opt = cls(list(spec["named"].items()), device=device, **hyper, **kw)
+    if spec["kind"] == "mlp":
+        opt.compile_step(models.mlp_loss_fn, **spec.get("compile", {}))
+    else:
+        model = models.ResNet((1, 1), num_classes=10)
+        loss_fn, has_aux = models.make_classifier_loss(model)
+        opt.compile_step(loss_fn, has_aux=has_aux, aux=spec.get("aux"),
+                         **spec.get("compile", {}))
+    return opt
+
+
+def _flip_bit(opt, name):
+    """Flip the top mantissa bit of element 0 of parameter ``name`` on
+    this rank only (silent data corruption of one replica)."""
+    p = opt.params[name].clone()
+    bits = p.view(-1).view(torch.int32)
+    bits[0] = bits[0] ^ (1 << 22)
+    opt.params[name] = p
+
+
+def run_spec(spec, rank=0, device="cpu"):
+    """One run of a spec on this process's group: optionally load
+    ``spec["load"]`` (a state dict), take ``len(batches)`` steps, with
+    ``spec["save_after"]`` steps' state dict kept, ``spec["corrupt"] =
+    (step, rank, name)`` flipping a bit of one replica after that step
+    and ``spec["check"]`` running `check_consensus` after the last step
+    (an `SDCDetectedError` is recorded, not raised); ``raw_shards`` is
+    passed to the kept state dict.  Returns numpy."""
+    from pytorch_ps_mpi_tpu_torch import SDCDetectedError
+
+    opt = port_optimizer(spec, device)
+    if spec.get("load") is not None:
+        opt.load_state_dict(spec["load"])
+    out = {"losses": [], "metrics": [], "saved": None, "sdc": None}
+    for i, b in enumerate(spec["batches"]):
+        loss, m = opt.step(b)
+        out["losses"].append(loss)
+        out["metrics"].append(m)
+        if spec.get("save_after") == i + 1:
+            out["saved"] = opt.state_dict(
+                raw_shards=spec.get("raw_shards", False))
+        corrupt = spec.get("corrupt")
+        if corrupt is not None and corrupt[0] == i + 1 and corrupt[1] == rank:
+            _flip_bit(opt, corrupt[2])
+    if spec.get("check"):
+        try:
+            out["check"] = opt.check_consensus()
+        except SDCDetectedError as e:
+            out["sdc"] = str(e)
+    out["state_dict"] = opt.state_dict()
+    out["fault_stats"] = dict(opt.fault_stats)
+    ef = opt.ef_state
+    out["ef"] = (None if ef is None else
+                 {n: v.float().numpy() for n, v in ef.items()})
+    return out
+
+
+def ps_runs(rank, world, specs):
+    """`run_spec` for each spec of ``specs`` (name -> spec), in order."""
+    return {name: run_spec(spec, rank) for name, spec in specs.items()}
