@@ -10,7 +10,8 @@ and carried on from):
 1. Environment: torch/CUDA versions, the card's name and power limit, the
    TF32 settings (off), and the build of the kernels from
    ``pytorch_ps_mpi_tpu_torch/csrc`` — one ``nvcc`` per source, run
-   together — with ``nvcc``'s register report.
+   together — with ``nvcc``'s register report; then the native host
+   library the CLI's checkpoints and loader use (``g++``).
 2. Each kernel against its plain PyTorch version on the card:
    * the codec kernels bitwise, at the 62 ResNet-18 parameter sizes (world
      1 and 4, bits 8 and 16, bf16, f16 and f32 wires, an all-zero tile, a
@@ -77,7 +78,25 @@ and carried on from):
    step, each backward kernel 48; peak memory against the plain step's;
    a profile of one step), the f32 lm_head GEMMs timed alone, and a small
    f32 LM run on the card checked against the same run on the CPU.
-5. The card line, one JSON line per the kernels, and the last line
+5. The training CLI (`pytorch_ps_mpi_tpu_torch.train`) on the card, through
+   its entry point: in processes of their own (TF32 off, as here; the
+   console entry ``cli_entry``), 20 steps of ResNet-18 bf16 blockq at
+   batch 1024 (the ``done:`` line's images/s beside phase 3's bucketed
+   figure, losses finite and falling) and 10 steps of the CLI's LM (bf16,
+   flash attention, batch 16 x 1024: tokens/s); in this process, with the
+   launch counts read around each run, 3 ResNet-18 steps (62
+   ``block_quantize`` and 1 ``block_dequant_sum`` a step), 6 steps of
+   ResNet-50 at full ImageNet width, batch 256 (161 ``block_quantize`` a
+   step, finite losses, images/s and peak memory), one bf16 step of LeNet
+   (1 ``cast_sum``) and 2 LM steps (4 launches of each flash kernel a
+   step).  Then, under cuDNN's deterministic algorithms, a ResNet-18 run
+   preempted by a real SIGTERM (exit 75, a RESUMABLE step-tagged
+   checkpoint) and resumed, against a straight run: params and momentum
+   equal to 0.0, with ``save_optimizer``/``load_optimizer`` timed and the
+   file's size; the divergence guard rolling back once on an injected
+   loss spike (the MLP, batch 1024); and the CLI's MLP with blockq on the
+   card against ``--force-cpu-devices 1``.
+6. The card line, one JSON line per the kernels, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -85,6 +104,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -1137,6 +1157,7 @@ def run_slice(group, cpu_group):
           f"({TIMED} queued steps, host clock to synchronize); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     main_counts = counts
+    images_per_s = BATCH * TIMED / seconds
     fused = run_overlap_fused(named, aux, loss_fn, batch, group, opt, ms)
     device_ms, kernels = profile_steps(opt, batch, "ResNet-18 blockq")
     if device_ms is not None:
@@ -1179,7 +1200,7 @@ def run_slice(group, cpu_group):
                           fused_encode=True)
     return {"block_quantize": main_counts["block_quantize"],
             "block_dequant_sum": main_counts["block_dequant_sum"],
-            "cast_sum": cast_counts["cast_sum"]}
+            "cast_sum": cast_counts["cast_sum"]}, images_per_s
 
 
 def fused_wire_bytes(named, plan) -> int:
@@ -1791,6 +1812,379 @@ def run_lm(group, cpu_group):
     return {k: lm_counts[k] for k in FLASH_REPLACES}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the training CLI on the card
+# ---------------------------------------------------------------------------
+
+# The CLI's ResNet-18 run, at the configuration of phase 3.
+CLI_R18 = ["--model", "resnet18", "--dataset", "cifar10", "--bf16",
+           "--codec", "blockq", "--batch-size", str(BATCH)]
+CLI_R18_STEPS = 20
+CLI_LM = ["--model", "transformer", "--attn", "flash", "--bf16",
+          "--seq-len", "1024", "--vocab", "32768", "--batch-size", "16"]
+CLI_LM_STEPS = 10
+# A subprocess run sets the card's numerics as phase 3 does (TF32 off;
+# cuDNN's deterministic algorithms where asked) and then calls the CLI's
+# console entry point, `train.cli_entry`, with the remaining arguments.
+_CLI_BOOT = (
+    "import sys, torch\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.deterministic = sys.argv[1] == 'deterministic'\n"
+    "from pytorch_ps_mpi_tpu_torch.train import cli_entry\n"
+    "sys.argv = ['ps-torch-train'] + sys.argv[2:]\n"
+    "cli_entry()\n")
+_DONE = re.compile(r"^done: (\d+) steps, ([\d,.]+) (images|tokens)/sec",
+                   re.M)
+_STEP = re.compile(r"^step +(\d+)  loss (\S+)  comm_wait", re.M)
+
+
+def cli_process(argv, *, deterministic=False, expect=0, timeout=600):
+    """One CLI run in a process of its own; fails unless it exits with
+    ``expect``.  Returns its stderr."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _CLI_BOOT,
+         "deterministic" if deterministic else "default", *argv],
+        capture_output=True, text=True, timeout=timeout)
+    print(f"[cli] process ({time.perf_counter() - t0:.1f} s, exit "
+          f"{out.returncode}): ps-torch-train {' '.join(argv)}")
+    for line in out.stderr.splitlines()[-12:]:
+        print(f"[cli]   | {line}")
+    if out.returncode != expect:
+        print(out.stderr[-6000:], file=sys.stderr)
+        fail(f"CLI exited {out.returncode}, expected {expect}: "
+             f"{' '.join(argv)}")
+    return out.stderr
+
+
+def cli_in_process(argv, what):
+    """One CLI run in this process (`train.main`, on the card and the
+    phase's NCCL group) with the launch counts zeroed just before and read
+    just after.  Returns (optimizer, stderr, counts)."""
+    import contextlib
+    import io
+
+    from pytorch_ps_mpi_tpu_torch import train
+
+    err = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        opt = train.main(list(argv))
+    counts = launch_counts()
+    print(f"[cli] in process ({time.perf_counter() - t0:.1f} s), {what}: "
+          f"ps-torch-train {' '.join(argv)}")
+    for line in err.getvalue().splitlines()[-6:]:
+        print(f"[cli]   | {line}")
+    return opt, err.getvalue(), counts
+
+
+def _done(stderr, what) -> "tuple[int, float]":
+    m = _DONE.search(stderr)
+    if m is None:
+        fail(f"{what}: no 'done:' line in the CLI's output")
+    return int(m.group(1)), float(m.group(2).replace(",", ""))
+
+
+def _losses(stderr, what) -> "list[float]":
+    losses = [float(v) for _, v in _STEP.findall(stderr)]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"{what}: losses {losses}")
+    return losses
+
+
+def _steady_ms(opt) -> float:
+    """Mean host time of the blocking steps after the first: dispatch plus
+    the wait for the card (`isend_time` + `comm_wait`)."""
+    rest = opt.timings[1:]
+    return sum(t["isend_time"] + t["comm_wait"] for t in rest) \
+        / len(rest) * 1e3
+
+
+def _state_of(path):
+    from pytorch_ps_mpi_tpu_torch.utils import checkpoint
+
+    tree = checkpoint.load(path)
+    return ({n: a for n, a in tree["params"].items()},
+            {n: st["momentum_buffer"] for n, st in tree["state"].items()})
+
+
+def _np_max_diff(a, b) -> float:
+    import numpy as np
+
+    if set(a) != set(b):
+        fail(f"checkpoints hold other leaves: {sorted(set(a) ^ set(b))}")
+    return max(float(np.abs(np.asarray(a[n], np.float64)
+                            - np.asarray(b[n], np.float64)).max())
+               for n in a)
+
+
+def cli_resnet18(phase3_images_per_s, n_leaves):
+    """The CLI's ResNet-18 blockq run in its own process (images/s beside
+    phase 3's bucketed figure, losses finite and falling), and 3 steps in
+    this process for the launch counts."""
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    argv = CLI_R18 + ["--n-examples", "8192", "--steps", str(CLI_R18_STEPS)]
+    stderr = cli_process(argv)
+    steps, ips = _done(stderr, "ResNet-18 CLI")
+    losses = _losses(stderr, "ResNet-18 CLI")
+    if steps != CLI_R18_STEPS or not losses[-1] < losses[0]:
+        fail(f"ResNet-18 CLI: {steps} steps, losses {losses}")
+    print(f"[cli] ResNet-18 bf16 blockq batch {BATCH}, {steps} steps: "
+          f"{ips:.1f} images/s (the CLI's done line: every step blocks, the "
+          f"first included, the loader's gather and host-to-device copy in "
+          f"the loop) against phase 3's bucketed {phase3_images_per_s:.1f} "
+          f"images/s (queued steps): ratio {ips / phase3_images_per_s:.3f}; "
+          f"losses {losses}")
+    opt, _, counts = cli_in_process(
+        CLI_R18 + ["--n-examples", "2048", "--steps", "3"],
+        "ResNet-18 launch counts")
+    dq_step = ck.group_launches("block_dequant_sum", n_leaves)
+    expect_counts("ResNet-18 CLI", counts, block_quantize=n_leaves * 3,
+                  block_dequant_sum=dq_step * 3)
+    print(f"[cli] ResNet-18 CLI launches in 3 steps: {counts} ({n_leaves} "
+          f"block_quantize and {dq_step} block_dequant_sum a step); steady "
+          f"step {_steady_ms(opt):.3f} ms (steps 2-3: dispatch + wait)")
+    check_params_finite(opt, "ResNet-18 CLI")
+
+
+def cli_resnet50():
+    """ResNet-50 at full ImageNet width (224x224, 1000 classes), bf16,
+    blockq, batch 256: one block_quantize a leaf a step, finite losses,
+    images/s and peak memory."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 6
+    opt, stderr, counts = cli_in_process(
+        ["--model", "resnet50", "--dataset", "imagenet", "--bf16", "--codec",
+         "blockq", "--batch-size", "256", "--n-examples", "256", "--steps",
+         str(steps)], "ResNet-50")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_leaves = len(opt.params)
+    dq_step = ck.group_launches("block_dequant_sum", n_leaves)
+    if n_leaves != 161:
+        fail(f"ResNet-50 has {n_leaves} tensors, expected 161")
+    expect_counts("ResNet-50 CLI", counts, block_quantize=n_leaves * steps,
+                  block_dequant_sum=dq_step * steps)
+    _losses(stderr, "ResNet-50 CLI")
+    if not all(math.isfinite(t["comm_wait"]) for t in opt.timings):
+        fail("ResNet-50 CLI timings")
+    check_params_finite(opt, "ResNet-50 CLI")
+    _, ips = _done(stderr, "ResNet-50 CLI")
+    steady = _steady_ms(opt)
+    print(f"[cli] ResNet-50 ImageNet bf16 blockq batch 256, {steps} steps: "
+          f"{ips:.1f} images/s (done line, first step included); steady "
+          f"step {steady:.3f} ms ({256 / steady * 1e3:.1f} images/s, steps "
+          f"2-{steps}); peak memory {peak:.2f} GiB; launches {counts} "
+          f"({n_leaves} block_quantize a step)")
+    del opt
+    torch.cuda.empty_cache()
+
+
+def cli_lenet_bf16():
+    opt, stderr, counts = cli_in_process(
+        ["--model", "lenet", "--codec", "bf16", "--steps", "1"], "LeNet bf16")
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    expect_counts("LeNet bf16 CLI", counts,
+                  cast_sum=ck.group_launches("cast_sum", len(opt.params)))
+    _losses(stderr, "LeNet bf16 CLI")
+    print(f"[cli] LeNet bf16 codec, 1 step: launches {counts}")
+
+
+def cli_lm():
+    """The CLI's LM (4 layers, d_model 256, 8 heads, vocab 32768, bf16,
+    flash attention) at batch 16 x 1024: tokens/s from its own process, 4
+    launches of each flash kernel a step from 2 steps in this one."""
+    stderr = cli_process(CLI_LM + ["--steps", str(CLI_LM_STEPS)])
+    steps, tok_s = _done(stderr, "LM CLI")
+    losses = _losses(stderr, "LM CLI")
+    opt, _, counts = cli_in_process(CLI_LM + ["--steps", "2"],
+                                    "LM launch counts")
+    expect_counts("LM CLI", counts, flash_fwd=8, flash_bwd_dkdv=8,
+                  flash_bwd_dq=8)
+    check_params_finite(opt, "LM CLI")
+    print(f"[cli] LM bf16 flash batch 16 x 1024, {steps} steps: {tok_s:.0f} "
+          f"tokens/s (done line); losses {losses}; steady step "
+          f"{_steady_ms(opt):.3f} ms (step 2); launches in 2 steps {counts}")
+    profile_cli_lm(opt)
+    del opt
+
+
+def profile_cli_lm(opt):
+    """Where the CLI LM's step goes, on the CLI's own optimizer after its
+    launch counts were read: the device time by category of two queued
+    steps, then the phase split of a step under ``profile=True`` (each
+    phase run to a synchronize; the second of two, so warm)."""
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
+    from pytorch_ps_mpi_tpu_torch.models.transformer import lm_batch
+
+    batch = lm_batch(synthetic_lm(16, seq_len=1024, vocab=32768, seed=0))
+    profile_steps(opt, batch, "CLI LM")
+    opt.profile = True
+    for _ in range(2):
+        opt.step(batch)
+    opt.profile = False
+    m = opt.timings[-1]
+    print("[cli] LM phase split (profile=True, ms): "
+          + ", ".join(f"{k} {m[k] * 1e3:.3f}" for k in (
+              "backward_time", "code_wait", "isend_time", "comm_wait",
+              "decode_time", "optim_step_time")))
+
+
+def cli_preempt_and_resume(tmp):
+    """ResNet-18 blockq under cuDNN's deterministic algorithms: a run
+    preempted by a real SIGTERM (exit 75, a RESUMABLE step-tagged file),
+    resumed to the end, against one straight run: params and momentum
+    equal to 0.0.  Then save_optimizer and load_optimizer timed on the
+    card."""
+    import os
+
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.models import (build_model,
+                                                 make_classifier_loss,
+                                                 resnet18)
+    from pytorch_ps_mpi_tpu_torch.utils import checkpoint
+
+    ck_path = os.path.join(tmp, "ck.psz")
+    straight = os.path.join(tmp, "straight.psz")
+    base = CLI_R18 + ["--steps", "6"]
+    cli_process(base + ["--save", ck_path, "--save-every", "3", "--chaos",
+                        json.dumps({"preempt_at_step": 4})],
+                deterministic=True, expect=75)
+    latest = checkpoint.latest_checkpoint(ck_path)
+    if (latest != checkpoint.step_path(ck_path, 5)
+            or not checkpoint.is_resumable(latest)):
+        fail(f"preempted run left {latest} (RESUMABLE: "
+             f"{latest and checkpoint.is_resumable(latest)})")
+    cli_process(base + ["--resume", ck_path, "--save", ck_path],
+                deterministic=True)
+    cli_process(base + ["--save", straight], deterministic=True)
+    params, momentum = _state_of(ck_path)
+    params0, momentum0 = _state_of(straight)
+    diff = max(_np_max_diff(params, params0),
+               _np_max_diff(momentum, momentum0))
+    print(f"[cli] preempted at step 5 (exit 75, RESUMABLE "
+          f"{os.path.basename(latest)}) + resumed to 6 against 6 straight "
+          f"steps, cuDNN deterministic: max difference {diff} over params "
+          f"and momentum")
+    if diff != 0.0:
+        fail(f"preempt + resume differs from the straight run by {diff}")
+
+    model = resnet18(num_classes=10, small_inputs=True, dtype=torch.bfloat16)
+    named, aux = build_model(model, seed=0)
+    loss_fn, _ = make_classifier_loss(model)
+    opt = SGD(list(named.items()), lr=0.01, momentum=0.9, code="blockq",
+              device="cuda")
+    opt.compile_step(loss_fn, has_aux=True, aux=aux)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.load_optimizer(ck_path, opt)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    again = os.path.join(tmp, "again.psz")
+    t0 = time.perf_counter()
+    checkpoint.save_optimizer(again, opt, step=6)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    mb = os.path.getsize(ck_path) / 1e6
+    print(f"[cli] ResNet-18 checkpoint: {mb:.2f} MB on disk (level 1: "
+          f"shuffle + LZ); save_optimizer {save_ms:.1f} ms, load_optimizer "
+          f"{load_ms:.1f} ms (the card's state to and from the file)")
+    del opt
+
+
+def cli_guard_rollback(tmp):
+    """A loss spike at step 13 (after the guard's 8-loss history) rolls the
+    run back once, to the step-12 checkpoint, and it completes.  The run
+    is the CLI's MLP with blockq at batch 1024: the spike scales the
+    inputs by 1e4 and rotates the labels, and a ResNet's first BatchNorm
+    normalises the scaling away, leaving a rotation that a 12-step
+    ResNet's loss absorbs below the guard's threshold."""
+    import os
+
+    opt, stderr, counts = cli_in_process(
+        ["--model", "mlp", "--codec", "blockq", "--batch-size", str(BATCH),
+         "--n-examples", "8192", "--steps", "16", "--chaos",
+         json.dumps({"spike_at_step": 12}), "--guard-spike-mad", "6",
+         "--save", os.path.join(tmp, "ck2.psz"), "--save-every", "4"],
+        "divergence guard")
+    events = [e for e in opt.fault_stats["rollbacks"]
+              if e.get("restored_step") is not None]
+    print(f"[cli] divergence guard: rollbacks "
+          f"{[(e['step'], e['reason'], e['restored_step']) for e in events]}"
+          f", launches {counts}")
+    if len(events) != 1 or events[0]["restored_step"] != 12:
+        fail(f"expected one rollback to step 12: "
+             f"{opt.fault_stats['rollbacks']}")
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    calls = opt.steps_completed  # 16 steps and the rolled-back one
+    if calls != 17:
+        fail(f"guard run took {calls} steps, expected 17")
+    expect_counts("MLP guard CLI", counts, block_quantize=4 * calls,
+                  block_dequant_sum=ck.group_launches("block_dequant_sum", 4)
+                  * calls)
+    check_params_finite(opt, "guard rollback")
+    del opt
+
+
+def cli_card_vs_cpu(tmp):
+    """The CLI's MLP with blockq on the card (this process) and on the CPU
+    (`--force-cpu-devices 1`, its own process): params within phase 3's
+    rtol 1e-4 / atol 1e-5, with at most one element in 10,000 outside (a
+    code one quantum apart; such a flip then spreads to the next steps'
+    gradients, so 2 steps, as in the CPU tests)."""
+    import os
+
+    import numpy as np
+
+    card, cpu = os.path.join(tmp, "card.psz"), os.path.join(tmp, "cpu.psz")
+    argv = ["--model", "mlp", "--codec", "blockq", "--steps", "2",
+            "--batch-size", "64", "--n-examples", "256"]
+    cli_in_process(argv + ["--save", card], "MLP blockq on the card")
+    cli_process(argv + ["--save", cpu, "--force-cpu-devices", "1"])
+    a, _ = _state_of(card)
+    b, _ = _state_of(cpu)
+    outside = sum(int((~np.isclose(a[n], b[n], rtol=1e-4, atol=1e-5)).sum())
+                  for n in b)
+    total = sum(v.size for v in b.values())
+    print(f"[cli] MLP blockq, card vs CPU (2 steps): max difference "
+          f"{_np_max_diff(a, b)}, {outside} of {total} elements outside "
+          f"rtol 1e-4 / atol 1e-5")
+    if outside > 1e-4 * total:
+        fail(f"MLP card vs CPU: {outside} of {total} elements apart")
+
+
+def run_cli(phase3_images_per_s, n_leaves):
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ps_cli_")
+    try:
+        cli_resnet18(phase3_images_per_s, n_leaves)
+        cli_resnet50()
+        cli_lenet_bf16()
+        cli_lm()
+        cli_preempt_and_resume(tmp)
+        cli_guard_rollback(tmp)
+        cli_card_vs_cpu(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[cli] phase 5 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -1828,6 +2222,14 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "Compiling",
                                        "smem")):
                 print(f"[env] nvcc {name}: {line.strip()}")
+    # The host library of the CLI's checkpoints and loader (g++): built
+    # here, so that no run of phase 5 pays for its build.
+    from pytorch_ps_mpi_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.lib()
+    print(f"[env] built the native host library (g++: the serializer and "
+          f"the loader's row gather) in {time.perf_counter() - t0:.2f} s")
 
     # --- 2. kernels against their plain versions ---
     from pytorch_ps_mpi_tpu_torch.models import build_model, resnet18
@@ -1846,10 +2248,13 @@ def main() -> int:
     # --- 3. the slice, 4. the transformer LM ---
     group = make_ps_group("cuda")
     cpu_group = dist.new_group(backend="gloo")
-    launches = run_slice(group, cpu_group)
+    launches, images_per_s = run_slice(group, cpu_group)
     launches.update(run_lm(group, cpu_group))
 
-    # --- 5. results ---
+    # --- 5. the training CLI ---
+    run_cli(images_per_s, len(named))
+
+    # --- 6. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({

@@ -2,9 +2,9 @@
 
 Counterpart of `pytorch_ps_mpi_tpu/data/datasets.py`, copied: the same
 seed gives the same arrays in both packages.  Class-structured Gaussian
-blobs shaped like MNIST/CIFAR, so small models genuinely learn, token rows
-with next-token structure for the LM, and an iterator of global batches
-whose leading dim shards evenly across ranks.
+blobs shaped like MNIST/CIFAR/ImageNet, so small models genuinely learn,
+token rows with next-token structure for the LM, and an iterator of global
+batches whose leading dim shards evenly across ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +31,10 @@ def synthetic_mnist(n: int = 4096, seed: int = 0):
 
 def synthetic_cifar10(n: int = 4096, seed: int = 0):
     return synthetic_classification(n, (32, 32, 3), 10, seed)
+
+
+def synthetic_imagenet(n: int = 512, seed: int = 0, num_classes: int = 1000):
+    return synthetic_classification(n, (224, 224, 3), num_classes, seed)
 
 
 def synthetic_lm(n: int = 2048, seq_len: int = 128, vocab: int = 256,

@@ -20,6 +20,11 @@ class NotCompiledError(PSRuntimeError):
     """A train entry point was called before ``compile_step``."""
 
 
+class NativeToolchainError(PSRuntimeError):
+    """The in-repo native (C++) codec pipeline failed to build or its
+    encoder reported a hard error."""
+
+
 class SDCDetectedError(RuntimeError):
     """The replica-consensus guard found data-parallel replicas that are
     not bitwise identical — silent data corruption or a desync bug.

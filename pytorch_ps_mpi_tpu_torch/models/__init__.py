@@ -3,8 +3,9 @@
 Counterpart of `pytorch_ps_mpi_tpu/models/__init__.py`: `build_model`
 initialises a module into flat named params plus its BatchNorm statistics
 (``aux``), and `make_classifier_loss` turns a classifier into the
-``loss_fn`` that ``MPI_PS.compile_step`` binds.  The transformer LM has its
-own `build_lm`, `make_lm_loss` and `lm_batch`.
+``loss_fn`` that ``MPI_PS.compile_step`` binds; `eval_accuracy` scores a
+classifier in evaluation mode.  The transformer LM has its own `build_lm`,
+`make_lm_loss` and `lm_batch`.
 """
 
 from __future__ import annotations
@@ -15,17 +16,20 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from .lenet import LeNet5
 from .mlp import init_mlp, mlp_apply, mlp_loss_fn
-from .resnet import BasicBlock, ResNet, resnet18, resnet34
+from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34,
+                     resnet50)
 from .transformer import (Block, PDense, TransformerLM, build_lm, lm_batch,
                           make_lm_loss)
 
 __all__ = [
-    "BasicBlock", "ResNet", "resnet18", "resnet34",
+    "BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
+    "resnet50", "LeNet5",
     "init_mlp", "mlp_apply", "mlp_loss_fn",
     "PDense", "Block", "TransformerLM", "build_lm", "make_lm_loss",
     "lm_batch",
-    "build_model", "cross_entropy", "make_classifier_loss",
+    "build_model", "cross_entropy", "make_classifier_loss", "eval_accuracy",
 ]
 
 
@@ -73,3 +77,28 @@ def make_classifier_loss(model: torch.nn.Module, *,
         return cross_entropy(logits, batch["y"]), new_aux
 
     return (loss_aux, True) if has_aux else (loss_plain, False)
+
+
+def eval_accuracy(model: torch.nn.Module, params_named, aux, batches) -> float:
+    """Top-1 accuracy of ``model`` over an iterable of ``{"x", "y"}``
+    batches, in evaluation mode: BatchNorm normalises with the running
+    statistics ``aux`` (nothing is updated).  ``params_named`` are the
+    weights to score (the EMA weights, when the caller has them); the
+    batches go to their device."""
+    device = next(iter(params_named.values())).device
+    was_training = model.training
+    model.eval()
+    correct = total = 0
+    try:
+        with torch.no_grad():
+            for b in batches:
+                x = torch.as_tensor(b["x"]).to(device)
+                logits = functional_call(model, {**params_named, **aux},
+                                         (x,))
+                pred = logits.argmax(-1).cpu()
+                y = torch.as_tensor(b["y"]).long()
+                correct += int((pred == y).sum())
+                total += int(y.shape[0])
+    finally:
+        model.train(was_training)
+    return correct / max(total, 1)

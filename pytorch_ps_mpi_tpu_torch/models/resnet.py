@@ -1,4 +1,4 @@
-"""ResNet-18/34 — the benchmark model of the sync PS step.
+"""ResNet-18/34/50 — the benchmark models of the sync PS step.
 
 Counterpart of `pytorch_ps_mpi_tpu/models/resnet.py` (flax).  What carries
 over, so that the same weights give the same function:
@@ -8,7 +8,8 @@ over, so that the same weights give the same function:
 * parameters are f32; convolutions compute in ``dtype`` (bf16 on the
   card), BatchNorm and the classifier head in f32;
 * submodules carry flax's auto-names (``Conv_0``, ``BatchNorm_0``,
-  ``BasicBlock_0``, ``Dense_0``), so ``named_parameters()`` lines up with
+  ``BasicBlock_0`` or ``BottleneckBlock_0``, ``Dense_0``), so
+  ``named_parameters()`` lines up with
   the names `build_model` gives in the JAX package (``.`` for ``/``,
   ``weight`` for ``kernel``/``scale``);
 * the last BatchNorm of each block starts at zero scale;
@@ -54,20 +55,26 @@ def _same_pads(size: int, k: int, stride: int) -> "tuple[int, int]":
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv(use_bias=False)``: f32 OIHW weight, computed in
-    ``dtype``; ``padding`` is ``"SAME"`` or an explicit ``(lo, hi)`` per
-    spatial dim."""
+    """flax ``nn.Conv``: f32 OIHW weight (and, with ``use_bias``, an f32
+    bias, zero-initialised, added in ``dtype`` after the convolution),
+    computed in ``dtype``; ``padding`` is ``"SAME"`` or an explicit
+    ``(lo, hi)`` per spatial dim."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding="SAME", dtype=torch.float32):
+                 padding="SAME", dtype=torch.float32, use_bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.empty(out_ch)) if use_bias else None)
         self.kernel, self.stride, self.padding = kernel, stride, padding
         self.dtype = dtype
 
     def reset_parameters(self, generator) -> None:
         fan_in = self.weight.shape[1] * self.kernel * self.kernel
         _trunc_normal_(self.weight, _lecun_std(fan_in), generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x):
         if self.padding == "SAME":
@@ -78,8 +85,12 @@ class Conv(nn.Module):
         x = x.to(self.dtype)
         w = self.weight.to(self.dtype)
         if t == b and l == r:
-            return F.conv2d(x, w, stride=self.stride, padding=(t, l))
-        return F.conv2d(F.pad(x, (l, r, t, b)), w, stride=self.stride)
+            y = F.conv2d(x, w, stride=self.stride, padding=(t, l))
+        else:
+            y = F.conv2d(F.pad(x, (l, r, t, b)), w, stride=self.stride)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
 
 
 class BatchNorm(nn.Module):
@@ -129,12 +140,15 @@ class BatchNorm(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense(dtype=f32)``; the weight is torch's ``(out, in)``."""
+    """flax ``nn.Dense(dtype=dtype)``, f32 unless ``dtype`` says otherwise;
+    the weight is torch's ``(out, in)``."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features))
+        self.dtype = dtype
 
     def reset_parameters(self, generator) -> None:
         _trunc_normal_(self.weight, _lecun_std(self.weight.shape[1]),
@@ -143,7 +157,8 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        return F.linear(x.to(torch.float32), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
 
 
 class BasicBlock(nn.Module):
@@ -169,13 +184,44 @@ class BasicBlock(nn.Module):
         return F.relu(y + residual)
 
 
-class ResNet(nn.Module):
-    """``ResNet(stage_sizes)`` of BasicBlocks; ``small_inputs`` selects the
-    CIFAR stem (3x3/stride 1, no max-pool) over the ImageNet one (7x7/
-    stride 2 + 3x3/stride 2 max-pool).  Call it on NHWC images."""
+class BottleneckBlock(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 to ``4 * filters`` channels; the last
+    BatchNorm starts at zero scale (flax ``scale_init=zeros``)."""
 
-    def __init__(self, stage_sizes: Sequence[int], num_classes: int = 10,
-                 small_inputs: bool = True, dtype=torch.float32):
+    expansion = 4
+
+    def __init__(self, in_ch: int, filters: int, strides: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        out_ch = filters * self.expansion
+        self.Conv_0 = Conv(in_ch, filters, 1, dtype=dtype)
+        self.BatchNorm_0 = BatchNorm(filters)
+        self.Conv_1 = Conv(filters, filters, 3, strides, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(filters)
+        self.Conv_2 = Conv(filters, out_ch, 1, dtype=dtype)
+        self.BatchNorm_2 = BatchNorm(out_ch, zero_scale=True)
+        self.project = strides != 1 or in_ch != out_ch
+        if self.project:
+            self.Conv_3 = Conv(in_ch, out_ch, 1, strides, dtype=dtype)
+            self.BatchNorm_3 = BatchNorm(out_ch)
+
+    def forward(self, x):
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
+        y = self.BatchNorm_2(self.Conv_2(y))
+        residual = self.BatchNorm_3(self.Conv_3(x)) if self.project else x
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """``ResNet(stage_sizes, block)`` of `BasicBlock` or `BottleneckBlock`;
+    ``small_inputs`` selects the CIFAR stem (3x3/stride 1, no max-pool) over
+    the ImageNet one (7x7/stride 2 + 3x3/stride 2 max-pool).  Call it on
+    NHWC images."""
+
+    def __init__(self, stage_sizes: Sequence[int], block: type = BasicBlock,
+                 num_classes: int = 10, small_inputs: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.small_inputs = small_inputs
         if small_inputs:
@@ -184,14 +230,15 @@ class ResNet(nn.Module):
             self.Conv_0 = Conv(3, 64, 7, 2, padding=((3, 3), (3, 3)),
                                dtype=dtype)
         self.BatchNorm_0 = BatchNorm(64)
+        expansion = getattr(block, "expansion", 1)
         in_ch, k = 64, 0
         for i, n_blocks in enumerate(stage_sizes):
             for j in range(n_blocks):
                 strides = 2 if i > 0 and j == 0 else 1
-                self.add_module(f"BasicBlock_{k}",
-                                BasicBlock(in_ch, 64 * 2 ** i, strides, dtype))
-                in_ch, k = 64 * 2 ** i, k + 1
-        self.n_blocks = k
+                self.add_module(f"{block.__name__}_{k}",
+                                block(in_ch, 64 * 2 ** i, strides, dtype))
+                in_ch, k = 64 * 2 ** i * expansion, k + 1
+        self.block_names = [f"{block.__name__}_{i}" for i in range(k)]
         self.Dense_0 = Dense(in_ch, num_classes)
 
     def reset_parameters(self, generator) -> None:
@@ -209,14 +256,19 @@ class ResNet(nn.Module):
             t, b = _same_pads(x.shape[-2], 3, 2)
             l, r = _same_pads(x.shape[-1], 3, 2)
             x = F.max_pool2d(F.pad(x, (l, r, t, b), value=-math.inf), 3, 2)
-        for k in range(self.n_blocks):
-            x = getattr(self, f"BasicBlock_{k}")(x)
+        for name in self.block_names:
+            x = getattr(self, name)(x)
         return self.Dense_0(x.mean(dim=(2, 3)))
 
 
 def resnet18(num_classes=10, small_inputs=True, dtype=torch.float32):
-    return ResNet((2, 2, 2, 2), num_classes, small_inputs, dtype)
+    return ResNet((2, 2, 2, 2), BasicBlock, num_classes, small_inputs, dtype)
 
 
 def resnet34(num_classes=10, small_inputs=True, dtype=torch.float32):
-    return ResNet((3, 4, 6, 3), num_classes, small_inputs, dtype)
+    return ResNet((3, 4, 6, 3), BasicBlock, num_classes, small_inputs, dtype)
+
+
+def resnet50(num_classes=1000, small_inputs=False, dtype=torch.float32):
+    return ResNet((3, 4, 6, 3), BottleneckBlock, num_classes, small_inputs,
+                  dtype)

@@ -4,7 +4,9 @@ Counterpart of `pytorch_ps_mpi_tpu/parallel/mesh.py`.  The JAX package's
 world is a `jax.sharding.Mesh` with one ``'ps'`` axis; here it is a
 ``torch.distributed`` process group with one rank per device: NCCL on the
 card, gloo on the CPU.  Rendezvous goes through a ``file://`` store, so
-parallel test runs never compete for a TCP port.
+parallel test runs never compete for a TCP port; `join_world` joins the
+group ``torchrun`` describes in the environment instead (the training
+CLI's world), or makes a world of one.
 """
 
 from __future__ import annotations
@@ -54,6 +56,31 @@ def make_ps_group(device="cuda", *, rank: int = 0, world_size: int = 1,
         backend = "gloo"
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=rank, world_size=world_size)
+    return dist.group.WORLD
+
+
+def join_world(device="cuda"):
+    """The training CLI's world — the port's counterpart of "the mesh is
+    the world".  Under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``/``MASTER_PORT`` and ``LOCAL_RANK`` set) every process
+    joins that group: NCCL with rank ``r`` on card ``LOCAL_RANK``, or gloo
+    on the CPU.  Without them it is a world of one (`make_ps_group`).  An
+    existing default group is returned as it is."""
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        return dist.group.WORLD
+    env = os.environ
+    if "RANK" not in env or "WORLD_SIZE" not in env:
+        return make_ps_group(dev)
+    rank_, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    if dev.type == "cuda":
+        local = int(env.get("LOCAL_RANK", rank_))
+        torch.cuda.set_device(dev.index if dev.index is not None else local)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    dist.init_process_group(backend, init_method="env://", rank=rank_,
+                            world_size=world)
     return dist.group.WORLD
 
 

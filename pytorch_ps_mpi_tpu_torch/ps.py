@@ -56,11 +56,12 @@ from .optim.schedules import (hyper_for_checkpoint, hyper_from_checkpoint,
                               resolve_hyper)
 from .parallel import collectives, overlap
 from .parallel.mesh import make_ps_group, rank, resolve_device, world_size
-from .utils.bytes import bytes_of
+from .utils.bytes import bytes_of, host_numpy
 from .utils.flatten import (tree_flatten, tree_leaves, tree_map,
                             tree_unflatten)
 from .utils.interop import from_jax_order, jax_order, to_jax_order
-from .utils.timing import STEP_METRIC_KEYS, record_overlap_schedule
+from .utils.timing import (STEP_METRIC_KEYS, print_summary,
+                           record_overlap_schedule)
 
 # Hyperparameters accepted per optimizer — the analogue of the reference's
 # kwargs filtering at dispatch.
@@ -949,11 +950,11 @@ class MPI_PS:
             "hyper": hyper_for_checkpoint(self.hyper),
             "topology": {**self.topology(),
                          "raw_zero_shards": bool(raw_shards and self.zero)},
-            "params": tree_map(_host, self.params),
-            "state": tree_map(_host, state),
-            "aux": tree_map(_host, self.aux),
-            "ef": None if ef is None else tree_map(_host, ef),
-            "ema": (tree_map(_host, self.extras["ema"])
+            "params": tree_map(host_numpy, self.params),
+            "state": tree_map(host_numpy, state),
+            "aux": tree_map(host_numpy, self.aux),
+            "ef": None if ef is None else tree_map(host_numpy, ef),
+            "ema": (tree_map(host_numpy, self.extras["ema"])
                     if self.ema_decay is not None else None),
         }
 
@@ -1088,13 +1089,9 @@ class MPI_PS:
     def named_parameters(self):
         return list(self.params.items())
 
-
-def _host(x: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of ``x`` (bfloat16 widened to float32)."""
-    x = x.detach().cpu()
-    if x.dtype == torch.bfloat16:
-        x = x.to(torch.float32)
-    return x.numpy().copy()
+    def print_summary(self) -> None:
+        """Mean and max of each step metric over the run so far."""
+        print_summary(self.timings)
 
 
 class SGD(MPI_PS):

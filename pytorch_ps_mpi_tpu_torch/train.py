@@ -1,0 +1,1315 @@
+"""Training CLI — ``python -m pytorch_ps_mpi_tpu_torch.train``.
+
+Counterpart of `pytorch_ps_mpi_tpu/train.py` for its synchronous paths:
+the image/MLP loop (MLP, LeNet-5, ResNet-18/50 on synthetic MNIST,
+CIFAR-10 or ImageNet) and the dense transformer LM, on `MPI_PS`, with the
+resumable `data.loader.DataLoader`, on-disk checkpoints
+(`utils.checkpoint`: ``--save``, ``--save-every``, ``--resume``), the
+preemption path (SIGTERM/SIGINT: finish the step, write a RESUMABLE
+checkpoint, exit 75), the divergence guard's rollback and the sync chaos
+faults.  It takes the JAX CLI's flags and prints its lines; the roles not
+ported yet (``--async-ps``, ``--serve``, ``--connect``, ``--subscribe``,
+``--sp/--tp/--pp/--ep > 1``, ``--moe-experts``) are refused by name.
+
+It runs on the card, and raises when there is none; ``--force-cpu-devices
+N`` runs it on the CPU (gloo) instead.  The world is one process, or the
+group ``torchrun`` launches (each rank on its own card); ``N`` must equal
+that world.  Only rank 0 prints and writes checkpoints.
+
+Examples::
+
+    python -m pytorch_ps_mpi_tpu_torch.train --model resnet18 \\
+        --dataset cifar10 --bf16 --codec blockq --batch-size 1024 --steps 20
+    python -m pytorch_ps_mpi_tpu_torch.train --force-cpu-devices 1 \\
+        --model mlp --steps 5
+    torchrun --nproc-per-node 4 -m pytorch_ps_mpi_tpu_torch.train \\
+        --model resnet18 --dataset cifar10 --codec blockq
+    python -m pytorch_ps_mpi_tpu_torch.train --model lenet --save ckpt.psz
+    python -m pytorch_ps_mpi_tpu_torch.train --model lenet --resume ckpt.psz
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import signal
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# Exit code for a preemption-triggered graceful shutdown (EX_TEMPFAIL:
+# "transient failure, retry"): the in-flight step finished and a RESUMABLE
+# checkpoint was written — a supervisor should relaunch with --resume.
+# Distinct from 130 (a second signal while the first was being handled).
+PREEMPTED_EXIT_CODE = 75
+
+def _log(rank: int, msg: str) -> None:
+    """Print ``msg`` to stderr on rank 0 only."""
+    if rank == 0:
+        print(msg, file=sys.stderr)
+
+
+class _PreemptionHandler:
+    """Signal-safe preemption latch for SIGTERM/SIGINT.
+
+    The handler only sets a flag; the training loop polls it at its step
+    boundary, finishes the in-flight step, writes an atomic RESUMABLE
+    checkpoint, and exits `PREEMPTED_EXIT_CODE`.  A second signal means
+    "now": it raises KeyboardInterrupt (best-effort save, exit 130).
+    Installed only on the main thread; elsewhere it stays inert."""
+
+    _SIGNALS = (signal.SIGTERM, signal.SIGINT)
+
+    def __init__(self):
+        self.flagged: "int | None" = None
+        self._prev: dict = {}
+
+    def __enter__(self):
+        if threading.current_thread() is threading.main_thread():
+            for s in self._SIGNALS:
+                self._prev[s] = signal.signal(s, self._handle)
+        return self
+
+    def _handle(self, signum, frame):
+        del frame
+        if self.flagged is not None:
+            raise KeyboardInterrupt
+        self.flagged = signum
+
+    def __exit__(self, *exc):
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        return False
+
+
+def _agreed_preemption(preempt, opt) -> "int | None":
+    """The preemption flag agreed across ranks at the step boundary: the
+    signal this rank saw, or SIGTERM when only another rank saw one.  At a
+    world of more than one rank a small all-reduce makes every rank enter
+    the (collective) checkpoint together; at world 1 it is the flag."""
+    if opt.world_size == 1:
+        return preempt.flagged
+    flag = torch.tensor([0 if preempt.flagged is None else 1],
+                        dtype=torch.int32, device=opt.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=opt.group)
+    if not int(flag.item()):
+        return None
+    return preempt.flagged if preempt.flagged is not None \
+        else int(signal.SIGTERM)
+
+
+def build(args):
+    """``(params, aux, loss_fn, has_aux, (x, y), model)`` of the image/MLP
+    path (``model`` None for the MLP).  The weights come from
+    ``--seed`` through the port's own initialisers (the draws differ from
+    the JAX package's; carry exact weights across with a checkpoint)."""
+    from .data.datasets import (synthetic_cifar10, synthetic_imagenet,
+                                synthetic_mnist)
+    from .models import (LeNet5, build_model, init_mlp, make_classifier_loss,
+                         mlp_loss_fn, resnet18, resnet50)
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if args.dataset == "mnist":
+        x, y = synthetic_mnist(args.n_examples)
+    elif args.dataset == "cifar10":
+        x, y = synthetic_cifar10(args.n_examples)
+    elif args.dataset == "imagenet":
+        x, y = synthetic_imagenet(max(args.n_examples, args.batch_size))
+    else:
+        raise SystemExit(f"unknown dataset {args.dataset}")
+
+    if args.model == "mlp":
+        d = int(np.prod(x.shape[1:]))
+        params = init_mlp(np.random.RandomState(args.seed), (d, 128, 10))
+        return params, {}, mlp_loss_fn, False, (x, y), None
+    if args.model == "lenet":
+        model = LeNet5(dtype=dtype)
+    elif args.model == "resnet18":
+        model = resnet18(num_classes=10,
+                         small_inputs=(args.dataset != "imagenet"),
+                         dtype=dtype)
+    elif args.model == "resnet50":
+        model = resnet50(num_classes=(1000 if args.dataset == "imagenet"
+                                      else 10),
+                         small_inputs=(args.dataset != "imagenet"),
+                         dtype=dtype)
+    else:
+        raise SystemExit(f"unknown model {args.model}")
+    params, aux = build_model(model, seed=args.seed)
+    loss_fn, has_aux = make_classifier_loss(model, has_aux=bool(aux))
+    return params, aux, loss_fn, has_aux, (x, y), model
+
+
+def ps_kwargs_from_args(args) -> dict:
+    """The MPI_PS feature kwargs of every optimizer the CLI builds."""
+    return dict(zero=args.zero, clip_norm=args.clip_norm,
+                skip_nonfinite=args.skip_nonfinite,
+                error_feedback=args.error_feedback,
+                ema_decay=args.ema_decay, bucket_mb=args.bucket_mb,
+                decompose_allreduce=args.decompose_allreduce,
+                sync_mode=args.sync_mode,
+                overlap_reducer=args.overlap_reducer,
+                consensus_every=args.sdc_check_every,
+                consensus_policy=args.sdc_policy)
+
+
+def hyper_from_args(args) -> dict:
+    lr = args.lr
+    schedule = getattr(args, "lr_schedule", "constant")
+    if schedule != "constant":
+        from .optim import schedules
+        warmup = args.warmup_steps
+        if schedule == "cosine":
+            lr = schedules.cosine(args.lr, args.steps, warmup_steps=warmup,
+                                  final_lr=args.lr_final)
+        elif schedule == "linear-warmup":
+            lr = schedules.linear_warmup(args.lr,
+                                         warmup or max(args.steps // 10, 1))
+        elif schedule == "step":
+            lr = schedules.step_decay(args.lr,
+                                      max(args.steps // 3, 1))
+        else:  # pragma: no cover - argparse choices guard this
+            raise SystemExit(f"unknown --lr-schedule {schedule}")
+    return ({"lr": lr, "momentum": args.momentum}
+            if args.optim == "sgd" else {"lr": lr})
+
+
+def make_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's parser: every flag, so that ``--help`` matches; the
+    flags of the roles not ported yet are accepted and refused by name."""
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.
+                                RawDescriptionHelpFormatter)
+    p.add_argument("--model", default="mlp",
+                   choices=["mlp", "lenet", "resnet18", "resnet50",
+                            "transformer"])
+    p.add_argument("--dataset", default=None,
+                   choices=["mnist", "cifar10", "imagenet", "lm"],
+                   help="default: mnist (lm for --model transformer)")
+    p.add_argument("--optim", default="sgd",
+                   choices=["sgd", "adam", "adamw"])
+    p.add_argument("--codec", default="identity",
+                   choices=["identity", "bf16", "topk", "topk_approx",
+                            "quantize", "sign", "blockq"])
+    p.add_argument("--lr", type=float, default=0.01)
+    p.add_argument("--lr-schedule", default="constant",
+                   choices=["constant", "cosine", "linear-warmup", "step"],
+                   help="lr schedule over the optimizer step count "
+                        "(compiled into the update; resume-aligned)")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="warmup steps for --lr-schedule cosine / "
+                        "linear-warmup")
+    p.add_argument("--lr-final", type=float, default=0.0,
+                   help="final lr for --lr-schedule cosine")
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--n-examples", type=int, default=4096)
+    p.add_argument("--n-devices", type=int, default=None)
+    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--summary", action="store_true",
+                   help="print the per-phase timing summary at the end")
+    p.add_argument("--accum-steps", type=int, default=1, metavar="K",
+                   help="gradient accumulation: split each rank's batch "
+                        "shard into K sequential microbatches (1/K the "
+                        "activation memory)")
+    p.add_argument("--error-feedback", action="store_true",
+                   help="error-feedback compression (EF-SGD): each rank "
+                        "carries the residual its lossy codec dropped and "
+                        "folds it into the next encode - makes aggressive "
+                        "topk/sign compression converge (needs a lossy "
+                        "--codec)")
+    p.add_argument("--eval-every", type=int, default=0, metavar="N",
+                   help="evaluate top-1 accuracy every N steps (and at the "
+                        "end) on --eval-examples examples; uses the EMA "
+                        "weights when --ema-decay is set.  The data here "
+                        "is synthetic, so this is an in-sample accuracy")
+    p.add_argument("--eval-examples", type=int, default=512)
+    p.add_argument("--ema-decay", type=float, default=None, metavar="D",
+                   help="maintain an EMA of the weights inside the step "
+                        "(ema = D*ema + (1-D)*params); checkpointed, "
+                        "exposed as opt.ema_params")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize activations in the backward pass "
+                        "(torch.utils.checkpoint): ~1/depth the activation "
+                        "memory for one extra forward of compute")
+    p.add_argument("--clip-norm", type=float, default=None, metavar="C",
+                   help="global-norm gradient clipping of the summed "
+                        "gradient before the update")
+    p.add_argument("--skip-nonfinite", action="store_true",
+                   help="skip updates (world-consensus) when any rank's "
+                        "gradient contains NaN/inf instead of corrupting "
+                        "the parameters")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-style sharded optimizer state: each rank "
+                        "owns 1/world of momentum/Adam moments; gradients "
+                        "reduce-scatter, updated params all-gather")
+    p.add_argument("--bucket-mb", type=float, default=4.0, metavar="MB",
+                   help="gradient-exchange bucket size: same-dtype code "
+                        "leaves concatenate into <=MB MiB flat buckets, "
+                        "one collective each (0 = one collective per "
+                        "parameter, the reference's per-param lowering)")
+    p.add_argument("--sync-mode", default=None,
+                   choices=["post", "bucketed", "overlap"],
+                   help="when the cross-rank gradient sum runs: 'post' = "
+                        "after backward, per-parameter collectives; "
+                        "'bucketed' = after backward, flat bucketed "
+                        "transfers (default when --bucket-mb > 0); "
+                        "'overlap' = each bucket's collective is issued "
+                        "INSIDE the backward pass via hooks on the "
+                        "parameter leaves (--bucket-mb 0 auto-tunes the "
+                        "bucket size from the card's rates)")
+    p.add_argument("--overlap-reducer", default="rs_ag",
+                   choices=["rs_ag", "psum"],
+                   help="--sync-mode overlap, identity codec: sum each "
+                        "bucket as reduce-scatter+all-gather or as one "
+                        "all-reduce per bucket")
+    p.add_argument("--decompose-allreduce", action="store_true",
+                   help="lower each identity-codec gradient bucket as "
+                        "reduce-scatter + all-gather instead of one "
+                        "all-reduce (the same sum)")
+    p.add_argument("--async-ps", action="store_true",
+                   help="AsySG-InCon async PS (quota'd updates, "
+                        "inconsistent reads) instead of the sync step")
+    p.add_argument("--staleness-weighting", action="store_true",
+                   help="async PS (--async-ps or --serve): damp each "
+                        "gradient by 1/(1+staleness) before the quota sum "
+                        "(staleness-aware AsySG)")
+    p.add_argument("--quota", type=int, default=None,
+                   help="async PS: gradients consumed per update "
+                        "(default: number of workers)")
+    p.add_argument("--async-bucket-bytes", type=int, default=None,
+                   metavar="N",
+                   help="multihost worker (--connect): stream each "
+                        "gradient as per-bucket GRAD frames (protocol "
+                        "v11) instead of one whole-tree frame — bucket "
+                        "k ships while later buckets still compute, and "
+                        "the PS decodes bucket b while b+1 is on the "
+                        "wire.  N = target bucket payload bytes; 0 "
+                        "auto-tunes from benchmarks/ROOFLINE.json "
+                        "(parallel.overlap.auto_bucket_bytes)")
+    p.add_argument("--fused-encode", action="store_true",
+                   help="with --async-bucket-bytes: compile the "
+                        "per-bucket codec encode INTO the grad program "
+                        "(one jitted backward+encode step; Pallas "
+                        "kernels for blockq) instead of encoding each "
+                        "bucket at the host boundary")
+    p.add_argument("--max-staleness", type=int, default=None, metavar="S",
+                   help="async PS: drop (and count) gradients more than S "
+                        "versions stale instead of applying them — bounds "
+                        "the divergence unbounded staleness causes after "
+                        "faults")
+    p.add_argument("--aggregate", default="mean",
+                   choices=["mean", "trimmed_mean", "median", "norm_clip"],
+                   help="async PS gradient reducer: 'mean' (the legacy "
+                        "staleness-weighted sum), coordinate-wise "
+                        "'trimmed_mean' (drop --trim-k extremes per side) "
+                        "or 'median', or 'norm_clip' (clip each "
+                        "contribution to the rolling median norm) — the "
+                        "Byzantine-robust rules; see ops/robust.py")
+    p.add_argument("--trim-k", type=int, default=None, metavar="K",
+                   help="--aggregate trimmed_mean: contributions trimmed "
+                        "per side per coordinate (default 1, clamped so "
+                        "at least one survives)")
+    p.add_argument("--quorum", type=int, default=None, metavar="Q",
+                   help="async PS straggler tolerance: once Q gradients "
+                        "are in and --fill-deadline has expired, the "
+                        "update proceeds with the contributors it has "
+                        "(renormalized) instead of stalling on the "
+                        "slowest rank")
+    p.add_argument("--fill-deadline", type=float, default=None, metavar="S",
+                   help="--quorum: seconds from FILL START a quorate "
+                        "fill waits for stragglers before closing short "
+                        "(default 0.05 when --quorum is set; refused "
+                        "without it — a fill with no quorum never "
+                        "closes short, so the flag would be silently "
+                        "inert)")
+    p.add_argument("--anomaly-z", type=float, default=None, metavar="Z",
+                   help="async PS per-rank anomaly quarantine: rolling "
+                        "robust z-score of each rank's gradient norm; "
+                        "ranks persistently past Z are down-weighted, "
+                        "then quarantined (reversible; surfaced in "
+                        "fault_stats)")
+    p.add_argument("--adaptive-deadline", action="store_true",
+                   help="derive the quorum fill-deadline from the live "
+                        "per-rank latency p95 (x1.5 margin), clamped to "
+                        "the configured --fill-deadline / "
+                        "--group-fill-deadline as a CEILING: a fast "
+                        "fleet closes short fills at its own pace "
+                        "(counted deadline_adapted) while a uniformly-"
+                        "slow fleet uses the whole ceiling instead of "
+                        "tripping spurious short fills (needs a quorum "
+                        "at the level it applies to)")
+    p.add_argument("--latency-weighting", action="store_true",
+                   help="heterogeneous-fleet admission: contributions "
+                        "from ranks persistently slower than the fleet "
+                        "median are down-weighted by their latency-EMA "
+                        "ratio (floored at 0.25) instead of every fill "
+                        "stalling to keep them at parity (counted "
+                        "latency_weighted; applies at every PS level)")
+    p.add_argument("--aggregators", type=int, default=0, metavar="G",
+                   help="hierarchical aggregation (--serve): run G "
+                        "group-local aggregators in this process between "
+                        "the workers and the root PS/fleet — each group "
+                        "fills under its OWN --group-* policy, "
+                        "pre-reduces, and forwards ONE AGGR frame per "
+                        "fill, so the root consumes G frames instead of "
+                        "W raw gradients (straggler/Byzantine tolerance "
+                        "scales sub-linearly with fleet size); "
+                        "aggregator ports are printed as 'aggregators "
+                        "on ports ...'")
+    p.add_argument("--group-size", type=int, default=0, metavar="N",
+                   help="--aggregators: each group's fill target (its "
+                        "quota of worker gradients per forward); "
+                        "required with --aggregators")
+    p.add_argument("--group-aggregate", default="mean",
+                   choices=["mean", "trimmed_mean", "median", "norm_clip"],
+                   help="--aggregators: the GROUP-level reducer (the "
+                        "containment layer: a Byzantine rank is trimmed/"
+                        "clipped inside its group before the root ever "
+                        "sees the frame)")
+    p.add_argument("--group-trim-k", type=int, default=None, metavar="K",
+                   help="--aggregators: per-side trim for "
+                        "--group-aggregate trimmed_mean")
+    p.add_argument("--group-quorum", type=int, default=None, metavar="Q",
+                   help="--aggregators: group-level straggler quorum — a "
+                        "slow rank costs its GROUP a deadline, never the "
+                        "whole fleet")
+    p.add_argument("--group-fill-deadline", type=float, default=None,
+                   metavar="S",
+                   help="--aggregators: the group fill deadline (default "
+                        "0.05 when --group-quorum is set)")
+    p.add_argument("--group-anomaly-z", type=float, default=None,
+                   metavar="Z",
+                   help="--aggregators: group-level anomaly quarantine "
+                        "— the group scoreboard contains a Byzantine "
+                        "rank without the root ever scoring it")
+    p.add_argument("--group", type=int, default=None, metavar="G",
+                   help="--connect --fallback: this worker's group id "
+                        "(carried in the direct-fallback HELO so the "
+                        "root's groups view names which group lost it; "
+                        "default 0)")
+    p.add_argument("--fallback", default=None, metavar="HOST:PORT[,...]",
+                   help="--connect (to an aggregator): the ROOT "
+                        "endpoint(s) this worker fails over to when its "
+                        "aggregator dies un-restorably — bounded redial "
+                        "first, then a direct root connection (counted "
+                        "agg_failovers worker-side, direct_fallbacks at "
+                        "the root)")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="--serve: atomic auto-checkpoint to --save every N "
+                        "updates; a killed PS restarts with --resume and "
+                        "surviving workers reconnect")
+    p.add_argument("--credit-window", type=int, default=0, metavar="N",
+                   help="async PS flow control (protocol v8): on a "
+                        "serve role, the credit window the PS "
+                        "advertises in PSA/PARM/ACKR replies (and its "
+                        "net-queue bound; 0 = auto, max(2*quota, 8)); "
+                        "on --async-ps, the bounded gradient-queue "
+                        "capacity; on --connect, a sender-side CAP on "
+                        "the adopted window.  Senders at zero credits "
+                        "stall-then-shed data frames oldest-first "
+                        "(counted credits_stalled / shed_data_frames) "
+                        "— control frames (heartbeats) never shed")
+    p.add_argument("--op-deadline", type=float, default=None, metavar="S",
+                   help="unified per-operation transport budget "
+                        "(transport.Deadline): each pull/replication "
+                        "round trip must finish within S seconds or it "
+                        "counts deadline_expired and heals through the "
+                        "normal reconnect ladder (multihost roles: "
+                        "--serve / --connect)")
+    p.add_argument("--reconnect-retries", type=int, default=30, metavar="R",
+                   help="--connect: redial attempts (exponential backoff + "
+                        "jitter, ~50s total at the default) after a lost "
+                        "PS connection before the worker gives up cleanly "
+                        "— sized so workers survive a supervised PS "
+                        "relaunch (process start + compile); raise it for "
+                        "slower restarts")
+    p.add_argument("--chaos", default=None, metavar="JSON",
+                   help="fault-injection plan (utils.faults.FaultPlan as "
+                        "JSON) applied to this process's role: --serve "
+                        "honors kill_ps_at, --connect honors "
+                        "kill_worker_at/nonfinite_at/wire faults.  "
+                        "Deterministic under the plan's seed; for chaos "
+                        "testing only")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree (transformer only): "
+                        "builds a (dp, sp) mesh with ring attention")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (transformer only): "
+                        "Megatron-style head/MLP compute sharding")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel degree (transformer only): "
+                        "layers split into pp stages, microbatched "
+                        "activations ride a ppermute ring (GPipe)")
+    p.add_argument("--pp-microbatches", type=int, default=None, metavar="M",
+                   help="microbatch count for --pp (default: pp); larger M "
+                        "shrinks the pipeline bubble")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="transformer only: replace MLPs with a Switch-style "
+                        "top-1 MoE of N experts")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree (needs --moe-experts): "
+                        "tokens ride all_to_all to their expert's rank")
+    p.add_argument("--attn", default="dense", choices=["dense", "flash"],
+                   help="transformer attention: dense, or the flash "
+                        "kernels (hand-written CUDA on the card; their "
+                        "plain PyTorch versions on the CPU)")
+    p.add_argument("--sp-attn", default="ring", choices=["ring", "ulysses"],
+                   help="sequence-parallel strategy for --sp: 'ring' "
+                        "rotates K/V with a streaming softmax (O(S/N) "
+                        "memory/device); 'ulysses' all_to_all-reshards to "
+                        "head sharding and runs full-sequence attention "
+                        "(composes with --attn flash; needs heads %% sp "
+                        "== 0)")
+    p.add_argument("--seq-len", type=int, default=128,
+                   help="transformer sequence length")
+    p.add_argument("--vocab", type=int, default=256)
+    p.add_argument("--save", default=None, metavar="PATH",
+                   help="write a checkpoint at the end of the run")
+    p.add_argument("--save-every", type=int, default=0, metavar="N",
+                   help="also checkpoint every N steps (needs --save); "
+                        "periodic saves go to step-tagged siblings "
+                        "(ckpt.stepNNNNNNNN.psz) under keep-last-K "
+                        "retention (--keep-checkpoints)")
+    p.add_argument("--keep-checkpoints", type=int, default=3, metavar="K",
+                   help="retention for --save-every: keep the newest K "
+                        "step-tagged checkpoints (the newest and any "
+                        "RESUMABLE-marked preemption checkpoint are never "
+                        "deleted)")
+    p.add_argument("--resume", default=None, metavar="PATH",
+                   help="restore optimizer state before training; a "
+                        "missing PATH resolves to its newest step-tagged "
+                        "sibling (what a preempted --save-every run "
+                        "leaves behind)")
+    p.add_argument("--resume-min-step", type=int, default=None, metavar="S",
+                   help="refuse to resume from a checkpoint recording a "
+                        "step below S (guards against silently rewinding "
+                        "onto a stale retention survivor)")
+    p.add_argument("--sdc-check-every", type=int, default=0, metavar="K",
+                   help="replica-consensus SDC guard: every K steps, "
+                        "fingerprint the parameter tree per data-parallel "
+                        "replica and compare — replicas must be bitwise "
+                        "identical, so any mismatch is silent data "
+                        "corruption or a desync bug (0 = off; sync PS "
+                        "only)")
+    p.add_argument("--sdc-policy", default="abort",
+                   choices=["abort", "rebroadcast"],
+                   help="on SDC-guard mismatch: 'abort' raises (fail "
+                        "stop), 'rebroadcast' restores consensus from "
+                        "replica 0's copy and keeps training")
+    p.add_argument("--guard-spike-mad", type=float, default=0.0, metavar="M",
+                   help="rollback-on-divergence: flag a step whose loss "
+                        "exceeds the rolling median by M robust sigmas "
+                        "(median+MAD window) and roll back to the last "
+                        "good checkpoint (0 = off; needs --save; sync "
+                        "image/MLP path)")
+    p.add_argument("--guard-nonfinite-streak", type=int, default=0,
+                   metavar="N",
+                   help="rollback-on-divergence: roll back after N "
+                        "consecutive non-finite losses (0 = off; needs "
+                        "--save; sync image/MLP path)")
+    p.add_argument("--guard-window", type=int, default=64, metavar="W",
+                   help="rolling window for the loss-spike detector")
+    p.add_argument("--rollback-lr-scale", type=float, default=1.0,
+                   metavar="S",
+                   help="multiply the learning rate by S on each rollback "
+                        "(e.g. 0.5 halves it) before resuming")
+    p.add_argument("--max-rollbacks", type=int, default=3, metavar="R",
+                   help="disable the divergence guard (loudly) after R "
+                        "rollbacks instead of looping forever")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run "
+                        "into DIR (view in Perfetto)")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   help="multi-host async PS: run the parameter-server "
+                        "process on PORT (0 = auto); workers connect with "
+                        "--connect.  Serves --steps updates, quota --quota.")
+    p.add_argument("--shards", type=int, default=1, metavar="K",
+                   help="sharded PS fleet: --serve runs K PS shards "
+                        "(shard k on PORT+k, all ephemeral when PORT=0), "
+                        "the parameter tree partitioned by "
+                        "--partition-rules (size-balanced greedy without "
+                        "them); --connect with a single HOST:PORT expands "
+                        "to the K consecutive ports (or list all "
+                        "endpoints comma-separated) and runs the worker "
+                        "through a shard router with one fleet-wide rank "
+                        "and per-shard versions")
+    p.add_argument("--replicas", type=int, default=0, metavar="R",
+                   help="--serve --shards K: hot-standby replication — "
+                        "each PS shard streams applied updates to its "
+                        "own standby (R=1; full-state REPL frames every "
+                        "update), and a shard killed mid-run is PROMOTED "
+                        "onto its old port with ZERO checkpoint rewind "
+                        "instead of restored from a checkpoint (works "
+                        "with --checkpoint-every 0)")
+    p.add_argument("--snapshot-every", type=int, default=0, metavar="N",
+                   help="--serve --shards K: coordinated fleet snapshots "
+                        "— roughly every N updates the supervisor "
+                        "injects SNAP markers so every shard checkpoints "
+                        "at ONE agreed cut, then writes the "
+                        "ckpt.fleet.json manifest (per-shard path + "
+                        "version + sha256) that --resume verifies; "
+                        "needs --save")
+    p.add_argument("--partition-rules", default=None, metavar="JSON",
+                   help="--serve --shards K: ordered [[regex, shard], "
+                        "...] leaf->shard rules (first re.search match "
+                        "wins; unmatched leaves fall to the size-"
+                        "balanced greedy).  PS-side only: workers fetch "
+                        "the resulting plan from shard 0 at connect "
+                        "time, so the two sides cannot disagree")
+    p.add_argument("--token", default=None, metavar="SECRET",
+                   help="multi-host admission token: --serve refuses "
+                        "connections whose HELO doesn't carry the same "
+                        "secret (connection-local NOAU refusal)")
+    p.add_argument("--connect", default=None, metavar="HOST:PORT",
+                   help="multi-host async PS: run a worker process against "
+                        "the server at HOST:PORT (launch one per host)")
+    p.add_argument("--subscribe", default=None, metavar="HOST:PORT[,...]",
+                   help="serve tier (v10): run a READER — a versioned "
+                        "snapshot subscription against the PS at "
+                        "HOST:PORT (comma-separated endpoints, or a "
+                        "single one with --shards K expanding to "
+                        "PORT..PORT+K-1, subscribe the whole fleet).  "
+                        "Polls --steps conditional reads: full snapshot "
+                        "first, then delta frames on version advance "
+                        "with head-only 'unchanged' short-circuits; "
+                        "READ-class end to end, so this role can never "
+                        "stall training traffic")
+    p.add_argument("--infer-serve", action="store_true",
+                   help="--subscribe --model transformer: run the "
+                        "continuous-batching inference front-end on the "
+                        "subscription — submits --steps synthetic LM "
+                        "requests through the bounded admission queue, "
+                        "hot-swapping params as versions advance, and "
+                        "reports per-request p50/p95 latency and the "
+                        "typed-shed counters")
+    p.add_argument("--read-window", type=int, default=0, metavar="N",
+                   help="--serve roles: the READ-class credit budget — "
+                        "at most N full-payload snapshot reads per "
+                        "served-version advance (0 = auto, "
+                        "max(4, quota)); an exhausted budget sheds "
+                        "reads head-only (counted read_shed) so a "
+                        "reader flood degrades READERS, never training")
+    p.add_argument("--wire-codec", choices=("identity", "bf16", "int8"),
+                   default="identity",
+                   help="--serve roles: compress the parameter wire "
+                        "(PARM pulls, DELT snapshots, REPL replication) "
+                        "with a host-side codec — each served version "
+                        "is encoded once and fanned out to every "
+                        "reader; frames carry the codec id so readers "
+                        "decode without configuration (optimizer state "
+                        "stays f32 server-side, only the wire is lossy)")
+    p.add_argument("--delta-parm", action="store_true",
+                   help="--serve roles: answer SUBS polls with a sparse "
+                        "delta against the reader's presented version "
+                        "when it sits in the server's recent-version "
+                        "ring (full snapshot on ring miss, after "
+                        "load_state_dict, and after any redial — the "
+                        "forced-full failover rule)")
+    p.add_argument("--force-cpu-devices", type=int, default=None, metavar="N",
+                   help="run on the CPU (gloo) instead of the card: N ranks, "
+                        "which must be the world the CLI was launched with "
+                        "(1 without torchrun)")
+    return p
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
+    if args.trace_dir:
+        from .utils.timing import trace
+
+        with trace(args.trace_dir):
+            return _dispatch(args)
+    return _dispatch(args)
+
+
+# The roles and flags of the JAX CLI this package does not port yet.
+def _unported(args) -> "str | None":
+    if args.async_ps:
+        return "--async-ps"
+    if args.serve is not None:
+        return "--serve"
+    if args.connect:
+        return "--connect"
+    if args.subscribe:
+        return "--subscribe"
+    for flag in ("sp", "tp", "pp", "ep"):
+        if getattr(args, flag) > 1:
+            return f"--{flag} {getattr(args, flag)}"
+    if args.moe_experts:
+        return "--moe-experts"
+    return None
+
+
+def _dispatch(args):
+    what = _unported(args)
+    if what is not None:
+        raise SystemExit(f"{what} is not ported to the PyTorch package yet "
+                         f"(the sync trainer is; the async, multihost, "
+                         f"serve and sp/tp/pp/ep/MoE roles follow)")
+    # Refuse, don't drop: every flag below would be inert on the sync
+    # trainer (the JAX CLI's refusals, in its order).
+    if args.pp_microbatches is not None and args.pp <= 1:
+        raise SystemExit("--pp-microbatches needs --pp > 1")
+    if args.sp_attn != "ring" and args.sp <= 1:
+        raise SystemExit(f"--sp-attn {args.sp_attn} needs --sp > 1")
+    if args.eval_every and args.model == "transformer":
+        raise SystemExit("--eval-every supports the sync image/MLP path "
+                         "only (the LM paths report loss; dropping the "
+                         "flag silently would be worse than refusing)")
+    if args.staleness_weighting:
+        raise SystemExit("--staleness-weighting applies to the async PS "
+                         "(--async-ps or --serve); the sync step has no "
+                         "staleness to weight")
+    if args.guard_spike_mad or args.guard_nonfinite_streak:
+        if args.model == "transformer":
+            raise SystemExit("the divergence guard supports the sync "
+                             "image/MLP path only for now (the LM loop's "
+                             "data replay is rng-draw based; refusing "
+                             "beats a rollback that cannot rewind its "
+                             "data stream)")
+        if not args.save:
+            raise SystemExit("the divergence guard rolls back to the last "
+                             "good checkpoint: set --save (and ideally "
+                             "--save-every) so one exists")
+    if args.chaos:
+        # The sync trainer honors the sync faults (preempt / loss spike /
+        # replica corruption); async-role faults on a sync run would be
+        # silently dead flags, which is worse than refusing.
+        from .utils.faults import FaultPlan
+        plan = FaultPlan.from_json(args.chaos)
+        if plan.any_async_faults() or not plan.any_sync_faults():
+            raise SystemExit(
+                "--chaos on the sync trainer honors preempt_at_step / "
+                "spike_at_step / sdc_at_step only; kill/NaN/wire faults "
+                "apply to the async roles (--serve / --connect / "
+                "--async-ps)")
+    if args.infer_serve:
+        raise SystemExit("--infer-serve runs the continuous-"
+                         "batching inference front-end ON a "
+                         "snapshot subscription: set --subscribe "
+                         "HOST:PORT (the sync and worker paths "
+                         "have no subscription to serve from)")
+    if args.read_window:
+        if args.read_window < 0:
+            raise SystemExit(f"--read-window must be >= 0, got "
+                             f"{args.read_window}")
+        raise SystemExit("--read-window is the PS-side READ credit "
+                         "budget (--serve roles advertise it in "
+                         "DELT replies); on a worker, reader, sync "
+                         "or in-process role it would be silently "
+                         "inert, which is worse than refusing")
+    if args.wire_codec != "identity":
+        raise SystemExit("--wire-codec is the PS-side wire compression "
+                         "knob (--serve roles stamp the codec id into "
+                         "every PARM/DELT/REPL frame; readers decode "
+                         "from the frame byte, not from flags); on a "
+                         "worker, reader, sync or in-process role it "
+                         "would be silently inert, which is worse than "
+                         "refusing")
+    if args.delta_parm:
+        raise SystemExit("--delta-parm is the PS-side delta-snapshot "
+                         "knob (--serve roles keep the recent-version "
+                         "ring that deltas are diffed against); on a "
+                         "worker, reader, sync or in-process role it "
+                         "would be silently inert, which is worse than "
+                         "refusing")
+    if args.model == "transformer":
+        if args.dataset not in (None, "lm"):
+            raise SystemExit(
+                f"--model transformer trains on the 'lm' dataset, "
+                f"not {args.dataset!r}")
+    elif args.dataset == "lm":
+        raise SystemExit("--dataset lm requires --model transformer")
+    elif args.dataset is None:
+        args.dataset = "mnist"
+    if args.shards < 1:
+        raise SystemExit(f"--shards must be >= 1, got {args.shards}")
+    if args.shards > 1:
+        raise SystemExit("--shards is the sharded PS FLEET degree: it "
+                         "applies to the multihost roles (--serve runs K "
+                         "shards, --connect routes across them); the "
+                         "sync and --async-ps paths have no server to "
+                         "shard")
+    if args.partition_rules is not None:
+        raise SystemExit("--partition-rules is PS-side and sharded-only "
+                         "(--serve --shards K with K >= 2): workers "
+                         "fetch the resulting plan from shard 0 at "
+                         "connect time, and a single PS has nothing to "
+                         "partition — anywhere else the flag would be "
+                         "silently inert, which is worse than refusing")
+    if args.replicas:
+        if args.replicas != 1:
+            raise SystemExit(f"--replicas supports 0 or 1 (one hot "
+                             f"standby per shard), got {args.replicas}")
+        raise SystemExit("--replicas is the PS FLEET's hot-standby "
+                         "degree (--serve --shards K): only the "
+                         "fleet supervisor can promote a standby — "
+                         "anywhere else the flag would be silently "
+                         "inert, which is worse than refusing")
+    if args.snapshot_every:
+        raise SystemExit("--snapshot-every is the PS FLEET's "
+                         "coordinated-snapshot cadence (--serve "
+                         "--shards K): a single PS's auto-checkpoint "
+                         "IS its consistent cut (--checkpoint-every) "
+                         "— anywhere else the flag would be silently "
+                         "inert, which is worse than refusing")
+    if args.aggregators:
+        if args.aggregators < 1:
+            raise SystemExit(
+                f"--aggregators must be >= 1, got {args.aggregators}")
+        raise SystemExit("--aggregators is the hierarchical-"
+                         "aggregation tier of the PS process "
+                         "(--serve): it spawns the group-local "
+                         "aggregators next to the root — workers "
+                         "connect to the printed aggregator ports")
+    if (args.group_aggregate != "mean" or args.group_trim_k is not None
+            or args.group_quorum is not None
+            or args.group_fill_deadline is not None
+            or args.group_anomaly_z is not None):
+        raise SystemExit("--group-aggregate / --group-trim-k / "
+                         "--group-quorum / --group-fill-deadline / "
+                         "--group-anomaly-z configure the GROUP level of "
+                         "a hierarchy (--serve --aggregators G); without "
+                         "one they would be silently inert, which is "
+                         "worse than refusing")
+    if args.fallback:
+        raise SystemExit("--fallback is the worker-side failover target "
+                         "(--connect to an aggregator, falling back to "
+                         "the root): on any other role it would be "
+                         "silently inert")
+    if args.group is not None:
+        raise SystemExit("--group tags a failover-capable hierarchy "
+                         "worker's direct-fallback HELO (--connect AGG "
+                         "--fallback ROOT); without --fallback it would "
+                         "be silently inert, which is worse than "
+                         "refusing")
+    if args.adaptive_deadline:
+        raise SystemExit("--adaptive-deadline tunes the async PS's "
+                         "quorum fill-deadline; the sync step has "
+                         "no fills")
+    if args.latency_weighting:
+        raise SystemExit("--latency-weighting is async-PS admission "
+                         "(contribution weights from the latency "
+                         "EMA); the sync step admits no per-rank "
+                         "contributions")
+    if args.max_staleness is not None:
+        raise SystemExit("--max-staleness applies to the async PS "
+                         "(--async-ps or --serve); the sync step consumes "
+                         "no stale gradients")
+    if args.credit_window:
+        if args.credit_window < 0:
+            raise SystemExit(f"--credit-window must be >= 0, got "
+                             f"{args.credit_window}")
+        raise SystemExit("--credit-window is the async PS's bounded-"
+                         "queue / flow-control window (--serve / "
+                         "--connect / --async-ps); the sync step's "
+                         "collective sum has no gradient queue to "
+                         "bound — dropping the flag silently would "
+                         "be worse than refusing")
+    if args.op_deadline is not None:
+        if args.op_deadline <= 0:
+            raise SystemExit(f"--op-deadline must be > 0, got "
+                             f"{args.op_deadline}")
+        raise SystemExit("--op-deadline budgets MULTIHOST transport "
+                         "operations (--serve / --connect round "
+                         "trips); the sync and --async-ps paths run "
+                         "no transport ops — the flag would be "
+                         "silently inert, which is worse than "
+                         "refusing")
+    if args.async_bucket_bytes is not None:
+        if args.async_bucket_bytes < 0:
+            raise SystemExit(f"--async-bucket-bytes must be >= 0 "
+                             f"(0 = auto), got {args.async_bucket_bytes}")
+        raise SystemExit("--async-bucket-bytes is the MULTIHOST "
+                         "worker's gradient-streaming knob "
+                         "(--connect): the sync step has no wire, "
+                         "the PS side assembles whatever bucket "
+                         "plan its workers chose, and the "
+                         "in-process --async-ps path moves device "
+                         "arrays, not frames — anywhere else the "
+                         "flag would be silently inert, which is "
+                         "worse than refusing")
+    if args.fused_encode:
+        raise SystemExit("--fused-encode fuses the PER-BUCKET encode "
+                         "into the grad program — it needs "
+                         "--async-bucket-bytes (0 auto-tunes); without "
+                         "a bucket plan it would be silently inert, "
+                         "which is worse than refusing")
+    if (args.aggregate != "mean" or args.trim_k is not None
+            or args.quorum is not None or args.fill_deadline is not None
+            or args.anomaly_z is not None):
+        raise SystemExit("--aggregate / --trim-k / --quorum / "
+                         "--fill-deadline / --anomaly-z "
+                         "are async-PS admission/aggregation knobs "
+                         "(--async-ps or --serve); the sync step reduces "
+                         "with its collective sum")
+    if args.checkpoint_every:
+        raise SystemExit("--checkpoint-every is the --serve path's "
+                         "auto-checkpoint cadence (the sync loop uses "
+                         "--save-every)")
+
+    device, group = _join(args)
+    if args.model == "transformer":
+        return run_transformer(args, device, group)
+    return run_sync(args, device, group)
+
+
+def _join(args):
+    """The device and the process group: the card (raising when there is
+    none) or, with ``--force-cpu-devices N``, the CPU with gloo; the world
+    ``torchrun`` launched, or one process."""
+    from .parallel.mesh import join_world, resolve_device
+
+    device = resolve_device("cpu" if args.force_cpu_devices is not None
+                            else "cuda")
+    group = join_world(device)
+    world = dist.get_world_size(group)
+    if (args.force_cpu_devices is not None
+            and args.force_cpu_devices != world):
+        raise SystemExit(f"--force-cpu-devices {args.force_cpu_devices} "
+                         f"must equal the world this CLI was launched "
+                         f"with ({world}; launch N ranks with torchrun)")
+    if args.n_devices is not None and args.n_devices != world:
+        raise SystemExit(f"--n-devices {args.n_devices}: this CLI's world "
+                         f"is its process group, {world} (launch N ranks "
+                         f"with torchrun)")
+    return device, group
+
+
+def run_sync(args, device, group):
+    """The sync image/MLP loop."""
+    from .data.loader import DataLoader
+    from .ps import MPI_PS
+
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    _log(rank, f"mesh: {world} x {device.type}")
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} must divide by "
+                         f"the {world}-device world")
+
+    params, aux, loss_fn, has_aux, (x, y), model = build(args)
+    opt = MPI_PS(list(params.items()), optim=args.optim, code=args.codec,
+                 device=device, group=group, **ps_kwargs_from_args(args),
+                 **hyper_from_args(args))
+    opt.compile_step(loss_fn, has_aux=has_aux, aux=aux,
+                     accum_steps=args.accum_steps, remat=args.remat)
+
+    start, extra = _restore(args, opt)
+    step = start
+    # The loader's (epoch, batch_index) position rides in every
+    # checkpoint's `extra`, so a resumed (or rolled-back) run replays the
+    # same batch sequence bitwise.
+    loader = DataLoader({"x": x, "y": y}, batch_size=args.batch_size,
+                        seed=args.seed, epochs=None, device=device)
+    if extra and extra.get("loader"):
+        loader.load_state_dict(extra["loader"])
+    plan = _sync_fault_plan(args)
+    guard = _make_guard(args)
+    fired: set = set()  # single-shot chaos injections survive rollbacks
+    # Maps opt.steps_completed (applied updates, rollbacks included) back
+    # to the loop's logical step, for the second-signal path.
+    applied_offset = start
+
+    t_start = time.perf_counter()
+    with _PreemptionHandler() as preempt:
+        data_iter = iter(loader)
+        try:
+            while step < args.steps:
+                _chaos_before_step(opt, plan, fired, step)
+                b = _maybe_spike(plan, fired, step, next(data_iter),
+                                 opt.rank)
+                loss, data = opt.step(b)
+                step += 1
+                if step % 10 == 0 or step == 1:
+                    _log(opt.rank, f"step {step:5d}  loss {loss:.4f}  "
+                         f"comm_wait {data['comm_wait']*1e3:.2f}ms")
+                signum = _agreed_preemption(preempt, opt)
+                if signum is not None:
+                    _preempt_exit(args, opt, step, signum, loader=loader)
+                rolled = _maybe_rollback(args, opt, guard, loss, step,
+                                         loader)
+                if rolled is not None:
+                    step = rolled
+                    applied_offset = step - opt.steps_completed
+                    data_iter.close()  # the old stream is now the future
+                    data_iter = iter(loader)
+                    continue
+                if np.isfinite(loss):
+                    # Never record a non-finite step as a good checkpoint:
+                    # a later rollback would restore exactly that poison.
+                    _maybe_save(args, opt, step,
+                                extra=_loop_extra(loader, opt))
+                if args.eval_every and step % args.eval_every == 0:
+                    _eval_and_log(args, opt, model, x, y, step)
+        except KeyboardInterrupt:
+            # A second signal: the optimizer's own counter, not the
+            # loop's — an interrupt inside step()'s wait may have applied
+            # update N+1 already.
+            _interrupted_exit(args, opt,
+                              applied_offset + opt.steps_completed,
+                              loader=loader)
+        finally:
+            data_iter.close()
+    wall = time.perf_counter() - t_start
+    if args.eval_every and step % args.eval_every:
+        # A final eval only if the loop's cadence didn't just produce one.
+        _eval_and_log(args, opt, model, x, y, step, final=True)
+    steps_run = step - start
+    imgs = args.batch_size * steps_run
+    _log(opt.rank, f"done: {steps_run} steps, {imgs/wall:.1f} images/sec "
+         f"({imgs/wall/world:.1f}/device)")
+    _maybe_save(args, opt, step, final=True, extra=_loop_extra(loader, opt))
+    from .utils.timing import format_fault_stats
+    rendered = format_fault_stats(opt.fault_stats)
+    if rendered != "clean":
+        _log(opt.rank, "fault stats: " + rendered)
+    if args.summary and opt.rank == 0:
+        opt.print_summary()
+    return opt
+
+
+def _eval_and_log(args, opt, model, x, y, step, *, final=False) -> float:
+    """Top-1 accuracy on the first --eval-examples examples, with the EMA
+    weights when there are any.  ``model`` is the trained module from
+    `build` (None for the MLP)."""
+    from .models import eval_accuracy, mlp_apply
+
+    n = min(args.eval_examples, len(x))
+    params = opt.ema_params if opt.ema_params is not None else opt.params
+    which = "ema" if opt.ema_params is not None else "params"
+    if model is None:
+        with torch.no_grad():
+            logits = mlp_apply(params, torch.as_tensor(
+                x[:n].reshape(n, -1)).to(opt.device))
+        hits = logits.argmax(-1).cpu() == torch.as_tensor(y[:n])
+        acc = float(hits.to(torch.float32).mean())
+    else:
+        bs = 256
+        batches_iter = ({"x": x[i:i + bs], "y": y[i:i + bs]}
+                        for i in range(0, n, bs))
+        acc = eval_accuracy(model, params, opt.aux, batches_iter)
+    tag = "final " if final else ""
+    _log(opt.rank,
+         f"{tag}eval @ step {step}: top-1 {acc:.4f} ({which}, n={n})")
+    return acc
+
+
+def _restore(args, opt) -> "tuple[int, dict | None]":
+    """--resume: restore optimizer state.  Returns ``(start_step, extra)``
+    — extra carries the loader position a resumed loop replays.  A
+    missing path resolves to its newest step-tagged sibling, and a
+    consumed RESUMABLE marker is cleared."""
+    if not args.resume:
+        return 0, None
+    from .utils import checkpoint
+    path = checkpoint.latest_checkpoint(args.resume)
+    if path is None:
+        raise SystemExit(f"--resume {args.resume}: no checkpoint found "
+                         f"(also looked for step-tagged siblings)")
+    info = checkpoint.load_optimizer(path, opt,
+                                     min_step=args.resume_min_step)
+    if opt.rank == 0:
+        checkpoint.clear_resumable(path)
+    start = int(info.get("step") or 0)
+    _log(opt.rank, f"resumed from {path} at step {start}")
+    return start, info.get("extra")
+
+
+def _loop_extra(loader, opt) -> dict:
+    """Checkpoint ``extra`` for the sync loop: the loader position, and how
+    many lr-rollback scalings are already baked into this state's float
+    lr (so repeated rollbacks compound to S^k)."""
+    return {"loader": loader.state_dict(),
+            "lr_rollbacks": len([e for e in opt.fault_stats["rollbacks"]
+                                 if e.get("restored_step") is not None])}
+
+
+def _save(opt, path, *, step, extra, **kwargs) -> None:
+    """`checkpoint.save_optimizer` from every rank (the state gathers are
+    collective); rank 0 writes, and at world > 1 every rank waits for the
+    file before it goes on (a rollback may read it next)."""
+    from .utils import checkpoint
+    checkpoint.save_optimizer(path, opt, step=step, extra=extra,
+                              write=opt.rank == 0, **kwargs)
+    if opt.world_size > 1:
+        dist.barrier(group=opt.group)
+
+
+def _interrupted_exit(args, opt, step: int, loader=None):
+    """A second signal, or Ctrl-C outside the latch: save best-effort
+    (with --save) and exit 130."""
+    _log(opt.rank, f"interrupted at step {step}")
+    _maybe_save(args, opt, step, final=True,
+                extra=_loop_extra(loader, opt) if loader is not None
+                else None)
+    raise SystemExit(130)
+
+
+def _preempt_exit(args, opt, step: int, signum: int, loader=None):
+    """The signal-safe preemption path: the in-flight step has finished;
+    write an atomic step-tagged checkpoint, mark it RESUMABLE (pinned
+    against retention GC until a resume consumes it), and exit
+    `PREEMPTED_EXIT_CODE`."""
+    from .utils import checkpoint
+    name = signal.Signals(signum).name
+    _log(opt.rank, f"{name} received: finished in-flight step {step}")
+    if args.save:
+        path = (checkpoint.step_path(args.save, step) if args.save_every
+                else args.save)
+        extra = _loop_extra(loader, opt) if loader is not None else None
+        _save(opt, path, step=step, extra=extra, raw_shards=True)
+        if opt.rank == 0:
+            checkpoint.mark_resumable(path, {"step": step, "signal": name,
+                                             "unix_time": time.time()})
+            if args.save_every:
+                checkpoint.gc_step_checkpoints(
+                    args.save, keep_last=args.keep_checkpoints)
+        _log(opt.rank, f"checkpoint -> {path} (step {step}, RESUMABLE)")
+    else:
+        _log(opt.rank, "preempted with no --save: progress is lost")
+    raise SystemExit(PREEMPTED_EXIT_CODE)
+
+
+def _maybe_save(args, opt, step: int, *, final: bool = False,
+                extra: "dict | None" = None) -> None:
+    if not args.save:
+        return
+    from .utils import checkpoint
+    if final:
+        _save(opt, args.save, step=step, extra=extra)
+        _log(opt.rank, f"checkpoint -> {args.save} (step {step})")
+    elif args.save_every and step % args.save_every == 0:
+        # Periodic saves are step-tagged and keep-last-K collected.  The
+        # sync loop skips this call on a non-finite loss, so rollback's
+        # latest-checkpoint target is always a finite-loss state.
+        path = checkpoint.step_path(args.save, step)
+        _save(opt, path, step=step, extra=extra)
+        gone = (checkpoint.gc_step_checkpoints(
+            args.save, keep_last=args.keep_checkpoints)
+            if opt.rank == 0 else [])
+        _log(opt.rank, f"checkpoint -> {path} (step {step}"
+             + (f", gc'd {len(gone)} old" if gone else "") + ")")
+
+
+def _sync_fault_plan(args):
+    """The sync trainer's chaos plan (validated sync-only in _dispatch)."""
+    if not args.chaos:
+        return None
+    from .utils.faults import FaultPlan
+    return FaultPlan.from_json(args.chaos)
+
+
+def _make_guard(args):
+    if not (args.guard_spike_mad or args.guard_nonfinite_streak):
+        return None
+    from .utils.guardrails import DivergenceGuard
+    return DivergenceGuard(window=args.guard_window,
+                           spike_mad=args.guard_spike_mad,
+                           nonfinite_streak=args.guard_nonfinite_streak)
+
+
+def _chaos_before_step(opt, plan, fired: set, step: int) -> None:
+    """Fire due single-shot sync chaos injections before step ``step+1``:
+    a real SIGTERM to this process (preempt_at_step) and/or a replica
+    parameter corruption (sdc_at_step).  ``fired`` keeps each one-shot
+    across rollback replays."""
+    if plan is None:
+        return
+    if plan.should_preempt(step) and "preempt" not in fired:
+        fired.add("preempt")
+        _log(opt.rank, f"chaos: raising SIGTERM before step {step + 1}")
+        os.kill(os.getpid(), signal.SIGTERM)
+    if plan.should_corrupt_replica(step) and "sdc" not in fired:
+        fired.add("sdc")
+        from .utils import faults
+        leaf = faults.corrupt_replica(opt, plan.sdc_rank, plan.sdc_param)
+        _log(opt.rank, f"chaos: corrupted replica {plan.sdc_rank} of "
+             f"{leaf!r} before step {step + 1}")
+
+
+def _maybe_spike(plan, fired: set, step: int, batch, rank: int = 0):
+    """Loss-spike injection: scale the batch inputs and (for integer
+    labels) rotate them one class over, so every example is confidently
+    wrong — the loss really spikes and the saturated-softmax gradients
+    really wreck the parameters."""
+    if plan is None or not plan.should_spike(step) or "spike" in fired:
+        return batch
+    fired.add("spike")
+    _log(rank, f"chaos: scaling batch x{plan.spike_scale:g} + rotating "
+         f"labels at step {step + 1} (loss spike injection)")
+    batch = dict(batch)
+    batch["x"] = torch.as_tensor(batch["x"]) * plan.spike_scale
+    y = batch.get("y")
+    if y is not None and not torch.is_floating_point(torch.as_tensor(y)):
+        y = torch.as_tensor(y)
+        batch["y"] = (y + 1) % (int(y.max()) + 1)
+    return batch
+
+
+def _maybe_rollback(args, opt, guard, loss, step: int, loader):
+    """Feed the divergence guard; on a verdict, restore the last good
+    checkpoint (and its loader position), optionally rescale lr, record
+    the event in ``opt.fault_stats`` and return the restored step.
+    Returns None when training just continues.  The loss is the ranks'
+    mean, so every rank reaches the same verdict."""
+    if guard is None:
+        return None
+    why = guard.observe(loss)
+    if why is None:
+        return None
+    from .utils import checkpoint
+    events = opt.fault_stats["rollbacks"]
+    last = checkpoint.latest_checkpoint(args.save)
+    if last is None:
+        _log(opt.rank, f"divergence guard: {why} at step {step}, but no "
+             f"checkpoint exists yet — continuing without rollback")
+        events.append({"step": step, "reason": why, "restored_step": None,
+                       "skipped": "no checkpoint yet"})
+        guard.reset()
+        return None
+    info = checkpoint.load_optimizer(last, opt)
+    restored = int(info.get("step") or 0)
+    extra = info.get("extra") or {}
+    if loader is not None and extra.get("loader"):
+        loader.load_state_dict(extra["loader"])
+    if args.rollback_lr_scale != 1.0:
+        if callable(opt.hyper["lr"]):
+            # Schedule lr: the load kept the loop's current (already
+            # wrapped) schedule, so one more wrap compounds.
+            opt.rescale_lr(args.rollback_lr_scale)
+        else:
+            # Float lr: the load restored the checkpoint's lr, which has
+            # only the scalings baked in at its save time.  Apply the
+            # difference so the k-th rollback lands on lr * S^k.
+            k = 1 + len([e for e in events
+                         if e.get("restored_step") is not None])
+            baked = int(extra.get("lr_rollbacks") or 0)
+            if k > baked:
+                opt.rescale_lr(args.rollback_lr_scale ** (k - baked))
+    guard.reset()
+    events.append({"step": step, "reason": why, "restored_step": restored,
+                   "checkpoint": last,
+                   "lr_scale": args.rollback_lr_scale,
+                   "loss": float(loss)})
+    _log(opt.rank, f"divergence guard: {why} at step {step} — rolled back "
+         f"to checkpoint step {restored}"
+         + (f", lr x{args.rollback_lr_scale:g}"
+            if args.rollback_lr_scale != 1.0 else ""))
+    if len([e for e in events if e.get("restored_step") is not None]) \
+            >= args.max_rollbacks:
+        guard.disabled = True
+        _log(opt.rank, f"divergence guard: {args.max_rollbacks} rollbacks "
+             f"reached — guard disabled for the rest of the run")
+    return restored
+
+
+def transformer_model(args):
+    """The CLI's LM configuration (the JAX CLI's): 4 layers, d_model 256,
+    8 heads (head dim 32), d_ff 1024; ``--attn flash`` runs the flash
+    kernels."""
+    import functools
+
+    from .models.transformer import TransformerLM
+    from .ops.flash_attention import flash_attention
+
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    attn = (functools.partial(flash_attention, causal=True)
+            if args.attn == "flash" else None)
+    return TransformerLM(vocab_size=args.vocab, d_model=256, n_heads=8,
+                         n_layers=4, d_ff=1024,
+                         max_len=max(2048, args.seq_len), dtype=dtype,
+                         attn=attn)
+
+
+def run_transformer(args, device, group):
+    """The dense transformer LM (data parallel only)."""
+    from .models.transformer import build_lm
+    from .ps import MPI_PS
+
+    model = transformer_model(args)
+    params = build_lm(model, seed=args.seed)
+    opt = MPI_PS(list(params.items()), optim=args.optim, code=args.codec,
+                 device=device, group=group, **ps_kwargs_from_args(args),
+                 **hyper_from_args(args))
+    return _run_transformer_loop(args, opt, model)
+
+
+def _run_transformer_loop(args, opt, model):
+    from .data.datasets import synthetic_lm
+    from .models.transformer import lm_batch, make_lm_loss
+
+    dp = opt.world_size
+    if args.batch_size % dp:
+        raise SystemExit(
+            f"--batch-size {args.batch_size} must divide by {dp} "
+            f"data shards")
+    _log(opt.rank, f"mesh: dp={dp} sp=1 tp=1 pp=1 ep=1 x {opt.device.type}")
+
+    opt.compile_step(make_lm_loss(model), accum_steps=args.accum_steps,
+                     remat=args.remat)
+
+    toks = synthetic_lm(max(args.n_examples, args.batch_size),
+                        seq_len=args.seq_len, vocab=args.vocab,
+                        seed=args.seed)
+    start, _extra = _restore(args, opt)
+    step = start
+    plan = _sync_fault_plan(args)
+    fired: set = set()
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(args.seed)
+    for _ in range(start):
+        # Replay the index draws already consumed, so a resumed run
+        # continues the data stream instead of re-training early batches.
+        rng.randint(0, len(toks), size=args.batch_size)
+    with _PreemptionHandler() as preempt:
+        try:
+            while step < args.steps:
+                _chaos_before_step(opt, plan, fired, step)
+                take = rng.randint(0, len(toks), size=args.batch_size)
+                loss, data = opt.step(lm_batch(toks[take]))
+                step += 1
+                if step % 10 == 0 or step == 1:
+                    _log(opt.rank, f"step {step:5d}  loss {loss:.4f}  "
+                         f"comm_wait {data['comm_wait']*1e3:.2f}ms")
+                signum = _agreed_preemption(preempt, opt)
+                if signum is not None:
+                    _preempt_exit(args, opt, step, signum)
+                _maybe_save(args, opt, step)
+        except KeyboardInterrupt:
+            # Trust the optimizer's applied-update counter, not the loop
+            # counter; the rng replay on resume then replays exactly the
+            # draws the applied updates consumed.
+            _interrupted_exit(args, opt, start + opt.steps_completed)
+    wall = time.perf_counter() - t0
+    steps_run = step - start
+    tok_s = args.batch_size * args.seq_len * steps_run / wall
+    _log(opt.rank, f"done: {steps_run} steps, {tok_s:,.0f} tokens/sec "
+         f"({tok_s / dp:,.0f}/device)")
+    _maybe_save(args, opt, step, final=True)
+    if args.summary and opt.rank == 0:
+        opt.print_summary()
+    return opt
+
+
+def cli_entry() -> None:
+    """Console-script entry point (`ps-torch-train`) and ``python -m``'s:
+    like ``main()`` but discards the returned optimizer (setuptools treats
+    a non-None return as an exit status) and leaves the process group on
+    the way out, whatever the exit.  ``main()`` keeps it, for a caller
+    that goes on using the optimizer."""
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    cli_entry()

@@ -2,14 +2,17 @@
 
 Counterpart of `pytorch_ps_mpi_tpu/utils/timing.py`: the reference's
 ``step()`` returns a per-phase wall-clock dict, and every step of the port
-returns the same keys; `format_fault_stats` prints the sync trainer's
-``fault_stats``.  The overlap engine (`parallel.overlap`) records
-each bucket schedule it builds here, so a run's chosen schedule can be
-read after the fact.
+returns the same keys; `print_summary` prints their mean and max over a
+run, `format_fault_stats` the sync trainer's ``fault_stats``, and `trace`
+records a run with ``torch.profiler``.  The overlap engine
+(`parallel.overlap`) records each bucket schedule it builds here, so a
+run's chosen schedule can be read after the fact.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Any
 
 # Canonical metric keys, matching the reference step() dict (`ps.py:193`).
@@ -59,3 +62,39 @@ def overlap_schedules() -> "list[dict[str, Any]]":
 
 def clear_overlap_schedules() -> None:
     _OVERLAP_SCHEDULES.clear()
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Record the region with ``torch.profiler`` (host ops, and the card's
+    kernels when one is visible) and write it as a Chrome trace,
+    ``logdir/trace-<pid>.json`` (open it in Perfetto or
+    ``chrome://tracing``).  Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir,
+                                          f"trace-{os.getpid()}.json"))
+
+
+def print_summary(timings: "list[dict[str, Any]]", keys=None) -> None:
+    """Mean/max per metric over accumulated step dicts."""
+    if not timings:
+        print("(no timings)")
+        return
+    if keys is None:
+        keys = sorted({k for t in timings for k in t})
+    width = max(len(k) for k in keys)
+    for k in keys:
+        vals = [float(t[k]) for t in timings if k in t]
+        if not vals:
+            continue
+        mean = sum(vals) / len(vals)
+        print(f"{k:<{width}}  mean={mean:10.6f}  max={max(vals):10.6f}  "
+              f"n={len(vals)}")

@@ -377,3 +377,28 @@ def run_spec(spec, rank=0, device="cpu"):
 def ps_runs(rank, world, specs):
     """`run_spec` for each spec of ``specs`` (name -> spec), in order."""
     return {name: run_spec(spec, rank) for name, spec in specs.items()}
+
+
+def cli_runs(rank, world, runs):
+    """The port's training CLI in-process on this rank, once per argv of
+    ``runs`` (name -> argv), in order; a run that exits records its exit
+    code.  Returns, per run, the final params (numpy), the fault stats'
+    SDC counters and rollbacks, and the exit code (None for a finished
+    run)."""
+    from pytorch_ps_mpi_tpu_torch import train
+
+    out = {}
+    for name, argv in runs.items():
+        try:
+            opt = train.main(list(argv))
+        except SystemExit as e:
+            out[name] = {"exit": e.code}
+            continue
+        fs = opt.fault_stats
+        out[name] = {
+            "exit": None,
+            "params": {n: p.float().numpy() for n, p in opt.params.items()},
+            "fault_stats": {k: fs[k] for k in (
+                "sdc_checks", "sdc_mismatches", "sdc_rebroadcasts",
+                "sdc_first_leaf", "sdc_events", "rollbacks")}}
+    return out
