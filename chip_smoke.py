@@ -96,7 +96,26 @@ and carried on from):
    file's size; the divergence guard rolling back once on an injected
    loss spike (the MLP, batch 1024); and the CLI's MLP with blockq on the
    card against ``--force-cpu-devices 1``.
-6. The card line, one JSON line per the kernels, and the last line
+6. The in-process async PS (`AsyncSGD`: worker threads on CUDA streams of
+   the one card), after the JAX bench's ``worker_async_resnet18``:
+   ResNet-18 bf16 (BatchNorm in evaluation mode on its initial
+   statistics), batch 512, synthetic CIFAR-10 of 8,192 examples, lr 0.02,
+   momentum 0.9, 4 warm-up and 40 timed updates — (1) one worker sharing
+   the card with the PS, quota 1, identity, bf16 (staleness-weighted:
+   the weights scale the bf16 wire, one ``cast_sum`` a fill) and blockq
+   (62 ``block_quantize`` a gradient, one ``block_dequant_sum`` a fill); (2) a
+   PS and four worker threads, quota 4, blockq (images/s beside run 1's,
+   staleness, the card's busy share under the profiler); (3) the same
+   four workers with a sign-flipping rank 0 under ``trimmed_mean``
+   (``trim_k=1``), ``median`` and ``norm_clip`` (4 per-contribution
+   decodes a fill); (4) the CLI's async LM (``--async-ps``, bf16, flash,
+   blockq, batch 16 x 1024) in a process of its own, saved at update 10,
+   resumed here (from the saved params to 0.0, then to update 12 with 4
+   launches of each flash kernel a gradient); (5) a lockstep single
+   worker on the small MLP (identity, staleness-weighted bf16, blockq),
+   card against CPU.  Every async run: finite
+   params, a falling loss, the launch counts read around it.
+7. The card line, one JSON line per the kernels, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2163,6 +2182,315 @@ def cli_card_vs_cpu(tmp):
         fail(f"MLP card vs CPU: {outside} of {total} elements apart")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the in-process async PS on the card
+# ---------------------------------------------------------------------------
+
+# `bench.py::worker_async_resnet18`: ResNet-18 bf16, batch 512, synthetic
+# CIFAR-10 of 8,192 examples, AsyncSGD(lr=0.02, momentum=0.9), 4 warm-up
+# updates and 40 timed ones.
+ASYNC_BATCH, ASYNC_EXAMPLES = 512, 8192
+ASYNC_WARM, ASYNC_TIMED = 4, 40
+ASYNC_LR = 0.02
+# The four-worker runs: a PS and four worker threads on one card.  A fill
+# SUMS its quota of gradients (the reference's contract), so lr / quota
+# keeps run 1's step per gradient.
+ASYNC_WORKERS, ASYNC_QUOTA = 4, 4
+ASYNC_ROBUST_UPDATES = 20
+ASYNC_LM_STEPS = 10
+
+
+def _async_resnet18():
+    """Run 1-3's model: ResNet-18 bf16 with BatchNorm in evaluation mode on
+    its initial statistics (the async PS's plain-params contract, as the
+    JAX bench runs it), its loss (a module copy a worker thread), and the
+    batch function of its synthetic CIFAR-10."""
+    import torch
+    from torch.func import functional_call
+
+    from pytorch_ps_mpi_tpu_torch.async_ps import dataset_batch_fn
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_cifar10
+    from pytorch_ps_mpi_tpu_torch.models import (build_model, cross_entropy,
+                                                 per_thread, resnet18)
+
+    model = resnet18(num_classes=10, small_inputs=True, dtype=torch.bfloat16)
+    named, aux = build_model(model, seed=0)
+    module = per_thread(model.eval())
+    stats = {n: t.to("cuda") for n, t in aux.items()}
+
+    def loss_fn(params_named, batch):
+        logits = functional_call(module(), {**params_named, **stats},
+                                 (batch["x"],))
+        return cross_entropy(logits, batch["y"])
+
+    x, y = synthetic_cifar10(ASYNC_EXAMPLES, seed=0)
+    return named, loss_fn, dataset_batch_fn(x, y, ASYNC_BATCH)
+
+
+def _fifths(losses) -> "tuple[float, float]":
+    k = max(1, len(losses) // 5)
+    return (sum(losses[:k]) / k, sum(losses[-k:]) / k)
+
+
+def async_run(what, named, loss_fn, batch_fn, *, updates, warm=0,
+              devices=None, **kw):
+    """``warm`` updates (cuDNN's algorithm choice, the allocator, the
+    threads), then ``updates`` timed ones of ``AsyncSGD(momentum=0.9)`` —
+    the launch counts zeroed just before the timed run and read just
+    after.  Fails on non-finite params or a loss that does not fall
+    (first fifth of the updates against the last).  Returns (optimizer,
+    history, counts, images/s)."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import AsyncSGD
+
+    devices = devices or [torch.device("cuda")]
+    opt = AsyncSGD(list(named.items()), momentum=0.9, devices=devices, **kw)
+    opt.compile_step(loss_fn)
+    if warm:
+        opt.run(batch_fn, steps=warm)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = opt.run(batch_fn, steps=updates)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    check_params_finite(opt, what)
+    first, last = _fifths(hist["losses"])
+    if not all(math.isfinite(v) for v in hist["losses"]) or not last < first:
+        fail(f"{what}: losses {hist['losses']}")
+    ips = hist["grads_consumed"] * ASYNC_BATCH / wall
+    print(f"[async] {what}: {updates} updates, {hist['grads_consumed']} "
+          f"grads ({hist['grads_computed']} computed), {ips:.1f} images/s, "
+          f"loss first/last fifth {first:.4f} / {last:.4f}, staleness mean "
+          f"{sum(hist['staleness']) / len(hist['staleness']):.3f} max "
+          f"{max(hist['staleness']):.3f}, workers {opt.num_workers}, "
+          f"quota {opt.quota}; launches {counts}")
+    return opt, hist, counts, ips
+
+
+def _expect_async_counts(what, hist, counts, code, leaves, decodes):
+    """Under blockq each computed gradient quantizes its ``leaves`` leaves
+    (a ``block_quantize`` launch each) and each of the run's ``decodes``
+    grouped decodes (one a linear fill, one a contribution on the robust
+    path) takes its ``block_dequant_sum`` launches; under bf16 each decode
+    takes its ``cast_sum`` launches; identity launches nothing."""
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    want = {}
+    if code == "blockq":
+        want = dict(block_quantize=leaves * hist["grads_computed"],
+                    block_dequant_sum=decodes * ck.group_launches(
+                        "block_dequant_sum", leaves))
+    elif code == "bf16":
+        want = dict(cast_sum=decodes * ck.group_launches("cast_sum", leaves))
+    expect_counts(what, counts, **want)
+
+
+def profile_async(opt, batch_fn, what, updates: int = 2):
+    """The card's busy share while ``updates`` updates run: the union of
+    the CUDA kernels' intervals (the worker streams overlap) over the host
+    time to synchronize, from torch.profiler, and the summed kernel time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt.run(batch_fn, steps=updates)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        print(f"[async] {what}: the profiler saw no CUDA kernels: busy "
+              f"share not measured")
+        return None
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    kernel_us = sum(b - a for a, b in spans)
+    print(f"[async] {what}, {updates} updates under the profiler: wall "
+          f"{wall_us / 1e3:.3f} ms, device busy (union of kernels) "
+          f"{union / 1e3:.3f} ms, busy share {union / wall_us:.3f}; kernel "
+          f"time summed over streams {kernel_us / 1e3:.3f} ms, "
+          f"{len(spans)} kernels")
+    return union / wall_us
+
+
+def async_cli_lm(tmp):
+    """Run 4: the CLI's async LM (``--async-ps``, bf16, flash attention,
+    blockq; batch 16 x 1024) in a process of its own, saving at update 10;
+    then in this process a resume at ``--steps 10`` (nothing to train: the
+    params must equal the file's, to 0.0) and one to update 12 with the
+    launch counts read around it (4 of each flash kernel and a
+    ``block_quantize`` a leaf per computed gradient, one decode a
+    fill)."""
+    import os
+
+    import torch
+
+    ck = os.path.join(tmp, "async_lm.psz")
+    argv = ["--async-ps"] + CLI_LM + ["--codec", "blockq"]
+    stderr = cli_process(argv + ["--steps", str(ASYNC_LM_STEPS), "--save",
+                                 ck])
+    m = re.search(r"^done: (\d+) updates, (\d+) grads, ([\d.]+) images/sec,"
+                  r" mean staleness ([\d.]+)$", stderr, re.M)
+    if m is None or "async PS: 1 workers, quota 1" not in stderr:
+        fail("async LM CLI: no 'async PS:' or 'done:' line")
+    rows_s = float(m.group(3))
+    print(f"[async] LM CLI (run 4): {m.group(1)} updates, {m.group(2)} "
+          f"grads, {rows_s * 1024:.0f} tokens/s ({rows_s:.1f} rows/s on "
+          f"the done line), mean staleness {m.group(4)}")
+    saved, _ = _state_of(ck)
+    opt, err, _ = cli_in_process(
+        argv + ["--steps", str(ASYNC_LM_STEPS), "--resume", ck],
+        "async LM resumed at its own step")
+    if "nothing to do" not in err or opt.timings:
+        fail("async LM resume at --steps 10 trained")
+    start_diff = _np_max_diff(
+        {n: p.float().cpu().numpy() for n, p in opt.params.items()}, saved)
+    if start_diff != 0.0:
+        fail(f"async LM resume starts {start_diff} from the saved params")
+    opt, err, counts = cli_in_process(
+        argv + ["--steps", str(ASYNC_LM_STEPS + 2), "--resume", ck],
+        "async LM resumed to update 12, launch counts")
+    g = opt.grads_computed
+    if len(opt.timings) != 2 or int(next(iter(
+            opt.state.values()))["step"]) != ASYNC_LM_STEPS + 2:
+        fail(f"async LM resume ran {len(opt.timings)} updates")
+    check_params_finite(opt, "async LM resume")
+    expect_counts("async LM resume", counts, flash_fwd=4 * g,
+                  flash_bwd_dkdv=4 * g, flash_bwd_dq=4 * g,
+                  block_quantize=len(opt.params) * g, block_dequant_sum=2)
+    print(f"[async] LM resume: starts from the saved params (max diff "
+          f"{start_diff}); 2 updates, {g} gradients computed, launches "
+          f"{counts} (4 of each flash kernel a gradient)")
+    del opt
+    torch.cuda.empty_cache()
+
+
+def async_card_vs_cpu():
+    """Run 5: a lockstep single worker (sequential SGD through the async
+    pipeline) on the small MLP, 6 identity, 2 bf16 and 2 blockq updates,
+    on the card (kernels) and on the CPU (plain versions): params within
+    rtol 1e-4 / atol 1e-5, at most one element in 10,000 outside (a bf16
+    or blockq code one quantum apart), as phase 5 holds the sync MLP.  The
+    bf16 run weights its fills by staleness, so the bf16 wire is scaled
+    (`Codec.scale_codes`) before its ``cast_sum``."""
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import AsyncSGD
+    from pytorch_ps_mpi_tpu_torch.async_ps import dataset_batch_fn
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_mnist
+    from pytorch_ps_mpi_tpu_torch.models import init_mlp, mlp_loss_fn
+
+    named = init_mlp(np.random.RandomState(0), (784, 64, 10))
+    x, y = synthetic_mnist(256, seed=1)
+    for code, updates in (("identity", 6), ("bf16", 2), ("blockq", 2)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            opt = AsyncSGD(list(named.items()), lr=0.05, momentum=0.9,
+                           quota=1, code=code,
+                           staleness_weighting=code == "bf16",
+                           devices=[torch.device(device)])
+            opt._lockstep = True
+            opt.compile_step(mlp_loss_fn)
+            reset_launch_counts()
+            hist = opt.run(dataset_batch_fn(x, y, 64, seed=2), steps=updates)
+            counts = launch_counts()
+            out[device] = (hist["losses"], {n: p.cpu().numpy()
+                                            for n, p in opt.params.items()})
+            if device == "cuda":
+                _expect_async_counts(f"async MLP {code} on the card", hist,
+                                     counts, code, len(named), updates)
+        a, b = out["cuda"][1], out["cpu"][1]
+        outside = sum(int((~np.isclose(a[n], b[n], rtol=1e-4,
+                                       atol=1e-5)).sum()) for n in b)
+        total = sum(v.size for v in b.values())
+        print(f"[async] lockstep MLP {code}, {updates} updates, card vs CPU: "
+              f"losses {out['cuda'][0]} vs {out['cpu'][0]}, max difference "
+              f"{_np_max_diff(a, b)}, {outside} of {total} elements outside "
+              f"rtol 1e-4 / atol 1e-5")
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+        if outside > (0 if code == "identity" else 1e-4 * total):
+            fail(f"async MLP {code} card vs CPU: {outside} elements apart")
+
+
+def run_async_phase():
+    """Phase 6: the in-process async PS on the card (runs 1-5)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.utils.faults import FaultPlan
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    named, loss_fn, batch_fn = _async_resnet18()
+    leaves = len(named)
+    # Run 1: one worker sharing the card with the PS, quota 1.  The bf16
+    # run weights each fill by its staleness, so the weights scale the
+    # bf16 wire (`Codec.scale_codes`) before the grouped ``cast_sum``.
+    ips1 = {}
+    for code in ("identity", "bf16", "blockq"):
+        opt, hist, counts, ips1[code] = async_run(
+            f"ResNet-18 {code}, quota 1 (run 1)", named, loss_fn, batch_fn,
+            updates=ASYNC_TIMED, warm=ASYNC_WARM, lr=ASYNC_LR, quota=1,
+            code=code, staleness_weighting=code == "bf16")
+        _expect_async_counts(f"run 1 {code}", hist, counts, code, leaves,
+                             ASYNC_TIMED)
+        del opt
+    # Run 2: a PS and four worker threads on the one card.
+    devices = [torch.device("cuda", 0)] * (ASYNC_WORKERS + 1)
+    opt, hist, counts, ips2 = async_run(
+        f"ResNet-18 blockq, {ASYNC_WORKERS} workers on one card (run 2)",
+        named, loss_fn, batch_fn, updates=ASYNC_TIMED, warm=ASYNC_WARM,
+        devices=devices, lr=ASYNC_LR / ASYNC_QUOTA, quota=ASYNC_QUOTA,
+        code="blockq")
+    _expect_async_counts("run 2", hist, counts, "blockq", leaves,
+                         ASYNC_TIMED)
+    print(f"[async] run 2 against run 1 (blockq): {ips2:.1f} against "
+          f"{ips1['blockq']:.1f} images/s, ratio "
+          f"{ips2 / ips1['blockq']:.3f}")
+    profile_async(opt, batch_fn, "run 2")
+    del opt
+    # Run 3: robust fills against a sign-flipping worker.
+    plan = FaultPlan(byzantine_rank=0, byzantine_mode="sign_flip")
+    for aggregate, kw in (("trimmed_mean", dict(trim_k=1)), ("median", {}),
+                          ("norm_clip", {})):
+        opt, hist, counts, _ = async_run(
+            f"ResNet-18 blockq, {aggregate} against a sign-flipping rank 0 "
+            f"(run 3)", named, loss_fn, batch_fn,
+            updates=ASYNC_ROBUST_UPDATES, devices=devices,
+            lr=ASYNC_LR / ASYNC_QUOTA, quota=ASYNC_QUOTA, code="blockq",
+            aggregate=aggregate, fault_plan=plan, **kw)
+        # The robust path decodes each contribution on its own: a fill's
+        # quota of grouped launches.
+        _expect_async_counts(f"run 3 {aggregate}", hist, counts, "blockq",
+                             leaves, ASYNC_QUOTA * ASYNC_ROBUST_UPDATES)
+        print(f"[async] run 3 {aggregate}: robust_clipped "
+              f"{hist['fault_stats']['robust_clipped']}, "
+              f"block_dequant_sum a fill "
+              f"{counts['block_dequant_sum'] / ASYNC_ROBUST_UPDATES:.0f}")
+        del opt
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ps_async_")
+    try:
+        async_cli_lm(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    async_card_vs_cpu()
+    print(f"[async] phase 6 took {time.perf_counter() - t0:.1f} s")
+
+
 def run_cli(phase3_images_per_s, n_leaves):
     import shutil
     import tempfile
@@ -2251,10 +2579,11 @@ def main() -> int:
     launches, images_per_s = run_slice(group, cpu_group)
     launches.update(run_lm(group, cpu_group))
 
-    # --- 5. the training CLI ---
+    # --- 5. the training CLI, 6. the async PS ---
     run_cli(images_per_s, len(named))
+    run_async_phase()
 
-    # --- 6. results ---
+    # --- 7. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({

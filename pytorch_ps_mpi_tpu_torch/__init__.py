@@ -6,6 +6,8 @@ and nothing of the JAX package.  Ported so far: the synchronous PS step
 (`MPI_PS`, `SGD`, `Adam`, `AdamW`) with every gradient codec of the JAX
 package, error feedback, ZeRO, EMA, gradient accumulation, remat, the lr
 schedules, the replica-consensus guard and in-memory checkpoint state;
+the in-process async PS (`AsyncPS`, `AsyncSGD`, `AsyncAdam`: worker
+threads on CUDA streams, quota'd fills, the robust reducers);
 the blockq and bf16 codecs' kernels are hand-written CUDA for Hopper
 (``csrc/codec_kernels.cu``); the ResNet/MLP models and the transformer
 LM, whose flash attention forward and backward are hand-written CUDA too
@@ -14,8 +16,9 @@ data the step trains on.  Entry points run on ``device="cuda"`` unless the
 caller asks for the CPU.
 """
 
-from .errors import (ElasticResumeError, NotCompiledError, PSRuntimeError,
-                     SDCDetectedError)
+from .async_ps import AsyncAdam, AsyncPS, AsyncSGD
+from .errors import (ElasticResumeError, FleetDeadError, NotCompiledError,
+                     PSRuntimeError, SDCDetectedError, WorkerFailedError)
 from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
                          QuantizeCodec, SignCodec, TopKCodec, get_codec)
 from .ops.flash_attention import flash_attention
@@ -27,6 +30,9 @@ __all__ = [
     "SGD",
     "Adam",
     "AdamW",
+    "AsyncPS",
+    "AsyncSGD",
+    "AsyncAdam",
     "make_ps_group",
     "Codec",
     "IdentityCodec",
@@ -41,4 +47,6 @@ __all__ = [
     "NotCompiledError",
     "SDCDetectedError",
     "ElasticResumeError",
+    "WorkerFailedError",
+    "FleetDeadError",
 ]

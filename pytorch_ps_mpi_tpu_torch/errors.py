@@ -20,6 +20,16 @@ class NotCompiledError(PSRuntimeError):
     """A train entry point was called before ``compile_step``."""
 
 
+class WorkerFailedError(PSRuntimeError):
+    """An async worker thread died with an exception; the original is
+    chained as ``__cause__``."""
+
+
+class FleetDeadError(PSRuntimeError):
+    """The worker fleet is gone: every worker exited without producing
+    gradients, or no gradient arrived within the idle timeout."""
+
+
 class NativeToolchainError(PSRuntimeError):
     """The in-repo native (C++) codec pipeline failed to build or its
     encoder reported a hard error."""

@@ -10,6 +10,8 @@ classifier in evaluation mode.  The transformer LM has its own `build_lm`,
 
 from __future__ import annotations
 
+import copy
+import threading
 from collections import OrderedDict
 
 import torch
@@ -30,7 +32,39 @@ __all__ = [
     "PDense", "Block", "TransformerLM", "build_lm", "make_lm_loss",
     "lm_batch",
     "build_model", "cross_entropy", "make_classifier_loss", "eval_accuracy",
+    "per_thread",
 ]
+
+
+def per_thread(model: torch.nn.Module):
+    """A getter of the module a thread may run `functional_call` on.
+
+    `torch.func.functional_call` swaps the module's tensors for the
+    call's duration, so two threads calling it on one module race (the
+    async PS's workers do).  The thread that made the getter gets
+    ``model`` itself; any other thread gets its own copy, made once, on
+    first use, whose parameters are storage-free placeholders on the
+    ``meta`` device (every call passes the real ones), so a copy costs
+    the module's structure and buffers only."""
+    owner = threading.get_ident()
+    local = threading.local()
+    lock = threading.Lock()
+
+    def module() -> torch.nn.Module:
+        if threading.get_ident() == owner:
+            return model
+        mine = getattr(local, "module", None)
+        if mine is None:
+            with lock:
+                memo = {id(p): torch.nn.Parameter(
+                    torch.empty_like(p, device="meta"),
+                    requires_grad=p.requires_grad)
+                    for p in model.parameters()}
+                mine = copy.deepcopy(model, memo)
+            local.module = mine
+        return mine
+
+    return module
 
 
 def build_model(model: torch.nn.Module, seed: int = 0):
@@ -61,18 +95,21 @@ def make_classifier_loss(model: torch.nn.Module, *,
     defaults to whether it has buffers).  The module runs in training mode
     through `torch.func.functional_call`, so the parameters and statistics
     passed in are the ones used; ``aux`` is left as it is and the updated
-    statistics come back as ``new_aux``."""
+    statistics come back as ``new_aux``.  Each thread runs its own copy of
+    the module (`per_thread`), so worker threads may call the loss at
+    once."""
     if has_aux is None:
         has_aux = any(True for _ in model.buffers())
     model.train()
+    module = per_thread(model)
 
     def loss_plain(params_named, batch):
-        logits = functional_call(model, dict(params_named), (batch["x"],))
+        logits = functional_call(module(), dict(params_named), (batch["x"],))
         return cross_entropy(logits, batch["y"])
 
     def loss_aux(params_named, aux, batch):
         new_aux = OrderedDict((n, t.clone()) for n, t in aux.items())
-        logits = functional_call(model, {**params_named, **new_aux},
+        logits = functional_call(module(), {**params_named, **new_aux},
                                  (batch["x"],))
         return cross_entropy(logits, batch["y"]), new_aux
 

@@ -194,10 +194,15 @@ def build_lm(model: TransformerLM,
 def make_lm_loss(model: TransformerLM):
     """Next-token cross-entropy, ``loss_fn(params, batch)``.  ``batch``:
     ``tokens``/``targets``/``positions``, all ``[B, S]`` integers, targets
-    shifted before any sharding."""
+    shifted before any sharding.  Each thread runs its own copy of the
+    module (`models.per_thread`), so the async PS's worker threads may
+    call the loss at once."""
+    from . import per_thread
+
+    module = per_thread(model)
 
     def loss_fn(params_named, batch):
-        logits = functional_call(model, dict(params_named),
+        logits = functional_call(module(), dict(params_named),
                                  (batch["tokens"], batch["positions"]))
         return F.cross_entropy(logits.flatten(0, -2),
                                batch["targets"].flatten().long())

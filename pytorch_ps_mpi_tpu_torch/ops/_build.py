@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from ..errors import PSRuntimeError
@@ -67,6 +68,7 @@ _SIGNATURES = {
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in _SIGNATURES}
 
 _libs: "dict[str, ctypes.CDLL]" = {}
+_libs_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -116,8 +118,13 @@ def build(names=None) -> "dict[str, tuple[Path, str]]":
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built on first call."""
-    if name not in _libs:
+    """The loaded kernel library ``name``, built on first call (under a
+    lock: the async PS's worker threads may reach it at once)."""
+    if name in _libs:
+        return _libs[name]
+    with _libs_lock:
+        if name in _libs:
+            return _libs[name]
         path, _ = build([name])[name]
         lib = ctypes.CDLL(str(path))
         for fn_name, argtypes in _SIGNATURES[name].items():

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import array
 import ctypes
+import threading
 
 import torch
 
@@ -57,9 +58,20 @@ LAUNCHES = {"block_quantize": 0, "block_dequant_sum": 0, "cast_sum": 0}
 _CAST_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+# The async PS's worker threads launch concurrently: counts move under
+# this lock.
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(kernel: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += n
 
 
 def _qmax(bits: int) -> float:
@@ -173,7 +185,7 @@ def block_quantize(flat: torch.Tensor, *, bits: int = 8,
             int(flat.data_ptr() % 16 == 0), cluster_ctas(tile), q.data_ptr(),
             scales.data_ptr(), _stream(flat))
     _build.check("codec_kernels", "block_quantize", err)
-    LAUNCHES["block_quantize"] += 1
+    _count("block_quantize")
     return q, scales
 
 
@@ -204,7 +216,7 @@ def _run_group(kernel, fn, rows, fields, total, world, kind, t):
             table.buffer_info()[0], len(rows) // fields, world, kind,
             _stream(t), ctypes.byref(launches))
     _build.check("codec_kernels", kernel, err)
-    LAUNCHES[kernel] += launches.value
+    _count(kernel, launches.value)
     return flat
 
 

@@ -101,6 +101,36 @@ class Codec:
     def wire_bytes(self, shape, dtype) -> int:
         raise NotImplementedError
 
+    def scale_code(self, code: Code, w) -> Code:
+        """Scale the *decoded value* of a code by the scalar ``w`` without
+        decoding it: every floating leaf times ``w`` cast to the leaf's
+        dtype (bf16 wire in bf16, as the JAX package's ``x *
+        w.astype(x.dtype)``); integer leaves (indices, quantized planes,
+        packed signs) stay as they are.  The async PS's contribution
+        weights ride this hook, so its fused decode-sum survives.
+
+        The contract is linearity, ``decode(scale_code(c, w)) == w *
+        decode(c)``: a code may carry at most one floating "magnitude"
+        factor per decoded element (blockq's ``scales``, topk's
+        ``values``, quantize's and sign's ``scale``).  A codec whose
+        decode multiplies two floating leaves must override this.  The
+        row case of `scale_codes`."""
+        one = self.scale_codes(tree_map(lambda x: x[None], code),
+                               torch.as_tensor(w).reshape(1))
+        return tree_map(lambda x: x[0], one)
+
+    def scale_codes(self, codes: Code, weights: torch.Tensor) -> Code:
+        """`scale_code` over codes with a leading contributor dim: row
+        ``i`` of every floating leaf times ``weights[i]`` — one broadcast
+        multiply a leaf (the JAX package's ``vmap(scale_code)``); the
+        async PS's weighted fills call it."""
+        def scale(x):
+            if not x.is_floating_point():
+                return x
+            w = weights.to(device=x.device, dtype=x.dtype)
+            return x * w.reshape((-1,) + (1,) * (x.dim() - 1))
+        return tree_map(scale, codes)
+
     def __repr__(self) -> str:  # pragma: no cover
         return f"{type(self).__name__}()"
 

@@ -47,6 +47,7 @@ widened to f32 before each product, which is a bf16 product summed in f32
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -70,9 +71,20 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# The async PS's worker threads launch concurrently: counts move under
+# this lock.
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count(kernel: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _bh(x: torch.Tensor) -> torch.Tensor:
@@ -293,7 +305,7 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float):
             _strides(ops), o.data_ptr(), lse.data_ptr(), b, h, s,
             float(scale), int(causal), _stream(q))
     _build.check("flash_attention", "flash_fwd", err)
-    LAUNCHES["flash_fwd"] += 1
+    _count("flash_fwd")
     return (o if dk == d else o[..., :d]), lse
 
 
@@ -330,7 +342,7 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
             _strides(ops), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, h, s, float(scale), int(causal), _stream(q))
     _build.check("flash_attention", "flash_bwd_dkdv", err)
-    LAUNCHES["flash_bwd_dkdv"] += 1
+    _count("flash_bwd_dkdv")
     if dk_ != d:
         dk, dv = dk[..., :d], dv[..., :d]
     return dk, dv
@@ -354,7 +366,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
             _strides(ops), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, h, s, float(scale), int(causal), _stream(q))
     _build.check("flash_attention", "flash_bwd_dq", err)
-    LAUNCHES["flash_bwd_dq"] += 1
+    _count("flash_bwd_dq")
     return dq if dk_ == d else dq[..., :d]
 
 

@@ -112,6 +112,24 @@ def init_ps_core(named_params, optim: str, hyper: dict, place):
     return params, state, merged, update_fn
 
 
+def tree_all_finite(*trees) -> bool:
+    """Host-side all-finite check over trees of tensors (float leaves
+    only), the async PS's quarantine gate for one received gradient
+    (the sync step's ``skip_nonfinite`` runs its check on the device
+    instead).  Integer leaves (quantized codes, indices, packed signs)
+    are finite by construction and skipped; bf16 is widened first, as
+    the JAX package's host check does.  One host read for the whole
+    tree, on the current stream."""
+    flags = [torch.isfinite(leaf.to(torch.float32)
+                            if leaf.dtype == torch.bfloat16 else leaf).all()
+             for t in trees for leaf in tree_leaves(t)
+             if isinstance(leaf, torch.Tensor)
+             and (leaf.is_floating_point() or leaf.is_complex())]
+    if not flags:
+        return True
+    return bool(torch.stack(flags).all())
+
+
 def _bits(p: torch.Tensor) -> torch.Tensor:
     """``p``'s raw bit pattern, zero-extended to int64, flat (the JAX
     guard's ``bitcast_convert_type`` to an unsigned int of its width, then

@@ -7,14 +7,19 @@ resumable `data.loader.DataLoader`, on-disk checkpoints
 (`utils.checkpoint`: ``--save``, ``--save-every``, ``--resume``), the
 preemption path (SIGTERM/SIGINT: finish the step, write a RESUMABLE
 checkpoint, exit 75), the divergence guard's rollback and the sync chaos
-faults.  It takes the JAX CLI's flags and prints its lines; the roles not
-ported yet (``--async-ps``, ``--serve``, ``--connect``, ``--subscribe``,
+faults; and ``--async-ps``, the in-process async PS (`AsyncPS`: worker
+threads on CUDA streams, quota'd fills, the robust reducers) on the MLP
+and the LM.  It takes the JAX CLI's flags and prints its lines; the roles
+not ported yet (``--serve``, ``--connect``, ``--subscribe``,
 ``--sp/--tp/--pp/--ep > 1``, ``--moe-experts``) are refused by name.
 
 It runs on the card, and raises when there is none; ``--force-cpu-devices
-N`` runs it on the CPU (gloo) instead.  The world is one process, or the
-group ``torchrun`` launches (each rank on its own card); ``N`` must equal
-that world.  Only rank 0 prints and writes checkpoints.
+N`` runs it on the CPU (gloo) instead.  The sync world is one process, or
+the group ``torchrun`` launches (each rank on its own card); ``N`` must
+equal that world.  Only rank 0 prints and writes checkpoints.  The async
+PS is one process: its devices are the visible cards (the first
+``--n-devices``; one card holds the PS and one worker), or under
+``--force-cpu-devices N`` the CPU N times (a PS and N - 1 workers).
 
 Examples::
 
@@ -26,6 +31,8 @@ Examples::
         --model resnet18 --dataset cifar10 --codec blockq
     python -m pytorch_ps_mpi_tpu_torch.train --model lenet --save ckpt.psz
     python -m pytorch_ps_mpi_tpu_torch.train --model lenet --resume ckpt.psz
+    python -m pytorch_ps_mpi_tpu_torch.train --async-ps \\
+        --force-cpu-devices 3 --model mlp --quota 2 --steps 20
 """
 
 from __future__ import annotations
@@ -631,8 +638,6 @@ def main(argv=None):
 
 # The roles and flags of the JAX CLI this package does not port yet.
 def _unported(args) -> "str | None":
-    if args.async_ps:
-        return "--async-ps"
     if args.serve is not None:
         return "--serve"
     if args.connect:
@@ -651,23 +656,34 @@ def _dispatch(args):
     what = _unported(args)
     if what is not None:
         raise SystemExit(f"{what} is not ported to the PyTorch package yet "
-                         f"(the sync trainer is; the async, multihost, "
-                         f"serve and sp/tp/pp/ep/MoE roles follow)")
-    # Refuse, don't drop: every flag below would be inert on the sync
-    # trainer (the JAX CLI's refusals, in its order).
+                         f"(the sync trainer and the in-process async PS "
+                         f"are; the multihost, serve and sp/tp/pp/ep/MoE "
+                         f"roles follow)")
+    # Refuse, don't drop: every flag below would be inert on the role that
+    # runs (the JAX CLI's refusals and messages, in its order).
+    on_async = args.async_ps
     if args.pp_microbatches is not None and args.pp <= 1:
         raise SystemExit("--pp-microbatches needs --pp > 1")
     if args.sp_attn != "ring" and args.sp <= 1:
         raise SystemExit(f"--sp-attn {args.sp_attn} needs --sp > 1")
-    if args.eval_every and args.model == "transformer":
+    if args.eval_every and (args.model == "transformer" or on_async):
         raise SystemExit("--eval-every supports the sync image/MLP path "
                          "only (the LM paths report loss; dropping the "
                          "flag silently would be worse than refusing)")
-    if args.staleness_weighting:
+    if args.staleness_weighting and not on_async:
         raise SystemExit("--staleness-weighting applies to the async PS "
                          "(--async-ps or --serve); the sync step has no "
                          "staleness to weight")
+    if args.sdc_check_every and on_async:
+        raise SystemExit("--sdc-check-every is the sync PS's replica-"
+                         "consensus guard; the async PS keeps canonical "
+                         "state on one device — there are no replicas to "
+                         "compare")
     if args.guard_spike_mad or args.guard_nonfinite_streak:
+        if on_async:
+            raise SystemExit("--guard-spike-mad / --guard-nonfinite-streak "
+                             "(rollback-on-divergence) apply to the sync "
+                             "trainer only")
         if args.model == "transformer":
             raise SystemExit("the divergence guard supports the sync "
                              "image/MLP path only for now (the LM loop's "
@@ -678,12 +694,14 @@ def _dispatch(args):
             raise SystemExit("the divergence guard rolls back to the last "
                              "good checkpoint: set --save (and ideally "
                              "--save-every) so one exists")
+    plan = None
     if args.chaos:
+        from .utils.faults import FaultPlan
+        plan = FaultPlan.from_json(args.chaos)
+    if plan is not None and not on_async:
         # The sync trainer honors the sync faults (preempt / loss spike /
         # replica corruption); async-role faults on a sync run would be
         # silently dead flags, which is worse than refusing.
-        from .utils.faults import FaultPlan
-        plan = FaultPlan.from_json(args.chaos)
         if plan.any_async_faults() or not plan.any_sync_faults():
             raise SystemExit(
                 "--chaos on the sync trainer honors preempt_at_step / "
@@ -791,15 +809,56 @@ def _dispatch(args):
                          "be silently inert, which is worse than "
                          "refusing")
     if args.adaptive_deadline:
-        raise SystemExit("--adaptive-deadline tunes the async PS's "
-                         "quorum fill-deadline; the sync step has "
-                         "no fills")
-    if args.latency_weighting:
+        if not on_async:
+            raise SystemExit("--adaptive-deadline tunes the async PS's "
+                             "quorum fill-deadline; the sync step has "
+                             "no fills")
+        if args.quorum is None:
+            raise SystemExit("--adaptive-deadline adapts a QUORUM "
+                             "deadline: set --quorum (root level) "
+                             "and/or --group-quorum (group level), or "
+                             "drop the flag (it would be silently "
+                             "inert)")
+    if args.latency_weighting and not on_async:
         raise SystemExit("--latency-weighting is async-PS admission "
                          "(contribution weights from the latency "
                          "EMA); the sync step admits no per-rank "
                          "contributions")
-    if args.max_staleness is not None:
+    if plan is not None and on_async:
+        # Faults that name a fleet shard, a fleet worker's link or a
+        # hierarchy's aggregator would be silently dead on this role.
+        if plan.kill_shard_at:
+            raise SystemExit("--chaos kill_shard_at applies to the "
+                             "sharded PS fleet (--serve --shards K); on "
+                             "this role it would be silently inert — "
+                             "use kill_ps_at for a single PS")
+        if plan.partition_links:
+            raise SystemExit("--chaos partition_links names (worker, "
+                             "shard) links of a FLEET worker (--connect "
+                             "through the shard router); on this role "
+                             "the partition would be silently inert — "
+                             "which is worse than refusing")
+        if plan.any_agg_faults():
+            raise SystemExit("--chaos kill_agg_at / slow_agg / "
+                             "byzantine_agg name GROUP AGGREGATORS of a "
+                             "hierarchy (--serve --aggregators G); on "
+                             "this role they would be silently inert — "
+                             "which is worse than refusing")
+    if args.zero and on_async:
+        raise SystemExit("--zero applies to the sync PS only: the async "
+                         "PS keeps canonical state on one device, so "
+                         "there is no replicated state to shard")
+    if on_async and (args.accum_steps > 1
+                     or args.clip_norm is not None or args.error_feedback
+                     or args.ema_decay is not None or args.remat
+                     or args.sync_mode is not None):
+        raise SystemExit("--accum-steps / --clip-norm / "
+                         "--error-feedback / --ema-decay / --sync-mode / "
+                         "--remat apply to "
+                         "the sync PS only; the async paths do not support "
+                         "them yet (dropping the flag silently would be "
+                         "worse than refusing)")
+    if args.max_staleness is not None and not on_async:
         raise SystemExit("--max-staleness applies to the async PS "
                          "(--async-ps or --serve); the sync step consumes "
                          "no stale gradients")
@@ -807,12 +866,13 @@ def _dispatch(args):
         if args.credit_window < 0:
             raise SystemExit(f"--credit-window must be >= 0, got "
                              f"{args.credit_window}")
-        raise SystemExit("--credit-window is the async PS's bounded-"
-                         "queue / flow-control window (--serve / "
-                         "--connect / --async-ps); the sync step's "
-                         "collective sum has no gradient queue to "
-                         "bound — dropping the flag silently would "
-                         "be worse than refusing")
+        if not on_async:
+            raise SystemExit("--credit-window is the async PS's bounded-"
+                             "queue / flow-control window (--serve / "
+                             "--connect / --async-ps); the sync step's "
+                             "collective sum has no gradient queue to "
+                             "bound — dropping the flag silently would "
+                             "be worse than refusing")
     if args.op_deadline is not None:
         if args.op_deadline <= 0:
             raise SystemExit(f"--op-deadline must be > 0, got "
@@ -842,19 +902,31 @@ def _dispatch(args):
                          "--async-bucket-bytes (0 auto-tunes); without "
                          "a bucket plan it would be silently inert, "
                          "which is worse than refusing")
-    if (args.aggregate != "mean" or args.trim_k is not None
-            or args.quorum is not None or args.fill_deadline is not None
-            or args.anomaly_z is not None):
+    if not on_async and (args.aggregate != "mean"
+                         or args.trim_k is not None
+                         or args.quorum is not None
+                         or args.fill_deadline is not None
+                         or args.anomaly_z is not None):
         raise SystemExit("--aggregate / --trim-k / --quorum / "
                          "--fill-deadline / --anomaly-z "
                          "are async-PS admission/aggregation knobs "
                          "(--async-ps or --serve); the sync step reduces "
                          "with its collective sum")
+    if args.trim_k is not None and args.aggregate != "trimmed_mean":
+        raise SystemExit("--trim-k only applies to "
+                         "--aggregate trimmed_mean")
+    if args.fill_deadline is not None and args.quorum is None:
+        raise SystemExit("--fill-deadline only takes effect with --quorum "
+                         "(a fill without one never closes short); set "
+                         "--quorum or drop the flag (it would be silently "
+                         "inert, which is worse than refusing)")
     if args.checkpoint_every:
         raise SystemExit("--checkpoint-every is the --serve path's "
                          "auto-checkpoint cadence (the sync loop uses "
                          "--save-every)")
 
+    if on_async:
+        return run_async(args, plan)
     device, group = _join(args)
     if args.model == "transformer":
         return run_transformer(args, device, group)
@@ -1294,6 +1366,110 @@ def _run_transformer_loop(args, opt, model):
          f"({tok_s / dp:,.0f}/device)")
     _maybe_save(args, opt, step, final=True)
     if args.summary and opt.rank == 0:
+        opt.print_summary()
+    return opt
+
+
+def _resolve_fill_deadline(args) -> float:
+    """--fill-deadline's effective value: the flag (already validated to
+    require --quorum), or 0.05 s when --quorum is set without it, or 0.0
+    (inert) on quorum-less runs."""
+    if args.fill_deadline is not None:
+        return args.fill_deadline
+    return 0.05 if args.quorum is not None else 0.0
+
+
+def _async_devices(args) -> "list[torch.device] | None":
+    """The async PS's devices: the CPU repeated ``--force-cpu-devices N``
+    times (the JAX CLI's N CPU devices), or the visible cards; the first
+    ``--n-devices`` of them.  None: every visible card (the PS raises
+    when there is none)."""
+    if args.force_cpu_devices is not None:
+        devices = [torch.device("cpu")] * args.force_cpu_devices
+    elif args.n_devices:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    else:
+        return None
+    return (devices[:args.n_devices] if args.n_devices else devices) or None
+
+
+def _build_lm_async(args):
+    """``(params, loss_fn, toks)`` for the async transformer path: each
+    worker is one device (no sp/tp/pp sharding); ``--attn flash`` runs the
+    flash kernels in every worker's step."""
+    from .data.datasets import synthetic_lm
+    from .models.transformer import build_lm, make_lm_loss
+
+    model = transformer_model(args)
+    params = build_lm(model, seed=args.seed)
+    toks = synthetic_lm(max(args.n_examples, args.batch_size),
+                        seq_len=args.seq_len, vocab=args.vocab,
+                        seed=args.seed)
+    return params, make_lm_loss(model), toks
+
+
+def run_async(args, plan=None):
+    """AsySG-InCon training: worker threads on their own devices (CUDA
+    streams of one card, or the CPU), PS updates after ``--quota``
+    gradients; ``plan`` is the ``--chaos`` fault plan (``kill_ps_at``, the
+    straggler, Byzantine and overload faults apply here)."""
+    from .async_ps import AsyncPS, dataset_batch_fn, lm_batch_fn
+
+    if args.model == "transformer":
+        params, loss_fn, toks = _build_lm_async(args)
+        make_batch_fn = lambda seed: lm_batch_fn(  # noqa: E731
+            toks, args.batch_size, seed=seed)
+    else:
+        params, aux, loss_fn, has_aux, (x, y), _model = build(args)
+        if has_aux or aux:
+            raise SystemExit(
+                "--async-ps supports aux-free models (mlp, transformer)")
+        make_batch_fn = lambda seed: dataset_batch_fn(  # noqa: E731
+            x, y, args.batch_size, seed=seed)
+    if args.save_every:
+        raise SystemExit("--save-every is not supported with --async-ps "
+                         "(updates run inside one opt.run call); use --save")
+    opt = AsyncPS(list(params.items()), optim=args.optim, code=args.codec,
+                  quota=args.quota, devices=_async_devices(args),
+                  staleness_weighting=args.staleness_weighting,
+                  max_staleness=args.max_staleness,
+                  skip_nonfinite=args.skip_nonfinite,
+                  aggregate=args.aggregate, trim_k=args.trim_k,
+                  quorum=args.quorum,
+                  fill_deadline=_resolve_fill_deadline(args),
+                  anomaly_z=args.anomaly_z,
+                  adaptive_deadline=args.adaptive_deadline,
+                  latency_weighting=args.latency_weighting,
+                  credit_window=args.credit_window,
+                  fault_plan=plan, **hyper_from_args(args))
+    print(f"async PS: {opt.num_workers} workers, quota {opt.quota}",
+          file=sys.stderr)
+    opt.compile_step(loss_fn)
+    start, _extra = _restore(args, opt)
+    updates = max(args.steps - start, 0)
+    if updates == 0:
+        print("nothing to do: checkpoint is already at "
+              f"step {start} >= --steps {args.steps}", file=sys.stderr)
+        return opt
+    t0 = time.perf_counter()
+    # Mix the resume point into the seed: a resumed run draws *fresh*
+    # batches, not the stream the first run consumed.
+    try:
+        hist = opt.run(make_batch_fn(args.seed + start),
+                       steps=updates, log_every=10)
+    except KeyboardInterrupt:
+        # The update count is not observable mid-run from here; save at
+        # the resume point (params and state reflect every update applied
+        # so far; the step counter stays conservative).
+        _interrupted_exit(args, opt, start)
+    wall = time.perf_counter() - t0
+    grads = hist["grads_consumed"]
+    print(f"done: {updates} updates, {grads} grads, "
+          f"{grads * args.batch_size / wall:.1f} images/sec, "
+          f"mean staleness {np.mean(hist['staleness']):.2f}", file=sys.stderr)
+    _maybe_save(args, opt, start + updates, final=True)
+    if args.summary:
         opt.print_summary()
     return opt
 

@@ -2,7 +2,8 @@
 
 Counterpart of `pytorch_ps_mpi_tpu/utils/checkpoint.py`: optimizer
 checkpoints (`save_optimizer` / `load_optimizer` around
-`MPI_PS.state_dict` / `load_state_dict`), pytree checkpoints (`save` /
+`MPI_PS.state_dict` / `load_state_dict`, or `AsyncPS`'s, whose state is
+the same plain data with an empty ``aux``), pytree checkpoints (`save` /
 `load`), step-tagged siblings with keep-last-K retention, and the
 RESUMABLE marker a preemption leaves.  The bytes go through the port's
 copy of the native serializer (`native.serializer`), whose buffer frames

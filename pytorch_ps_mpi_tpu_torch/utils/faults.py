@@ -6,9 +6,11 @@ so the port's CLI parses a plan, and refuses the faults it cannot honor,
 exactly as the JAX CLI does.  The sync trainer honors the sync faults
 (``preempt_at_step``, ``spike_at_step``, ``sdc_at_step``);
 `corrupt_replica` flips one bit of one rank's own copy of a parameter.
-What serves only the async roles waits for the async slice: the
-Byzantine gradient maps (``byzantine_transform``), ``WireMangler`` and
-``poison_nonfinite``.
+The in-process async PS honors ``kill_ps_at`` (`SimulatedCrash`), the
+straggler, Byzantine (``byzantine_transform``: maps on trees of tensors)
+and overload faults.  What serves only the multihost and hierarchy
+roles waits for those slices: ``WireMangler``, ``poison_nonfinite`` and
+the aggregator's map (``agg_byzantine_transform``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,16 @@ import json
 
 import numpy as np
 import torch
+
+from .flatten import tree_map
+
+
+class SimulatedCrash(RuntimeError):
+    """A fault-injection hook killing the process it fired in.
+
+    Raised out of the worker loop (worker death) or the PS serve loop (PS
+    death) when the `FaultPlan` says so — the in-process analogue of
+    ``kill -9`` that lets a single test own both sides of a crash."""
 
 
 @dataclasses.dataclass
@@ -265,9 +277,31 @@ class FaultPlan:
         return (self.any_overload_worker_faults()
                 or self.slow_consumer > 0)
 
-    # The async slice's gradient maps (``byzantine_transform``,
-    # ``agg_byzantine_transform``) and ``wire_mangler`` are not ported yet:
-    # the sync trainer refuses every fault they serve (`any_async_faults`).
+    def byzantine_transform(self, rank: int):
+        """The gradient-tree transform for ``rank``, or None for honest
+        ranks.  Applied to the RAW gradients before encoding (inside the
+        worker's step), so the attack survives any codec — a sign-flipped
+        gradient quantizes to a sign-flipped code.  Every mode produces
+        finite values by construction."""
+        if self.byzantine_rank is None or self.byzantine_rank != rank:
+            return None
+        mode, scale = self.byzantine_mode, self.byzantine_scale
+        if mode not in ("sign_flip", "scale", "constant"):
+            raise ValueError(
+                f"unknown byzantine_mode {mode!r}; have "
+                f"['sign_flip', 'scale', 'constant']")
+        if mode == "sign_flip":
+            return lambda grads: tree_map(lambda g: -g, grads)
+        if mode == "scale":
+            # The scale in the gradient's dtype first, as the JAX map's
+            # ``g * jnp.asarray(scale, g.dtype)``.
+            return lambda grads: tree_map(
+                lambda g: g * torch.tensor(scale, dtype=g.dtype,
+                                           device=g.device), grads)
+        return lambda grads: tree_map(torch.ones_like, grads)
+
+    # ``wire_mangler`` is the multihost slice's: the sync trainer and the
+    # in-process async PS refuse the wire faults it serves.
 
     # -- sync-trainer faults ----------------------------------------------
 

@@ -12,6 +12,9 @@
 * blockq in the JAX package's element order: for every ResNet-18 and
   transformer-LM parameter shape, the port's gradient permuted by
   `utils.interop.jax_order` quantizes to JAX's codes and scales bitwise.
+* ``scale_code`` (the async PS's contribution weights), for every codec:
+  bitwise against JAX's, on one code and vmapped over a stack, and the
+  weighted decode sums bitwise; linear within the JAX test's tolerance.
 """
 
 import jax
@@ -397,3 +400,87 @@ def test_blockq_codes_in_jax_order_match_jax_bitwise(model):
         want = interop._to_torch_layout(
             name, _np(ref.decode(jcode, shape=shape, dtype=jnp.float32)))
         np.testing.assert_array_equal(_np(dec), want, err_msg=name)
+
+
+def _jcode_to_torch(code):
+    """A JAX code (an array or a dict of arrays) as torch tensors, bit for
+    bit (bf16 through its uint16 pattern)."""
+    def one(x):
+        a = np.asarray(x)
+        if a.dtype == jnp.bfloat16:
+            return torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(a.copy())
+    return ({k: one(v) for k, v in code.items()} if isinstance(code, dict)
+            else one(code))
+
+
+def _bits(x):
+    t = x if isinstance(x, torch.Tensor) else None
+    if t is not None and t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    a = np.asarray(x)
+    return a.view(np.uint16) if a.dtype == jnp.bfloat16 else a
+
+
+@pytest.mark.parametrize("name", ALL_CODECS)
+def test_scale_code_matches_jax_bitwise(name):
+    """`Codec.scale_code` on one code and `scale_codes` on a stack of three
+    (the async PS's weights) against JAX's ``scale_code`` and
+    ``vmap(scale_code)`` on the same code: bitwise — floating leaves times
+    the weight cast to their dtype (bf16 in bf16), integer leaves as they
+    are.  Then the weighted decode sums, bitwise: the port's
+    ``decode_sum_leaves`` (one grouped launch for blockq and bf16) of the
+    scaled stack against JAX's ``decode_sum``."""
+    rng = np.random.RandomState(3)
+    shape = (40, 72)  # 2,880 elements: three blockq tiles at 8 rows
+    ours = tcodecs.get_codec(name)
+    ref = jcodecs.get_codec(name)
+    if name == "blockq":
+        ours = tcodecs.BlockQuantizeCodec(block_rows=8)
+        ref = jcodecs.BlockQuantizeCodec(block_rows=8)
+    jcodes = [ref.encode(jnp.asarray(rng.randn(*shape).astype(np.float32)))
+              for _ in range(3)]
+    w = np.asarray([0.25, 1.0, 1.0 / 3.0], np.float32)
+    got = ours.scale_code(_jcode_to_torch(jcodes[2]), torch.tensor(w[2]))
+    want = ref.scale_code(jcodes[2], jnp.asarray(w[2]))
+    for k in (want if isinstance(want, dict) else [None]):
+        g = got[k] if k is not None else got
+        x = want[k] if k is not None else want
+        assert g.dtype == _jcode_to_torch(x).dtype, k
+        np.testing.assert_array_equal(_bits(g), _bits(x), err_msg=str(k))
+    jstacked = jax.tree.map(lambda *xs: jnp.stack(xs), *jcodes)
+    tstacked = _jcode_to_torch(jstacked)
+    got = ours.scale_codes(tstacked, torch.from_numpy(w))
+    want = jax.vmap(ref.scale_code)(jstacked, jnp.asarray(w))
+    for k in (want if isinstance(want, dict) else [None]):
+        g = got[k] if k is not None else got
+        x = want[k] if k is not None else want
+        np.testing.assert_array_equal(_bits(g), _bits(x), err_msg=str(k))
+    dsum = ours.decode_sum_leaves({"g": got}, {"g": (shape, torch.float32)})
+    jsum = ref.decode_sum(want, shape=shape, dtype=jnp.float32)
+    np.testing.assert_array_equal(_np(dsum["g"]), _np(jsum))
+
+
+@pytest.mark.parametrize("name", ALL_CODECS)
+def test_scale_code_is_linear_for_all_codecs(name):
+    """The contract the async PS's weights rely on (JAX
+    `tests/test_codecs.py::test_scale_code_is_linear_for_all_codecs`):
+    ``decode_sum(scale_codes(codes, w)) == sum_i w_i * decode(code_i)``,
+    through each codec's own decode sum; the JAX test's tolerance (the
+    bf16 wire rounds ``w`` and the products to bf16)."""
+    rng = np.random.RandomState(0)
+    gs = [torch.from_numpy(rng.randn(24, 16).astype(np.float32))
+          for _ in range(3)]
+    w = torch.tensor([0.25, 1.0, 0.5])
+    codec = tcodecs.get_codec(name)
+    codes = [codec.encode(g) for g in gs]
+    stacked = ({k: torch.stack([c[k] for c in codes]) for k in codes[0]}
+               if isinstance(codes[0], dict) else torch.stack(codes))
+    got = codec.decode_sum(codec.scale_codes(stacked, w), shape=(24, 16),
+                           dtype=torch.float32)
+    want = sum(float(wi) * codec.decode(c, shape=(24, 16),
+                                        dtype=torch.float32)
+               for wi, c in zip(w, codes))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-2, atol=1e-3,
+                               err_msg=name)

@@ -293,21 +293,25 @@ def test_cli_transformer_lm_resumes_bitwise(tmp_path, capsys):
     assert re.search(r"^done: 3 steps, [\d,]+ tokens/sec", err, re.M)
 
 
+# (id, argv, the flag named): since the async PS is ported, the
+# "--async-ps" case holds that an async run joined with a multihost role
+# is still refused by that role's name.
 UNPORTED = [
-    (["--async-ps"], "--async-ps"),
-    (["--serve", "0"], "--serve"),
-    (["--connect", "h:1"], "--connect"),
-    (["--subscribe", "h:1"], "--subscribe"),
-    (["--model", "transformer", "--sp", "2"], "--sp 2"),
-    (["--model", "transformer", "--tp", "2"], "--tp 2"),
-    (["--model", "transformer", "--pp", "2"], "--pp 2"),
-    (["--model", "transformer", "--ep", "2"], "--ep 2"),
-    (["--model", "transformer", "--moe-experts", "4"], "--moe-experts"),
+    ("--async-ps", ["--async-ps", "--connect", "h:1"], "--connect"),
+    ("--serve", ["--serve", "0"], "--serve"),
+    ("--connect", ["--connect", "h:1"], "--connect"),
+    ("--subscribe", ["--subscribe", "h:1"], "--subscribe"),
+    ("--sp 2", ["--model", "transformer", "--sp", "2"], "--sp 2"),
+    ("--tp 2", ["--model", "transformer", "--tp", "2"], "--tp 2"),
+    ("--pp 2", ["--model", "transformer", "--pp", "2"], "--pp 2"),
+    ("--ep 2", ["--model", "transformer", "--ep", "2"], "--ep 2"),
+    ("--moe-experts", ["--model", "transformer", "--moe-experts", "4"],
+     "--moe-experts"),
 ]
 
 
-@pytest.mark.parametrize("argv,flag", UNPORTED,
-                         ids=[f for _, f in UNPORTED])
+@pytest.mark.parametrize("argv,flag", [u[1:] for u in UNPORTED],
+                         ids=[u[0] for u in UNPORTED])
 def test_cli_refuses_unported_roles_by_name(argv, flag):
     with pytest.raises(SystemExit) as e:
         port_cli(argv + ["--steps", "1"])
@@ -432,3 +436,130 @@ def test_cli_under_torchrun_matches_jax(tmp_path):
     assert out.stderr.count(f"checkpoint -> {ck} (step 4)") == 1
     params = tckpt.load(ck)["params"]
     assert_params_close(params, jax_cli(argv, world=2).params, MLP_TOL)
+
+
+# ---------------------------------------------------------------------------
+# --async-ps: the in-process async PS
+# ---------------------------------------------------------------------------
+
+
+def test_cli_async_ps_mlp_lines_save_and_resume(tmp_path, capsys):
+    """``--async-ps --force-cpu-devices 3`` (a PS and 2 workers, quota 2)
+    on the MLP: the JAX CLI's ``async PS:`` and ``done:`` lines (JAX on 3
+    CPU devices), a falling loss, and ``--save`` then ``--resume`` from
+    the saved update (the run draws fresh batches: seed + step)."""
+    ck = str(tmp_path / "async.psz")
+
+    def async_mlp(steps):
+        return (MLP[:2] + ["--steps", str(steps)] + MLP[4:]
+                + ["--async-ps", "--lr", "0.05"])
+
+    argv = async_mlp(8)
+    jtrain.main(argv + ["--n-devices", "3"])
+    jerr = capsys.readouterr().err
+    topt = ttrain.main(argv + ["--force-cpu-devices", "3", "--save", ck])
+    err = capsys.readouterr().err
+    for text in (jerr, err):
+        assert "async PS: 2 workers, quota 2" in text
+        assert re.search(r"^done: 8 updates, 16 grads, [\d.]+ images/sec, "
+                         r"mean staleness \d+\.\d{2}$", text, re.M)
+    assert f"checkpoint -> {ck} (step 8)" in err
+    assert len(topt.timings) == 8
+    assert tckpt.load(ck, with_meta=True)[1]["step"] == 8
+    saved = tckpt.load(ck)["params"]
+    res = ttrain.main(async_mlp(10) + ["--force-cpu-devices", "3",
+                                       "--resume", ck])
+    err = capsys.readouterr().err
+    assert f"resumed from {ck} at step 8" in err
+    assert "done: 2 updates, 4 grads" in err
+    assert len(res.timings) == 2
+    assert int(res.state["dense0/kernel"]["step"]) == 10
+    assert not all(np.array_equal(_np(res.params)[n], saved[n])
+                   for n in saved)
+    nothing = ttrain.main(argv + ["--force-cpu-devices", "3", "--resume",
+                                  ck])
+    assert len(nothing.timings) == 0
+    assert "nothing to do" in capsys.readouterr().err
+
+
+def test_cli_async_ps_flash_lm_runs_on_the_cpu(capsys):
+    """The async LM path (`_build_lm_async`, `--attn flash`, the plain
+    flash versions on the CPU) with blockq: finite losses, every update
+    consumed."""
+    opt = ttrain.main(["--async-ps", "--model", "transformer", "--attn",
+                       "flash", "--codec", "blockq", "--seq-len", "16",
+                       "--vocab", "32", "--batch-size", "2", "--n-examples",
+                       "8", "--steps", "3", "--force-cpu-devices", "2"])
+    err = capsys.readouterr().err
+    assert "async PS: 1 workers, quota 1" in err
+    assert "done: 3 updates, 3 grads" in err
+    assert all(torch.isfinite(p).all() for p in opt.params.values())
+
+
+def test_cli_async_ps_runs_on_the_card_or_raises():
+    """``--async-ps`` takes the visible cards (the first ``--n-devices``)
+    and, with none, raises the port's "no CUDA device" error: no fall
+    back to the CPU."""
+    for extra in ([], ["--n-devices", "2"]):
+        argv = ["--async-ps", "--model", "mlp", "--steps", "1"] + extra
+        if torch.cuda.is_available():
+            assert ttrain.main(argv).ps_device.type == "cuda"
+            continue
+        with pytest.raises(PSRuntimeError, match="no CUDA device"):
+            ttrain.main(argv)
+
+
+ASYNC_REFUSALS = [
+    ["--model", "resnet18", "--dataset", "cifar10"],
+    ["--save", "x.psz", "--save-every", "2"],
+    ["--zero"],
+    ["--sdc-check-every", "2"],
+    ["--eval-every", "2"],
+    ["--guard-spike-mad", "5"],
+    ["--clip-norm", "1.0"],
+    ["--accum-steps", "2"],
+    ["--ema-decay", "0.9"],
+    ["--sync-mode", "overlap"],
+    ["--trim-k", "1"],
+    ["--fill-deadline", "0.1"],
+    ["--adaptive-deadline"],
+    ["--credit-window", "-1"],
+    ["--op-deadline", "1.0"],
+    ["--async-bucket-bytes", "0"],
+    ["--fused-encode"],
+    ["--checkpoint-every", "2"],
+    ["--shards", "2"],
+    ["--partition-rules", "[]"],
+    ["--replicas", "1"],
+    ["--snapshot-every", "2"],
+    ["--aggregators", "2"],
+    ["--group-quorum", "1"],
+    ["--fallback", "h:1"],
+    ["--group", "1"],
+    ["--infer-serve"],
+    ["--read-window", "2"],
+    ["--wire-codec", "bf16"],
+    ["--delta-parm"],
+    ["--model", "transformer", "--dataset", "cifar10"],
+    ["--dataset", "lm"],
+    ["--pp-microbatches", "2"],
+    ["--sp-attn", "ulysses"],
+    ["--chaos", json.dumps({"kill_shard_at": {"0": 1}})],
+    ["--chaos", json.dumps({"partition_links": [[0, 0, 0, 1]]})],
+    ["--chaos", json.dumps({"byzantine_agg": 0})],
+]
+
+
+def test_cli_async_refusals_match_jax():
+    """Every flag that would be inert on the in-process async PS (or that
+    names a role not ported yet) is refused on ``--async-ps`` with the
+    JAX CLI's message; a model with BatchNorm statistics and
+    ``--save-every`` too."""
+    for argv in ASYNC_REFUSALS:
+        msgs = []
+        for cli in (jax_cli, port_cli):
+            with pytest.raises(SystemExit) as e:
+                cli(["--steps", "1", "--async-ps"] + argv)
+            msgs.append(str(e.value))
+        assert msgs[1] == msgs[0], argv
+        assert "not ported" not in msgs[1]
