@@ -115,7 +115,21 @@ and carried on from):
    worker on the small MLP (identity, staleness-weighted bf16, blockq),
    card against CPU.  Every async run: finite
    params, a falling loss, the launch counts read around it.
-7. The card line, one JSON line per the kernels, and the last line
+7. The multihost async PS over loopback TCP (`AsyncSGDServer` and
+   `AsyncPSWorker`, the JAX package's v12 frames), worker processes on
+   the one card: (1) run 6's ResNet-18 cells with the PS in this process
+   and the workers as processes of their own (``chip_smoke.py
+   --mh-worker``) — one worker at quota 1 and four at quota 4, blockq —
+   with images/s, staleness, the PS's phases a update, the wire bytes a
+   update and nvidia-smi's utilization beside phase 6's thread figures,
+   one ``block_dequant_sum`` a fill on the PS and 62 ``block_quantize`` a
+   gradient in each worker; (2) the CLI (``--serve 0`` and two
+   ``--connect`` processes) with its LM, bf16 parameter wire, killed
+   before update 5 and relaunched with ``--resume`` (the workers
+   reconnect; 10 updates, continuous versions; 4 launches of each flash
+   kernel a gradient in each worker); (3) a lockstep worker through the
+   wire on the small MLP, card against CPU.
+8. The card line, one JSON line per the kernels, and the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2489,6 +2503,444 @@ def run_async_phase():
         shutil.rmtree(tmp, ignore_errors=True)
     async_card_vs_cpu()
     print(f"[async] phase 6 took {time.perf_counter() - t0:.1f} s")
+    return {"1 worker": ips1["blockq"], f"{ASYNC_WORKERS} workers": ips2}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the multihost async PS on the card
+# ---------------------------------------------------------------------------
+
+# Every worker process and every serve() of the phase ends within this.
+MH_TIMEOUT = 300
+# Run 2: the CLI's LM killed before update 5, checkpointed every 2.
+MH_LM_STEPS, MH_LM_KILL_AT, MH_LM_CKPT_EVERY = 10, 5, 2
+_MH_LINE = re.compile(r"^MH_WORKER (.*)$", re.M)
+# A CLI worker process of run 2: the CLI's entry point with the launch
+# counts zeroed just before, then one MH_WORKER line with the counts and
+# the gradients it computed.
+_MH_CLI_WORKER_BOOT = (
+    "import json, sys, torch\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "from pytorch_ps_mpi_tpu_torch import train\n"
+    "from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck\n"
+    "from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa\n"
+    "ck.reset_launch_counts()\n"
+    "fa.reset_launch_counts()\n"
+    "w = train.main(sys.argv[1:])\n"
+    "torch.cuda.synchronize()\n"
+    "print('MH_WORKER ' + json.dumps({'rank': w.rank, 'computed': "
+    "w.grads_computed, 'counts': {**ck.LAUNCHES, **fa.LAUNCHES}}), "
+    "flush=True)\n")
+
+
+def mh_worker_main(spec_json: str) -> int:
+    """A worker process of run 1 (``chip_smoke.py --mh-worker SPEC``):
+    run 1's ResNet-18 loss and batches, an `AsyncPSWorker` on the card
+    connected to the PS at ``spec["port"]``, trained until DONE with the
+    launch counts zeroed just before; then one ``MH_WORKER {json}`` line
+    on stdout.  Without a card it raises (no fall back to the CPU)."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.multihost_async import AsyncPSWorker
+    from pytorch_ps_mpi_tpu_torch.utils.timing import format_fault_stats
+
+    spec = json.loads(spec_json)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _named, loss_fn, batch_fn = _async_resnet18()
+    worker = AsyncPSWorker("127.0.0.1", spec["port"], code=spec["code"],
+                           device="cuda", io_timeout=MH_TIMEOUT,
+                           reconnect_retries=2)
+    reset_launch_counts()
+    pushed = worker.run(loss_fn, batch_fn)
+    torch.cuda.synchronize()
+    print("MH_WORKER " + json.dumps({
+        "rank": worker.rank, "pushed": pushed,
+        "computed": worker.grads_computed, "counts": launch_counts(),
+        "fault_stats": format_fault_stats(worker.fault_snapshot())}),
+        flush=True)
+    return 0
+
+
+def _mh_spawn(argv, log):
+    """A process of the phase: stdout piped (drained by `_mh_finish`),
+    stderr to ``log``."""
+    err = open(log, "w")
+    proc = subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE,
+                            stderr=err, text=True)
+    return proc, err
+
+
+def _mh_finish(proc, err, what, expect=0):
+    """Wait for a process of the phase (killed past `MH_TIMEOUT`); fails
+    unless it exits with ``expect`` (None: any nonzero code).  Returns
+    (stdout, stderr)."""
+    try:
+        out, _ = proc.communicate(timeout=MH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    err.close()
+    with open(err.name) as f:
+        text = f.read()
+    ok = (proc.returncode != 0 if expect is None
+          else proc.returncode == expect)
+    if not ok:
+        print(text[-6000:], file=sys.stderr)
+        fail(f"{what}: exited {proc.returncode}, expected "
+             f"{'nonzero' if expect is None else expect}")
+    return out, text
+
+
+def _mh_worker_result(out, what) -> dict:
+    m = _MH_LINE.search(out)
+    if m is None:
+        fail(f"{what}: no MH_WORKER line")
+    return json.loads(m.group(1))
+
+
+def _mh_port(proc, err, what) -> int:
+    """The server's port from its first stdout line."""
+    import select
+
+    line, end = "", time.monotonic() + MH_TIMEOUT
+    while not line.endswith("\n") and time.monotonic() < end:
+        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
+        if ready:
+            line += proc.stdout.readline()
+        elif proc.poll() is not None:
+            break
+    m = re.match(r"serving on port (\d+)$", line.strip())
+    if m is None:
+        proc.kill()
+        proc.communicate()
+        err.close()
+        with open(err.name) as f:
+            print(f.read()[-6000:], file=sys.stderr)
+        fail(f"{what}: no 'serving on port' line")
+    return int(m.group(1))
+
+
+class _UtilSampler:
+    """nvidia-smi's utilization of the card, sampled every 100 ms by a
+    background ``nvidia-smi -lms 100`` into a file (its figure is the
+    share of sample periods in which a kernel ran, not the profiler's
+    busy share)."""
+
+    def __init__(self, path):
+        self.path = path
+        self.proc = None
+
+    def start(self):
+        self.out = open(self.path, "w")
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "--id=0", "-lms", "100"],
+            stdout=self.out, stderr=subprocess.DEVNULL)
+
+    def stop(self) -> "list[int]":
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        with open(self.path) as f:
+            return [int(v) for v in f.read().split() if v.isdigit()]
+
+
+def _serve_thread(srv, steps, **kw):
+    """``srv.serve(steps)`` on a thread of this process: (thread, box)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["hist"] = srv.serve(steps=steps, idle_timeout=MH_TIMEOUT,
+                                    **kw)
+        except BaseException as exc:  # noqa: BLE001 - re-raised by the caller
+            box["error"] = exc
+
+    t = threading.Thread(target=run, name="mh-serve")
+    t.start()
+    return t, box
+
+
+def _mh_joined(t, box, what) -> dict:
+    t.join(MH_TIMEOUT + 60)
+    if t.is_alive():
+        fail(f"{what}: serve() did not end")
+    if "error" in box:
+        raise box["error"]
+    return box["hist"]
+
+
+def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
+                  threads_ips):
+    """Run 1: an `AsyncSGDServer` (ResNet-18, blockq, momentum 0.9) in
+    this process on the card, ``workers`` worker processes on the same
+    card over loopback; 4 warm-up and 40 timed updates.  The launch
+    counts are read around the serve here (the PS's) and in each worker
+    (its own).  Returns images/s over the timed window."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.multihost_async import AsyncSGDServer
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+    from pytorch_ps_mpi_tpu_torch.utils.timing import format_fault_stats
+
+    updates = ASYNC_WARM + ASYNC_TIMED
+    srv = AsyncSGDServer(list(named.items()), lr=lr, momentum=0.9,
+                         quota=quota, code="blockq", device="cuda")
+    srv.compile_step(loss_fn)
+    port = srv.address[1]
+    tag = f"run1-{workers}"
+    procs = [_mh_spawn([os.path.abspath(__file__), "--mh-worker",
+                        json.dumps({"port": port, "code": "blockq"})],
+                       os.path.join(tmp, f"{tag}-worker{i}.err"))
+             for i in range(workers)]
+    sampler = _UtilSampler(os.path.join(tmp, f"{tag}-util.txt"))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t, box = _serve_thread(srv, updates, warmup_steps=ASYNC_WARM)
+    while t.is_alive() and srv._served_version < ASYNC_WARM:
+        time.sleep(0.005)
+    sampler.start()
+    t.join(MH_TIMEOUT + 60)
+    util = sampler.stop()
+    counts = launch_counts()
+    try:
+        hist = _mh_joined(t, box, what)
+    finally:
+        srv.close()
+        results = [_mh_worker_result(_mh_finish(p, e, what)[0], what)
+                   for p, e in procs]
+    # The PS: one grouped decode a fill, nothing else.
+    expect_counts(f"{what}, the PS", counts,
+                  block_dequant_sum=updates * ck.group_launches(
+                      "block_dequant_sum", len(named)))
+    for r in results:
+        expect_counts(f"{what}, worker rank {r['rank']}", r["counts"],
+                      block_quantize=len(named) * r["computed"])
+    check_params_finite(srv, what)
+    losses = hist["losses"][ASYNC_WARM:]
+    first, last = _fifths(losses)
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        fail(f"{what}: losses {hist['losses']}")
+    contrib = hist["contributors"][ASYNC_WARM:]
+    grads = sum(len(c) for c in contrib)
+    ips = grads * ASYNC_BATCH / hist["steady_wall_time"]
+    stale = hist["staleness"][ASYNC_WARM:]
+    timed = srv.timings[ASYNC_WARM:]
+    per = {k: 1e3 * sum(d[k] for d in timed) / len(timed)
+           for k in ("comm_wait", "optim_step_time", "isend_time")}
+    fs = hist["fault_stats"]
+    full_parms = fs["parm_encodes"] + fs["parm_fanout_reuse"]
+    parm_frame = fs["parm_bytes_wire"] / max(1, fs["parm_encodes"])
+    grad_bytes = float(np.mean([d["msg_bytes"] for d in timed]))
+    print(f"[mh] {what}: {ASYNC_TIMED} timed updates, {grads} grads "
+          f"({sum(r['computed'] for r in results)} computed by the workers "
+          f"over the whole run), {ips:.1f} images/s, loss first/last fifth "
+          f"{first:.4f} / {last:.4f}, staleness mean "
+          f"{sum(stale) / len(stale):.3f} max {max(stale):.3f}; the PS a "
+          f"timed update (ms): comm_wait {per['comm_wait']:.3f}, "
+          f"optim_step_time {per['optim_step_time']:.3f}, isend_time "
+          f"{per['isend_time']:.3f}")
+    print(f"[mh] {what}: wire a update over all {updates}: PARM "
+          f"{full_parms * parm_frame / updates / 1e6:.3f} MB "
+          f"({full_parms} full PARM frames of {parm_frame / 1e6:.3f} MB, "
+          f"{fs['parm_unchanged']} unchanged), GRAD "
+          f"{grad_bytes * grads / len(contrib) / 1e6:.3f} MB "
+          f"({grads / len(contrib):.2f} a fill of {grad_bytes / 1e6:.3f} "
+          f"MB); PS launches {counts}; worker launches "
+          f"{[(r['rank'], r['computed'], r['counts']['block_quantize']) for r in results]}"
+          f" (rank, gradients, block_quantize)")
+    if util:
+        print(f"[mh] {what}: nvidia-smi utilization.gpu over the timed "
+              f"window (its own figure, not the profiler's busy share): "
+              f"mean {sum(util) / len(util):.1f} %, {len(util)} samples "
+              f"at 100 ms, min {min(util)} max {max(util)}")
+    else:
+        print(f"[mh] {what}: nvidia-smi utilization: not measured")
+    print(f"[mh] {what}: fault stats {format_fault_stats(fs)}; workers "
+          f"{[r['fault_stats'] for r in results]}")
+    print(f"[mh] {what}: worker processes {ips:.1f} images/s against "
+          f"phase 6's worker threads {threads_ips:.1f} (ratio "
+          f"{ips / threads_ips:.3f})")
+    return ips
+
+
+def mh_cli_lm(tmp):
+    """Run 2: ``ps-torch-train --serve 0`` and two ``--connect`` worker
+    processes with the CLI's LM (bf16, flash, blockq, batch 16 x 1024;
+    the server's parameter wire in bf16), quota 2, for 10 updates; the
+    server is killed before update 5 (``--chaos kill_ps_at``), having
+    checkpointed every 2, and relaunched on its port with ``--resume``;
+    the workers reconnect and the run completes all 10 updates with
+    continuous versions.  Each worker's launch counts: 4 of each flash
+    kernel and a ``block_quantize`` a leaf per gradient."""
+    import os
+
+    from pytorch_ps_mpi_tpu_torch import train
+    from pytorch_ps_mpi_tpu_torch.native import serializer
+
+    ck = os.path.join(tmp, "mh_lm.psz")
+    common = CLI_LM + ["--codec", "blockq", "--quota", "2"]
+    server = ["-c", _CLI_BOOT, "default", *common, "--steps",
+              str(MH_LM_STEPS), "--save", ck, "--checkpoint-every",
+              str(MH_LM_CKPT_EVERY), "--wire-codec", "bf16"]
+    t0 = time.perf_counter()
+    srv1, e1 = _mh_spawn(server + ["--serve", "0", "--chaos",
+                                   json.dumps({"kill_ps_at": MH_LM_KILL_AT})],
+                         os.path.join(tmp, "run2-server1.err"))
+    port = _mh_port(srv1, e1, "LM CLI server")
+    workers = [_mh_spawn(["-c", _MH_CLI_WORKER_BOOT, *common, "--connect",
+                          f"127.0.0.1:{port}"],
+                         os.path.join(tmp, f"run2-worker{i}.err"))
+               for i in range(2)]
+    _, err1 = _mh_finish(srv1, e1, "LM CLI server (killed)", expect=None)
+    if f"FaultPlan: PS killed before update {MH_LM_KILL_AT}" not in err1:
+        fail("LM CLI server: not killed by the fault plan")
+    t_kill = time.perf_counter()
+    srv2, e2 = _mh_spawn(server + ["--serve", str(port), "--resume", ck],
+                         os.path.join(tmp, "run2-server2.err"))
+    if _mh_port(srv2, e2, "LM CLI server (resumed)") != port:
+        fail("LM CLI server relaunched on another port")
+    results = []
+    for i, (p, e) in enumerate(workers):
+        out, err = _mh_finish(p, e, f"LM CLI worker {i}")
+        results.append((_mh_worker_result(out, f"LM CLI worker {i}"), err))
+    _, err2 = _mh_finish(srv2, e2, "LM CLI server (resumed)")
+    wall = time.perf_counter() - t0
+    start = MH_LM_KILL_AT - MH_LM_KILL_AT % MH_LM_CKPT_EVERY
+    if f"resumed from {ck} at step {start}" not in err2:
+        fail(f"LM CLI server: not resumed at step {start}")
+    m = re.search(r"^done: (\d+) updates, (\d+) grads, ([\d.]+) images/sec,"
+                  r" mean staleness ([\d.]+)$", err2, re.M)
+    if m is None or int(m.group(1)) != MH_LM_STEPS - start:
+        fail("LM CLI server: no 'done:' line for the resumed updates")
+    with open(ck, "rb") as f:
+        _, meta = serializer.loads(f.read(), with_meta=True)
+    if (meta["step"], meta["extra"]["served_version"]) != (MH_LM_STEPS,) * 2:
+        fail(f"LM CLI: final checkpoint at step {meta['step']}, version "
+             f"{meta['extra']['served_version']}")
+    args = train.make_parser().parse_args(CLI_LM)
+    n_leaves = len(train._build_lm_async(args)[0])
+    for r, err in results:
+        g = r["computed"]
+        expect_counts(f"LM CLI worker rank {r['rank']}", r["counts"],
+                      flash_fwd=4 * g, flash_bwd_dkdv=4 * g,
+                      flash_bwd_dq=4 * g, block_quantize=n_leaves * g)
+        if f"worker rank {r['rank']} done:" not in err \
+                or "reconnect(s) to the PS" not in err:
+            fail(f"LM CLI worker rank {r['rank']}: no reconnect or no "
+                 f"'done:' line")
+    rows_s = float(m.group(3))
+    print(f"[mh] LM CLI (run 2): killed before update {MH_LM_KILL_AT}, "
+          f"resumed at {start} on port {port} "
+          f"{time.perf_counter() - t_kill:.1f} s after the kill; the "
+          f"resumed server's done line: {m.group(1)} updates, "
+          f"{m.group(2)} grads, {rows_s:.1f} rows/s ({rows_s * 1024:.0f} "
+          f"tokens/s), mean staleness {m.group(4)}; final checkpoint at "
+          f"step {meta['step']}, served version "
+          f"{meta['extra']['served_version']}; workers (rank, gradients, "
+          f"launches) {[(r['rank'], r['computed'], r['counts']) for r, _ in results]}"
+          f" (4 of each flash kernel and {n_leaves} block_quantize a "
+          f"gradient); {wall:.1f} s in all")
+
+
+def mh_card_vs_cpu():
+    """Run 3: a PS on the card and one lockstep worker on the card
+    (quota 1, one gradient at a time: sequential SGD through the wire),
+    the small MLP, 6 identity and 2 blockq updates, against the same
+    conversation with ``device="cpu"`` everywhere: params within phase 6
+    run 5's rtol 1e-4 / atol 1e-5, at most one element in 10,000 outside
+    (a blockq code one quantum apart)."""
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.async_ps import dataset_batch_fn
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_mnist
+    from pytorch_ps_mpi_tpu_torch.models import init_mlp, mlp_loss_fn
+    from pytorch_ps_mpi_tpu_torch.multihost_async import (AsyncPSWorker,
+                                                          AsyncSGDServer)
+
+    named = init_mlp(np.random.RandomState(0), (784, 64, 10))
+    x, y = synthetic_mnist(256, seed=1)
+    for code, updates in (("identity", 6), ("blockq", 2)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            srv = AsyncSGDServer(list(named.items()), lr=0.05, momentum=0.9,
+                                 quota=1, code=code, device=device)
+            srv.compile_step(mlp_loss_fn)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t, box = _serve_thread(srv, updates)
+            try:
+                worker = AsyncPSWorker("127.0.0.1", srv.address[1],
+                                       code=code, device=device,
+                                       reconnect_retries=1)
+                worker._lockstep = True
+                worker.run(mlp_loss_fn, dataset_batch_fn(x, y, 64, seed=2))
+                hist = _mh_joined(t, box, f"lockstep MLP {code} {device}")
+            finally:
+                srv.close()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            out[device] = (hist["losses"], {n: p.cpu().numpy()
+                                            for n, p in srv.params.items()})
+            if device == "cuda" and code == "blockq":
+                expect_counts(f"lockstep MLP {code} on the card", counts,
+                              block_quantize=len(named) * updates,
+                              block_dequant_sum=updates)
+        a, b = out["cuda"][1], out["cpu"][1]
+        outside = sum(int((~np.isclose(a[n], b[n], rtol=1e-4,
+                                       atol=1e-5)).sum()) for n in b)
+        total = sum(v.size for v in b.values())
+        print(f"[mh] lockstep MLP {code} (run 3), {updates} updates through "
+              f"the wire, card vs CPU: losses {out['cuda'][0]} vs "
+              f"{out['cpu'][0]}, max difference {_np_max_diff(a, b)}, "
+              f"{outside} of {total} elements outside rtol 1e-4 / atol "
+              f"1e-5")
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+        if outside > (0 if code == "identity" else 1e-4 * total):
+            fail(f"lockstep MLP {code} card vs CPU: {outside} elements "
+                 f"apart")
+
+
+def run_multihost_phase(threads_ips):
+    """Phase 7: the multihost async PS over loopback TCP, worker processes
+    on the one card (runs 1-3)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ps_mh_")
+    try:
+        named, loss_fn, _ = _async_resnet18()
+        mh_resnet_run("ResNet-18 blockq, 1 worker process, quota 1 "
+                      "(run 1a)", named, loss_fn, tmp, workers=1, quota=1,
+                      lr=ASYNC_LR, threads_ips=threads_ips["1 worker"])
+        mh_resnet_run(f"ResNet-18 blockq, {ASYNC_WORKERS} worker processes, "
+                      f"quota {ASYNC_QUOTA} (run 1b)", named, loss_fn, tmp,
+                      workers=ASYNC_WORKERS, quota=ASYNC_QUOTA,
+                      lr=ASYNC_LR / ASYNC_QUOTA,
+                      threads_ips=threads_ips[f"{ASYNC_WORKERS} workers"])
+        del named, loss_fn
+        torch.cuda.empty_cache()
+        mh_cli_lm(tmp)
+        mh_card_vs_cpu()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[mh] phase 7 took {time.perf_counter() - t0:.1f} s")
 
 
 def run_cli(phase3_images_per_s, n_leaves):
@@ -2579,11 +3031,12 @@ def main() -> int:
     launches, images_per_s = run_slice(group, cpu_group)
     launches.update(run_lm(group, cpu_group))
 
-    # --- 5. the training CLI, 6. the async PS ---
+    # --- 5. the training CLI, 6. the async PS, 7. the multihost PS ---
     run_cli(images_per_s, len(named))
-    run_async_phase()
+    threads_ips = run_async_phase()
+    run_multihost_phase(threads_ips)
 
-    # --- 7. results ---
+    # --- 8. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({
@@ -2607,4 +3060,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mh-worker":
+        sys.exit(mh_worker_main(sys.argv[2]))
     sys.exit(main())

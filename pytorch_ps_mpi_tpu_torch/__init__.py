@@ -7,7 +7,10 @@ and nothing of the JAX package.  Ported so far: the synchronous PS step
 package, error feedback, ZeRO, EMA, gradient accumulation, remat, the lr
 schedules, the replica-consensus guard and in-memory checkpoint state;
 the in-process async PS (`AsyncPS`, `AsyncSGD`, `AsyncAdam`: worker
-threads on CUDA streams, quota'd fills, the robust reducers);
+threads on CUDA streams, quota'd fills, the robust reducers); the
+single-PS multihost async PS over TCP (`AsyncPSServer`, `AsyncSGDServer`,
+`AsyncAdamServer`, `AsyncPSWorker`: worker processes, the JAX package's
+v12 frames, `transport`);
 the blockq and bf16 codecs' kernels are hand-written CUDA for Hopper
 (``csrc/codec_kernels.cu``); the ResNet/MLP models and the transformer
 LM, whose flash attention forward and backward are hand-written CUDA too
@@ -17,8 +20,11 @@ caller asks for the CPU.
 """
 
 from .async_ps import AsyncAdam, AsyncPS, AsyncSGD
-from .errors import (ElasticResumeError, FleetDeadError, NotCompiledError,
-                     PSRuntimeError, SDCDetectedError, WorkerFailedError)
+from .errors import (ElasticResumeError, FillStarvedError, FleetDeadError,
+                     NotCompiledError, PSRuntimeError, SDCDetectedError,
+                     WorkerFailedError)
+from .multihost_async import (AsyncAdamServer, AsyncPSServer,
+                              AsyncPSWorker, AsyncSGDServer)
 from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
                          QuantizeCodec, SignCodec, TopKCodec, get_codec)
 from .ops.flash_attention import flash_attention
@@ -33,6 +39,10 @@ __all__ = [
     "AsyncPS",
     "AsyncSGD",
     "AsyncAdam",
+    "AsyncPSServer",
+    "AsyncSGDServer",
+    "AsyncAdamServer",
+    "AsyncPSWorker",
     "make_ps_group",
     "Codec",
     "IdentityCodec",
@@ -49,4 +59,5 @@ __all__ = [
     "ElasticResumeError",
     "WorkerFailedError",
     "FleetDeadError",
+    "FillStarvedError",
 ]

@@ -568,6 +568,25 @@ class AsyncPS:
 
     # -- the shared fill-admission loop ---------------------------------------
 
+    def _fleet_ranks(self) -> "set[int]":
+        """The ranks a quorum-shortened fill may have left behind (they
+        get late-fold credit when their frame lands).  The TCP server
+        overrides this with its live-fleet accounting."""
+        return set(range(self.num_workers))
+
+    def _drop_before_admit(self, rank) -> bool:
+        """Deployment-specific pre-admission drop, checked after the
+        rank-distinct gate: the TCP server drops evicted ranks' in-flight
+        frames here.  True when the frame was dropped (and counted)."""
+        return False
+
+    def _check_fill_starved(self, n_filled: int, t0: float) -> None:
+        """Deployment-specific starvation guard, called whenever a surplus
+        frame is held back from a rank-distinct fill.  In-process, `run`
+        refuses starving configurations eagerly (quota > num_workers);
+        the TCP server fails loudly when its connected fleet can never
+        complete the fill."""
+
     def _fill_gradients(self, receive, drain_nowait, *, current_version,
                         base_timeout: float = 0.5, on_consumed=None):
         """Receive gradients until the fill target is met — or, with a
@@ -588,6 +607,7 @@ class AsyncPS:
 
         # The quorum fill budget, armed at fill start.
         fill_dl = Deadline(self._effective_deadline())
+        t0 = time.perf_counter()
         codes_list: list = []
         stalenesses: list = []
         losses: list = []
@@ -628,7 +648,10 @@ class AsyncPS:
                     self._bump("floor_relaxed_admits")
                 else:
                     self._hold_surplus(item)
+                    self._check_fill_starved(len(codes_list), t0)
                     continue
+            if self._drop_before_admit(rank):
+                continue
             # Clamp: a gradient computed against a NEWER version than the
             # serving counter (a PS resumed from an older checkpoint) is
             # at worst fresh; staleness -1 would divide by zero in the
@@ -662,7 +685,7 @@ class AsyncPS:
         fill_target = self._fill_target()
         if short:
             self._bump("quorum_fills")
-            self._missed_ranks |= set(range(self.num_workers)) - set(ranks)
+            self._missed_ranks |= self._fleet_ranks() - set(ranks)
         return codes_list, stalenesses, losses, ranks, fill_target, short
 
     def _effective_deadline(self) -> float:
@@ -704,8 +727,9 @@ class AsyncPS:
     def _apply_weighted(self, stacked, stalenesses, ranks, data,
                         n_target: "int | None" = None):
         """Reduce + update on already-stacked codes — the one aggregation
-        entry point.  ``n_target`` is the fill target the contribution
-        count renormalizes to (default: the quota)."""
+        entry point of the in-process and the TCP deployments.
+        ``n_target`` is the fill target the contribution count
+        renormalizes to (default: the quota)."""
         n = len(stalenesses)
         n_target = self.quota if n_target is None else n_target
         w = self._contrib_weights(stalenesses, ranks)

@@ -17,7 +17,7 @@ class PSRuntimeError(RuntimeError):
 
 
 class NotCompiledError(PSRuntimeError):
-    """A train entry point was called before ``compile_step``."""
+    """A train/serve entry point was called before ``compile_step``."""
 
 
 class WorkerFailedError(PSRuntimeError):
@@ -28,6 +28,37 @@ class WorkerFailedError(PSRuntimeError):
 class FleetDeadError(PSRuntimeError):
     """The worker fleet is gone: every worker exited without producing
     gradients, or no gradient arrived within the idle timeout."""
+
+
+class FillStarvedError(FleetDeadError):
+    """A rank-distinct fill can never complete with the connected fleet
+    (fewer distinct eligible ranks than the fill target, and no quorum
+    configured to close fills short)."""
+
+
+class BufferMutatedError(PSRuntimeError):
+    """A wire buffer changed between hand-off to the transport and the
+    moment its bytes were about to hit the socket, caught by the
+    ``PS_BUFFER_SENTINEL=1`` debug checksum (`transport.Session`): the
+    frame that would have flushed is not the frame the caller computed.
+    This is the silent-corruption class no CRC catches — the CRC is
+    computed over the already-wrong bytes — and exactly what the
+    zero-copy wire's ownership contract (README "buffer ownership
+    contract", pslint PSL7xx) exists to prevent.  The message names the
+    frame kind and the enqueue site."""
+
+
+class RaceDetectedError(PSRuntimeError):
+    """A lock-discipline violation caught LIVE by the race sanitizer
+    (``PS_RACE_SANITIZER=1`` / ``Session(race_sanitizer=True)``): a
+    ``# pslint: holds(_lock)`` helper ran on a thread that did not hold
+    the session lock — the caller-side obligation the static checkers
+    (pslint PSL1xx/PSL8xx) document but cannot verify.  The dynamic
+    complement of the lockset analysis: the static pass over-approximates
+    interleavings, the sanitizer convicts the one that actually happened
+    (with the helper name and the offending thread in the message).  A
+    RuntimeError subclass, so the transport reconnect ladders (which
+    retry ConnectionError/OSError only) never swallow it."""
 
 
 class NativeToolchainError(PSRuntimeError):

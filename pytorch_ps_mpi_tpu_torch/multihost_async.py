@@ -1,0 +1,1567 @@
+"""Multi-host asynchronous PS — AsySG-InCon across processes, over TCP.
+
+Counterpart of `pytorch_ps_mpi_tpu/multihost_async.py`, its single-PS
+deployment.  The reference's async design is multi-node: rank 0 receives
+gradients from any source until a quota, steps, and re-broadcasts params
+with inconsistent reads.  `async_ps.AsyncPS` runs that algorithm within
+one process (workers are threads); here the PS is a process serving
+parameters and consuming gradients over TCP, and each worker is an
+independent process, on another host or on the same card, that pulls
+params, computes grad + encode on its device and pushes back only the
+*coded* payload, serialized by the port's copy of the native pipeline
+(`native.serializer`).
+
+The wire is the JAX package's protocol v12, and its frame heads are byte
+for byte the JAX package's for the same values: the ``<II`` length/CRC
+header (`transport`), PSA's fields, PARM's ``version | credits | codec``
+and GRAD's ``bucket | n_buckets | seq | version | loss``.  The payloads
+differ: the port's tree frame is ``PSTP`` where the JAX package's
+(``PST2``) pickles a JAX ``PyTreeDef``, so a peer of the other package
+fails loudly at its first payload — a port worker raises
+`native.serializer.ForeignTreeFrameError` at its first PARM, and a
+JAX-framed GRAD costs its own connection at a port server (counted in
+``quarantined_frames``).  Code trees are keyed by the port's parameter
+names; an order-dependent code is encoded in flax's element order
+(`utils.interop.jax_order`), as the in-process PS does.
+
+Frames (layouts in the JAX module's docstring):
+
+* worker → PS ``HELO | flags | [prior_rank u32 if flags&1 |
+  assigned_rank u32 if flags&2] | token`` → ``PSA | version | rank u32 |
+  auth u8 | shard u16 | num_shards u16 | plan_digest u64 | credits u32 |
+  wire_flags u8 | codec name`` (``NOAU`` on a bad token); flag 4 books a
+  rank-less control connection;
+* ``PULL | have u64`` → ``DONE`` or ``PARM | version u64 | credits u32 |
+  codec u8 | [params]``, empty when ``have`` is the served version; each
+  version is encoded once (``_parm_cache``) and fanned out;
+* ``GRAD | 0 u16 | 1 u16 | seq u64 | version u64 | loss f64 | codes``
+  (no reply), deduplicated per rank by ``seq``;
+* ``BEAT`` (no reply); ``SPLN`` → ``SPLN`` with an empty plan.
+
+Fault tolerance as in the JAX module: CRC-failed frames are frame-local
+drops, silent ranks are evicted and the quota clamps, a reconnect
+re-books its rank (`utils.backoff.Backoff`), admission sheds stale or
+duplicate frames before decode under queue pressure, a credit window
+bounds each sender (`transport.Session`), multi-MB decodes run on a small
+off-GIL pool, and the serve loop auto-checkpoints every N updates in the
+port's on-disk format (`utils.checkpoint`) with the serving version and
+the rank allocation, so a killed PS resumes with continuous versions.
+
+Not ported yet, and refused by name (a refused frame costs only its own
+connection and is counted in ``quarantined_frames``): REPL/ACKR, PROM and
+SNAP (hot standby and fleet snapshots), AGGR and HELO flags 8/16 (the
+hierarchy), SUBS/DELT and HELO flag 32 (the serve tier), and GRAD with
+``n_buckets > 1`` (bucket-streamed gradients).
+
+On the card:
+
+* the serve loop is the only thread of the PS that touches the card:
+  connection, accept and decode-pool threads run framing, CRC and the
+  serializer (ctypes, the interpreter lock released) on host memory only;
+* a fill's codes are stacked on the host into one staging buffer (pinned
+  for a card) and cross in one copy; the update's params come back in one
+  copy into fresh host memory each version — the encode-once PARM cache
+  aliases the served host arrays as iovecs, so they are rebound, never
+  written in place;
+* a worker makes one host-to-device copy of a fresh pull (an unchanged
+  conditional pull reuses its device tensors, keyed by the identity of
+  the pulled host tree) and one device-to-host copy of its codes and loss
+  a gradient, synchronized before they are serialized.
+"""
+
+from __future__ import annotations
+
+import hmac
+import math
+import os
+import queue
+import socket
+import struct
+import sys
+import threading
+import time
+from collections import OrderedDict, deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from . import transport as _transport
+from .async_ps import AsyncPS
+from .errors import FillStarvedError, FleetDeadError, NotCompiledError
+from .native import serializer
+from .ops import codecs as _codecs
+from .ops.codecs import Codec
+from .parallel.mesh import resolve_device
+from .transport import (_CONTROL_RANK, TRANSPORT_ERRORS, Deadline,
+                        DeadlineExpired, FrameCRCError, Session,
+                        frame_header, recv_frame, send_frame)
+from .utils.backoff import Backoff
+from .utils.bytes import bytes_of
+from .utils.flatten import tree_flatten, tree_map, tree_unflatten
+
+_U64 = struct.Struct("<Q")
+_U32 = struct.Struct("<I")
+_U8 = struct.Struct("B")
+_F64 = struct.Struct("<d")
+# GRAD's bucket fields: a whole-tree gradient packs (0, 1).
+_BKT = struct.Struct("<HH")
+
+# The JAX package's protocol version: the frame layouts above.
+PROTOCOL_VERSION = 12
+# Tree frames on the wire are store-framed (no shuffle+LZ: loopback and
+# datacenter links are not thin).
+_WIRE_LEVEL = 0
+# PSA wire_flags: bit 1 = this server speaks the segmented wire.
+_WIRE_SEGMENTED = 1
+# Conditional-PULL "no cached version": an unconditional pull.
+_UNVERSIONED = (1 << 64) - 1
+# Worker-side same-version pacing: after this many consecutive unchanged
+# pulls, the worker yields per further iteration, escalating with the
+# streak — past a couple of in-flight gradients per version every extra
+# one only deepens the server's backlog (staleness, never throughput).
+_SAME_VERSION_PACE = 2
+_SAME_VERSION_YIELD_S = 0.002
+_SAME_VERSION_YIELD_MAX_S = 0.02
+# A worker's heartbeat period, well inside the server's
+# ``eviction_timeout``.
+_HEARTBEAT_S = 2.0
+# Frames at or above this payload size decode on the server's off-GIL
+# pool; smaller ones inline.  A single-CPU host decodes inline always.
+_DECODE_OFFLOAD_MIN = 1 << 16
+try:
+    _USABLE_CPUS = len(os.sched_getaffinity(0))
+except (AttributeError, OSError):  # pragma: no cover - non-Linux
+    _USABLE_CPUS = os.cpu_count() or 1
+# In-flight offloaded decodes per connection.  Must stay strictly below
+# the connection's RecvArena ring depth (3): an offloaded payload is a
+# view into the arena, valid until its slot is refilled nbufs-1 receives
+# later.
+_DECODE_DEPTH = 2
+_RECV_NBUFS = 3
+assert _DECODE_DEPTH < _RECV_NBUFS
+
+# Frames of the JAX protocol whose slices are not ported yet: each costs
+# its own connection, counted in ``quarantined_frames``.
+_REFUSED_FRAMES = {
+    b"REPL": "hot-standby replication",
+    b"PROM": "standby promotion",
+    b"SNAP": "coordinated fleet snapshots",
+    b"AGGR": "hierarchical aggregation",
+    b"SUBS": "the serve tier's snapshot subscriptions",
+}
+_REFUSED_HELO_FLAGS = {8: "a hierarchy aggregator",
+                       16: "a hierarchy direct-fallback worker",
+                       32: "a serve-tier subscriber"}
+
+
+def _not_ported(what: str) -> str:
+    return (f"{what} is not ported to the PyTorch package yet (the "
+            f"single-PS multihost async PS is; the bucket stream, the "
+            f"serve tier, the fleet and standby, and the hierarchy follow)")
+
+
+def control_connect(host: str, port: int, token: "str | None" = None,
+                    timeout: float = 10.0) -> socket.socket:
+    """`transport.control_connect` bound to this protocol version."""
+    return _transport.control_connect(
+        host, port, token=token, timeout=timeout,
+        protocol_version=PROTOCOL_VERSION)
+
+
+# ---------------------------------------------------------------------------
+# Host <-> device trees: one copy each way
+# ---------------------------------------------------------------------------
+
+_ALIGN = 64
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    return math.prod(shape) * dtype.itemsize
+
+
+def _host_leaf(x):
+    """A host leaf as a CPU tensor (numpy arrays are shared, not
+    copied)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _wire_leaf(t: torch.Tensor):
+    """A host tensor as the serializer's leaf: numpy, but for bfloat16
+    (no numpy dtype), which stays a tensor."""
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _staging(specs, device: torch.device):
+    """One host buffer (pinned when it feeds a card) carved into a tensor
+    per ``(shape, dtype)`` spec at 64-byte aligned offsets.  Returns
+    ``(buffer, offsets, views)``; `_ship` moves it in one copy."""
+    offsets, pos = [], 0
+    for shape, dtype in specs:
+        offsets.append(pos)
+        pos += (_nbytes(shape, dtype) + _ALIGN - 1) & ~(_ALIGN - 1)
+    buf = torch.empty(max(pos, 1), dtype=torch.uint8,
+                      pin_memory=device.type == "cuda")
+    return buf, offsets, _carve(buf, offsets, specs)
+
+
+def _carve(buf: torch.Tensor, offsets, specs) -> list:
+    return [buf[o:o + _nbytes(shape, dtype)].view(dtype).view(shape)
+            for o, (shape, dtype) in zip(offsets, specs)]
+
+
+def _ship(buf, offsets, specs, views, device: torch.device) -> list:
+    """The staged tensors on ``device``: one non-blocking copy of the
+    whole buffer (the host views themselves on the CPU)."""
+    if device.type == "cpu":
+        return views
+    return _carve(buf.to(device, non_blocking=True), offsets, specs)
+
+
+def tree_to_device(tree, device: torch.device):
+    """A host tree (numpy or CPU-tensor leaves) on ``device`` in one
+    copy."""
+    leaves, treedef = tree_flatten(tree)
+    host = [_host_leaf(x) for x in leaves]
+    specs = [(tuple(t.shape), t.dtype) for t in host]
+    buf, offsets, views = _staging(specs, device)
+    for v, t in zip(views, host):
+        v.copy_(t)
+    return tree_unflatten(treedef, _ship(buf, offsets, specs, views, device))
+
+
+def stack_to_device(trees, device: torch.device):
+    """The trees of a fill stacked leaf by leaf (a leading contributor
+    dim) on the host, straight into the staging buffer, then on
+    ``device`` in one copy."""
+    flats, treedefs = zip(*(tree_flatten(t) for t in trees))
+    cols = [[_host_leaf(x) for x in col] for col in zip(*flats)]
+    specs = [((len(col),) + tuple(col[0].shape), col[0].dtype)
+             for col in cols]
+    buf, offsets, views = _staging(specs, device)
+    for v, col in zip(views, cols):
+        torch.stack(col, out=v)
+    return tree_unflatten(treedefs[0],
+                          _ship(buf, offsets, specs, views, device))
+
+
+def tree_to_host(tree):
+    """A device tree in fresh host memory with one device-to-host copy
+    (synchronized): the leaves are packed into one device byte buffer at
+    64-byte aligned offsets, copied, and carved into host views.  On the
+    CPU the leaves are detached copies."""
+    leaves, treedef = tree_flatten(tree)
+    leaves = [x.detach() for x in leaves]
+    if not leaves or leaves[0].device.type == "cpu":
+        return tree_unflatten(treedef, [x.clone() for x in leaves])
+    device = leaves[0].device
+    pad = torch.zeros(_ALIGN, dtype=torch.uint8, device=device)
+    parts, offsets, specs, pos = [], [], [], 0
+    for x in leaves:
+        x = x.contiguous()
+        n = x.numel() * x.element_size()
+        offsets.append(pos)
+        specs.append((tuple(x.shape), x.dtype))
+        parts.append(x.reshape(-1).view(torch.uint8))
+        gap = (-n) % _ALIGN
+        if gap:
+            parts.append(pad[:gap])
+        pos += n + gap
+    host_buf = torch.cat(parts).cpu()
+    return tree_unflatten(treedef, _carve(host_buf, offsets, specs))
+
+
+# ---------------------------------------------------------------------------
+# The server
+# ---------------------------------------------------------------------------
+
+class AsyncPSServer(AsyncPS):
+    """The rank-0 process of the multi-host async PS.
+
+    Usage (PS host)::
+
+        srv = AsyncSGDServer(named_params, lr=0.1, quota=8, port=5555)
+        srv.compile_step(loss_fn)          # the code structure to expect
+        history = srv.serve(steps=1000)    # serves until done, then stops
+                                           # workers via DONE on their pulls
+
+    Reuses the in-process `AsyncPS` machinery (codec, update rules, the
+    fill loop, the robust reducers, checkpoint state, timing dicts); only
+    the transport differs — gradients arrive from sockets instead of
+    worker threads.  ``device`` holds the params and optimizer state: the
+    card unless the caller passes ``"cpu"``.
+    """
+
+    def __init__(self, named_params, *, quota: int,
+                 host: str = "127.0.0.1", port: int = 0,
+                 device=None,
+                 token: "str | None" = None,
+                 conn_timeout: float = 60.0,
+                 wire_codec: str = "identity", **kw):
+        device = resolve_device("cuda" if device is None else device)
+        super().__init__(named_params, quota=quota, devices=[device], **kw)
+        # Credit-based flow control: the window advertised in PSA/PARM
+        # replies is the remaining queue room divided across the live
+        # senders (`_advertised_credits`); the net queue is never smaller
+        # than the window.
+        self._credit_window = self.credit_window or max(quota * 2, 8)
+        # An unsharded PS advertises the trivial (0, 1, digest=0) triple
+        # and serves an empty plan over SPLN.
+        self._shard_index, self._shard_count = 0, 1
+        self._plan_digest = 0
+        self._plan_json = b""
+        # A peer that stops mid-frame costs its connection after this
+        # long (healthy workers heartbeat every ~2 s).
+        self.conn_timeout = conn_timeout
+        # Optional shared-secret admission (not encryption): every
+        # message before an authenticated HELO is refused.  "" is unset.
+        self.token = token or None
+        self._listener = socket.create_server((host, port))
+        self.address: "tuple[str, int]" = self._listener.getsockname()[:2]
+        self._conn_threads: "list[threading.Thread]" = []
+        self._net_queue: "queue.Queue" = queue.Queue(
+            maxsize=max(self._credit_window, quota * 2, 8))
+        self._net_stop = threading.Event()
+        # Permanent-shutdown latch: only close() sets it.
+        self._closed = threading.Event()
+        self._next_rank = 0  # guarded by _rank_lock
+        # Lock order: _rank_lock before _stats_lock (the snapshot takes
+        # both); the session send lock is outer to _stats_lock too.
+        self._rank_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        # The leaf-wise serving snapshot (host arrays) and its version —
+        # the surface remote PULLs read.  Only the serve loop writes it,
+        # rebinding existing keys leaf by leaf (mid-update pulls see
+        # mixed leaves: AsySG-InCon); the arrays are never written in
+        # place, since a cached PARM aliases them.
+        self._served = self._host_params()
+        self._served_version = 0
+        # Encode-once PARM fanout: the segment set of the current served
+        # version, built by the first pull at that version.
+        self._parm_lock = threading.Lock()
+        self._parm_cache = None  # guarded by _parm_lock
+        # The server-side parameter wire codec, applied inside the
+        # encode-once cache; validated here, not at the first pull.
+        self._wire_codec = str(wire_codec)
+        self._wire_codec_id = _codecs.wire_codec_id(self._wire_codec)
+        # Off-GIL decode pool (ctypes releases the interpreter lock): a
+        # connection thread is back in recv_into while its previous
+        # frame decodes.  A single-CPU host decodes inline.
+        self._decode_pool = ThreadPoolExecutor(
+            max_workers=min(2, max(1, _USABLE_CPUS - 1)),
+            thread_name_prefix="ps-decode")
+        self._decode_offload_min: "int | None" = (
+            _DECODE_OFFLOAD_MIN if _USABLE_CPUS > 1 else None)
+        self._idle_timeout = 300.0
+        self._workers_seen = 0  # guarded by _rank_lock
+        self._conn_drops = 0  # guarded by _stats_lock
+        self._last_drop: "BaseException | None" = None
+        self._last_drop_warn = 0.0
+        self._serve_t0: "float | None" = None
+        self._fill_next_step = 0  # guarded by _stats_lock
+        # Set when a FaultPlan kills this PS: shutdown is then abrupt (no
+        # DONE on pending PULLs), so workers reconnect to its successor.
+        self._dying = False
+        # Per-rank liveness (guarded by _rank_lock): last-seen time, live
+        # connection count, the live/evicted partition the quota clamps
+        # to, and the high-water GRAD seq for dedup.
+        self._last_seen: "dict[int, float]" = {}
+        self._conns_for_rank: "dict[int, int]" = {}
+        self._live_ranks: "set[int]" = set()
+        self._evicted: "set[int]" = set()
+        self._last_seq: "dict[int, int]" = {}
+        # Transport counters on top of the admission counters `AsyncPS`
+        # installs (connection threads bump them: `_bump` takes a lock).
+        self.fault_stats.update({
+            "evictions": 0, "reconnects": 0, "crc_dropped": 0,
+            "quarantined_frames": 0, "accept_errors": 0,
+            "duplicate_dropped": 0, "evicted_dropped": 0,
+            "dropped_queue_full": {},
+        })
+
+    # -- the published host params --------------------------------------------
+
+    def _host_params(self) -> "dict[str, Any]":
+        """The params in fresh host memory, one copy (the serializer's
+        leaves: numpy, a bf16 leaf a CPU tensor)."""
+        return {n: _wire_leaf(t)
+                for n, t in tree_to_host(self.params).items()}
+
+    def _publish(self) -> None:
+        """Rebind the served leaves to this update's params (one copy,
+        fresh host memory) and advance the version."""
+        host = self._host_params()
+        for n, a in host.items():   # leaf by leaf: InCon reads
+            self._served[n] = a
+        self._served_version += 1
+
+    # -- the code structure GRAD payloads must carry --------------------------
+
+    def compile_step(self, loss_fn) -> None:
+        super().compile_step(loss_fn)
+        # A worker running another codec would enqueue a mismatched tree
+        # that explodes inside the serve loop's stack/apply; validating
+        # at decode costs only the bad connection.
+        with torch.no_grad():
+            dummy = OrderedDict(
+                (n, self.code.encode(torch.zeros(shape, dtype=dtype,
+                                                 device=self.ps_device)))
+                for n, (shape, dtype) in self._metas.items())
+        leaves, self._code_treedef = tree_flatten(dummy)
+        self._code_leaf_meta = [(tuple(x.shape), x.dtype) for x in leaves]
+        self._code_nbytes = sum(x.numel() * x.element_size()
+                                for x in leaves)
+
+    def _validate_codes(self, codes) -> None:
+        leaves, treedef = tree_flatten(codes)
+        meta = [(tuple(x.shape), x.dtype) for x in leaves]
+        if treedef != self._code_treedef or meta != self._code_leaf_meta:
+            raise ValueError(
+                "gradient payload does not match the server codec's code "
+                "structure (worker running a different codec?)")
+
+    def _decode_codes(self, payload):
+        """CRC-verify + decode + validate one GRAD payload (host only: the
+        work the decode pool runs off the connection thread)."""
+        codes = tree_map(_host_leaf, serializer.loads(payload))
+        self._validate_codes(codes)
+        return codes
+
+    def _norm_fn(self, codes):
+        return super()._norm_fn(
+            tree_map(lambda x: x.to(self.ps_device), codes))
+
+    # -- rank liveness bookkeeping --------------------------------------------
+
+    def _register_conn(self, prior: "int | None",
+                       assigned: "int | None" = None) -> int:
+        """Book an authenticated HELO: a fresh worker gets the next rank;
+        a reconnect (``prior`` set) re-books the same rank, un-evicting
+        it; ``assigned`` books a rank minted elsewhere verbatim."""
+        now = time.monotonic()
+        with self._rank_lock:
+            if prior is not None:
+                rank = prior
+                self._next_rank = max(self._next_rank, rank + 1)
+            elif assigned is not None:
+                rank = assigned
+                self._next_rank = max(self._next_rank, rank + 1)
+                if rank not in self._last_seen:
+                    self._workers_seen += 1
+            else:
+                rank = self._next_rank
+                self._next_rank += 1
+                self._workers_seen += 1
+            self._live_ranks.add(rank)
+            self._evicted.discard(rank)
+            self._last_seen[rank] = now
+            self._conns_for_rank[rank] = \
+                self._conns_for_rank.get(rank, 0) + 1
+        if prior is not None:
+            self._bump("reconnects")
+        return rank
+
+    def _release_conn(self, rank: int) -> None:
+        with self._rank_lock:
+            self._conns_for_rank[rank] = \
+                self._conns_for_rank.get(rank, 1) - 1
+
+    def _mark_alive(self, rank: int) -> None:
+        """Refresh a rank's last-seen age, and reverse its eviction when
+        traffic resumed on a connection that never died."""
+        with self._rank_lock:
+            self._last_seen[rank] = time.monotonic()
+            if rank in self._evicted:
+                self._evicted.discard(rank)
+                self._live_ranks.add(rank)
+                print(f"async PS: worker rank {rank} resumed after "
+                      f"eviction — re-admitted", file=sys.stderr)
+
+    def _bump(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:
+            self.fault_stats[key] += n
+
+    def _evict_dead(self, eviction_timeout: float,
+                    dead_conn_grace: float) -> None:
+        """Evict live ranks that went silent: past ``eviction_timeout``
+        with no frame, or past ``dead_conn_grace`` with no connection."""
+        now = time.monotonic()
+        with self._rank_lock:
+            dead = []
+            for r in list(self._live_ranks):
+                age = now - self._last_seen.get(r, now)
+                gone = self._conns_for_rank.get(r, 0) <= 0
+                if age > eviction_timeout or (gone and age > dead_conn_grace):
+                    self._live_ranks.discard(r)
+                    self._evicted.add(r)
+                    dead.append(r)
+        for r in dead:
+            self._bump("evictions")
+            # A ghost frozen at its pre-death pace would skew the fleet
+            # medians behind latency weighting and the adaptive deadline.
+            self._latency.forget(r)
+            print(f"async PS: evicted worker rank {r} "
+                  f"(silent/disconnected)", file=sys.stderr)
+
+    def _effective_quota(self) -> int:
+        """The quota clamped to the live fleet once an eviction has
+        happened (during a healthy ramp-up the configured quota stands),
+        shrunk by quarantined ranks under rank-distinct fills, never below
+        the reducer's breakdown size (`_shrink_floor`)."""
+        with self._rank_lock:
+            if not self._evicted:
+                q = self.quota
+            else:
+                q = max(1, min(self.quota, len(self._live_ranks) or 1))
+        if self._rank_distinct and self._scoreboard is not None:
+            nq = len(self._scoreboard.quarantined_ranks())
+            q = max(1, q - nq)
+        return self._shrink_floor(q, "eviction/quarantine")
+
+    def _eligible_rank_count(self) -> int:
+        with self._rank_lock:
+            live = set(self._live_ranks) - self._evicted
+        if self._scoreboard is not None:
+            live -= set(self._scoreboard.quarantined_ranks())
+        return len(live)
+
+    # -- fill-admission hooks (the shared loop is `AsyncPS._fill_gradients`) --
+
+    def _fill_target(self) -> int:
+        return self._effective_quota()
+
+    def _fleet_ranks(self) -> "set[int]":
+        with self._rank_lock:
+            return set(self._live_ranks)
+
+    def _drop_before_admit(self, rank) -> bool:
+        """An evicted rank's in-flight gradient must not satisfy a fill;
+        re-admission happens on live traffic (`_mark_alive`)."""
+        if rank is None:
+            return False
+        with self._rank_lock:
+            evicted_now = rank in self._evicted
+        if evicted_now:
+            self._bump("evicted_dropped")
+        return evicted_now
+
+    def _check_fill_starved(self, n_filled: int, t0: float) -> None:
+        """With no quorum to close short, a fill holding one frame from
+        every eligible rank that still needs more distinct ranks can never
+        complete: fail after ``idle_timeout`` instead of spinning."""
+        eligible = self._eligible_rank_count()
+        if (self.quorum is None and eligible > 0
+                and n_filled >= eligible
+                and time.perf_counter() > t0 + self._idle_timeout):
+            raise FillStarvedError(
+                f"fill starved for {self._idle_timeout:.0f}s: aggregate="
+                f"{self.aggregate!r} admits one contribution per rank per "
+                f"fill and the fill target is {self._effective_quota()}, "
+                f"but only {eligible} distinct eligible rank(s) are "
+                f"connected — add workers, lower --quota, or set "
+                f"--quorum/--fill-deadline")
+
+    def _fault_stats_snapshot(self) -> "dict[str, Any]":
+        now = time.monotonic()
+        with self._rank_lock, self._stats_lock:
+            snap = self._base_fault_snapshot()
+            snap["conn_drops"] = self._conn_drops
+            snap["workers_seen"] = self._workers_seen
+            drops_total = sum(
+                self.fault_stats["dropped_queue_full"].values())
+            elapsed = (time.perf_counter() - self._serve_t0
+                       if self._serve_t0 is not None else 0.0)
+            snap["dropped_queue_full_rate"] = (
+                round(drops_total / elapsed, 4) if elapsed > 0 else 0.0)
+            snap["live_ranks"] = sorted(self._live_ranks)
+            snap["evicted_ranks"] = sorted(self._evicted)
+            snap["heartbeat_ages"] = {
+                r: round(now - t, 3) for r, t in self._last_seen.items()}
+        return snap
+
+    # -- connection handling --------------------------------------------------
+
+    def _accept_loop(self):
+        _transport.accept_pump(
+            self._listener, self._net_stop, self._conn_loop,
+            on_error=lambda: self._bump("accept_errors"),
+            threads=self._conn_threads)
+
+    def _advertised_credits(self) -> int:
+        """The remaining net-queue room shared across the live senders:
+        at least one credit per sender while any room exists, 0 when the
+        server is saturated (senders stall-then-shed at their end)."""
+        room = self._credit_window - self._net_queue.qsize()
+        if room <= 0:
+            return 0
+        with self._rank_lock:
+            live = len(self._live_ranks)
+        return max(1, room // max(1, live))
+
+    def _under_pressure(self) -> bool:
+        """Queue at >= half the credit window: pre-decode admission
+        shedding turns on."""
+        return self._net_queue.qsize() * 2 >= self._credit_window
+
+    def _shed_before_decode(self, rank, seq: int, version: int) -> bool:
+        """Under queue pressure, a GRAD frame the policy would reject
+        anyway (stale beyond the clamp, or a per-rank duplicate) is shed
+        from its header alone, before decode (``admission_shed``)."""
+        if rank is None or not self._under_pressure():
+            return False
+        stale = (self.max_staleness is not None
+                 and self._served_version - version > self.max_staleness)
+        with self._rank_lock:
+            dup = seq <= self._last_seq.get(rank, -1)
+        if stale or dup:
+            self._bump("admission_shed")
+            return True
+        return False
+
+    def _burn_seq(self, rank: int, seq: int) -> bool:
+        """Per-rank monotone dedup at receive time, in wire order: True
+        when the frame is fresh."""
+        with self._rank_lock:
+            if seq <= self._last_seq.get(rank, -1):
+                return False
+            self._last_seq[rank] = seq
+            return True
+
+    def _recv_arena_hint(self) -> int:
+        """Each receive slot pre-sized to the expected GRAD frame."""
+        total = getattr(self, "_code_nbytes", None)
+        if not total:
+            return 1 << 16
+        return int(total) + 256 * len(self._code_leaf_meta) + 4096
+
+    def _parm_payload(self):
+        """Encode-once PARM fanout: ``(version, meta_blob, segments)`` of
+        the current served version, encoded by the first pull at that
+        version (``parm_encodes``) and reused by every later one
+        (``parm_fanout_reuse``).  The snapshot read races the serve
+        loop's leaf-wise publish: the inconsistent read of AsySG-InCon,
+        paid once a version."""
+        with self._parm_lock:
+            version = self._served_version
+            cache = self._parm_cache
+            fresh = cache is None or cache[0] != version
+            if fresh:
+                leaves = OrderedDict(
+                    (n, self._served[n]) for n in self._served)
+                wire = _codecs.encode_wire_tree(self._wire_codec, leaves)
+                meta_blob, segs = serializer.encode_segments(
+                    wire, level=_WIRE_LEVEL)
+                cache = (version, meta_blob, segs)
+                self._parm_cache = cache
+                raw = _codecs.tree_raw_nbytes(leaves)
+        if fresh:
+            self._bump("parm_encodes")
+            self._bump("parm_bytes_raw", raw)
+            self._bump("parm_bytes_wire", cache[2].wire_len)
+        else:
+            self._bump("parm_fanout_reuse")
+        return cache
+
+    # -- the per-connection decode pipeline -----------------------------------
+
+    def _finish_decode(self, decodes) -> None:
+        """Complete the oldest in-flight decode and enqueue its item —
+        FIFO, so enqueue order stays receive order per connection."""
+        fut, tail, rank, _frame = decodes.popleft()
+        try:
+            codes = fut.result()
+        except Exception:
+            self._bump("quarantined_frames")
+            raise
+        self._enqueue_grad((codes, *tail), rank)
+
+    def _dispatch_decode(self, decodes, payload, tail,
+                         rank: "int | None", frame_idx: int) -> None:
+        """Decode one admitted GRAD payload and enqueue ``(codes,
+        *tail)``: multi-MB frames on the decode pool (``decode_offloaded``),
+        at most `_DECODE_DEPTH` deep per connection; small ones inline.
+        ``frame_idx`` is the arena's receive count at dispatch, which the
+        connection loop's pre-receive drain checks."""
+        if (self._decode_offload_min is not None
+                and payload.nbytes >= self._decode_offload_min):
+            while len(decodes) >= _DECODE_DEPTH:
+                self._finish_decode(decodes)
+            decodes.append((self._decode_pool.submit(self._decode_codes,
+                                                     payload),
+                            tail, rank, frame_idx))
+            self._bump("decode_offloaded")
+            while decodes and decodes[0][0].done():
+                self._finish_decode(decodes)
+            return
+        while decodes:  # keep per-connection enqueue order
+            self._finish_decode(decodes)
+        try:
+            codes = self._decode_codes(payload)
+        except Exception:
+            self._bump("quarantined_frames")
+            raise
+        self._enqueue_grad((codes, *tail), rank)
+
+    def _enqueue_grad(self, item, rank: "int | None",
+                      patience: "float | None" = None) -> bool:
+        """Bounded put with backpressure; a gradient abandoned because the
+        run is shutting down, or stuck behind a full queue past the
+        patience budget (``conn_timeout``), is counted per rank and
+        reported (rate-limited live, once per worker at the end)."""
+        wait = Deadline(self.conn_timeout if patience is None
+                        else patience)
+        while not self._net_stop.is_set() and not wait.expired():
+            try:
+                self._net_queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        now = time.monotonic()
+        with self._stats_lock:
+            d = self.fault_stats["dropped_queue_full"]
+            key = -1 if rank is None else rank
+            d[key] = d.get(key, 0) + 1
+            total = sum(d.values())
+            warn = now - self._last_drop_warn > 5.0
+            if warn:
+                self._last_drop_warn = now
+        if warn:
+            print(f"async PS warning: net queue full — {total} "
+                  f"gradient(s) dropped so far (consumer overloaded or "
+                  f"shutting down; see dropped_queue_full_rate in "
+                  f"fault_stats)", file=sys.stderr)
+        return False
+
+    def _refuse(self, what: str):
+        """A frame this package does not take yet: counted, and it costs
+        only its own connection."""
+        self._bump("quarantined_frames")
+        return ValueError(_not_ported(what))
+
+    def _conn_loop(self, conn: socket.socket):
+        """Serve one connection.  Any failure (disconnect, malformed or
+        refused frame, stray bytes) is connection-local: it closes this
+        socket and is counted, never aborting the run.  A frame failing
+        its CRC on an authenticated worker connection is dropped and
+        counted; the connection lives on (up to a bounded streak)."""
+        authed = self.token is None
+        rank: "int | None" = None
+        crc_streak = 0
+        # Every frame lands in a rotating receive ring: ``msg`` is a view
+        # into it, valid for nbufs-1 further receives.
+        arena = _transport.RecvArena(self._recv_arena_hint(),
+                                     nbufs=_RECV_NBUFS)
+        decodes: "deque" = deque()
+        try:
+            with conn:
+                if self.conn_timeout:
+                    conn.settimeout(self.conn_timeout)
+                try:
+                    conn.setsockopt(socket.IPPROTO_TCP,
+                                    socket.TCP_NODELAY, 1)
+                except OSError:
+                    pass  # non-TCP test sockets (socketpair)
+                while True:
+                    # Finish any offloaded decode whose payload slot the
+                    # next receive would overwrite (every frame rotates
+                    # the ring, control frames included).
+                    while (decodes and arena.frames - decodes[0][3]
+                            >= arena.window):
+                        self._finish_decode(decodes)
+                    try:
+                        msg = arena.recv_frame(conn)
+                    except FrameCRCError:
+                        self._bump("crc_dropped")
+                        crc_streak += 1
+                        if rank is None or crc_streak > 16:
+                            raise
+                        continue
+                    crc_streak = 0
+                    kind, body = bytes(msg[:4]), msg[4:]
+                    if kind == b"HELO":
+                        flags = body[0] if body else 0
+                        off = 1 if body else 0
+                        for bit, what in _REFUSED_HELO_FLAGS.items():
+                            if flags & bit:
+                                raise self._refuse(
+                                    f"HELO flag {bit} ({what})")
+                        prior: "int | None" = None
+                        assigned: "int | None" = None
+                        if flags & 1:
+                            (prior,) = struct.unpack_from("<I", body, off)
+                            off += 4
+                        elif flags & 2:
+                            (assigned,) = struct.unpack_from(
+                                "<I", body, off)
+                            off += 4
+                        if self.token is not None:
+                            if not hmac.compare_digest(
+                                    bytes(body[off:]),
+                                    self.token.encode()):
+                                send_frame(conn, b"NOAU")
+                                raise ValueError("bad admission token")
+                        authed = True
+                        if flags & 4:
+                            # A control connection: authenticated but
+                            # rank-less (no worker identity, eviction or
+                            # workers_seen entry).
+                            rank = None
+                        else:
+                            rank = self._register_conn(prior, assigned)
+                        send_frame(conn, b"PSA"
+                                   + bytes([PROTOCOL_VERSION])
+                                   + struct.pack("<I",
+                                                 _CONTROL_RANK
+                                                 if rank is None else rank)
+                                   + (b"\x01" if self.token is not None
+                                      else b"\x00")
+                                   + struct.pack("<HHQ",
+                                                 self._shard_index,
+                                                 self._shard_count,
+                                                 self._plan_digest)
+                                   + _U32.pack(self._advertised_credits())
+                                   + bytes([_WIRE_SEGMENTED])
+                                   + self.code.name.encode())
+                    elif not authed:
+                        raise ValueError(
+                            f"{kind!r} before authenticated HELO")
+                    elif kind == b"BEAT":
+                        if rank is not None:
+                            self._mark_alive(rank)
+                    elif kind == b"SPLN":
+                        if rank is not None:
+                            self._mark_alive(rank)
+                        send_frame(conn, b"SPLN" + self._plan_json)
+                    elif kind in _REFUSED_FRAMES:
+                        raise self._refuse(
+                            f"{kind.decode()} frames "
+                            f"({_REFUSED_FRAMES[kind]})")
+                    elif kind == b"PULL":
+                        if rank is not None:
+                            self._mark_alive(rank)
+                        if self._net_stop.is_set():
+                            if self._dying:
+                                return  # a crash: vanish, like kill -9
+                            send_frame(conn, b"DONE")
+                            return
+                        have = None
+                        if len(body) >= _U64.size:
+                            (have,) = _U64.unpack_from(body, 0)
+                        version_now = self._served_version
+                        if have is not None and have == version_now:
+                            send_frame(conn, b"PARM"
+                                       + _U64.pack(version_now)
+                                       + _U32.pack(
+                                           self._advertised_credits())
+                                       + _U8.pack(self._wire_codec_id))
+                            self._bump("parm_unchanged")
+                            continue
+                        version, meta_blob, segs = self._parm_payload()
+                        head = (b"PARM" + _U64.pack(version)
+                                + _U32.pack(self._advertised_credits())
+                                + _U8.pack(self._wire_codec_id))
+                        _transport.send_frame_segments(
+                            conn, [head, meta_blob, *segs],
+                            cached=(segs.wire_crc, segs.wire_len))
+                        self._bump("segments_sent", len(segs) + 2)
+                    elif kind == b"GRAD":
+                        if rank is not None:
+                            self._mark_alive(rank)
+                        try:
+                            bucket, n_buckets = _BKT.unpack_from(body, 0)
+                            seq = _U64.unpack_from(body, _BKT.size)[0]
+                            version = _U64.unpack_from(
+                                body, _BKT.size + _U64.size)[0]
+                            loss = _F64.unpack_from(
+                                body, _BKT.size + 2 * _U64.size)[0]
+                            if n_buckets < 1 or bucket >= n_buckets:
+                                raise ValueError(
+                                    f"bad bucket header "
+                                    f"({bucket}/{n_buckets})")
+                        except Exception:
+                            self._bump("quarantined_frames")
+                            raise
+                        if n_buckets > 1:
+                            raise self._refuse(
+                                "a bucket-streamed GRAD (n_buckets "
+                                f"{n_buckets})")
+                        if self._shed_before_decode(rank, seq, version):
+                            continue
+                        if rank is not None and not self._burn_seq(rank,
+                                                                   seq):
+                            self._bump("duplicate_dropped")
+                            continue
+                        self._dispatch_decode(
+                            decodes,
+                            body[_BKT.size + 2 * _U64.size + _F64.size:],
+                            (version, rank, loss), rank, arena.frames)
+                    else:
+                        self._bump("quarantined_frames")
+                        raise ValueError(f"unknown message kind {kind!r}")
+        except ConnectionError:
+            pass  # normal worker departure
+        except Exception as exc:
+            with self._stats_lock:
+                self._conn_drops += 1
+                self._last_drop = exc
+        finally:
+            # Gradients already received (and seq-burned) reach the queue
+            # even when the connection died right after delivering them.
+            while decodes:
+                try:
+                    self._finish_decode(decodes)
+                except Exception:
+                    break
+            if rank is not None:
+                self._release_conn(rank)
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    def load_state_dict(self, sd: dict) -> None:
+        super().load_state_dict(sd)
+        # Republish (remote PULLs read the serving snapshot), and drop the
+        # encode-once cache: a restored version number may match with
+        # other bytes.
+        self._served = self._host_params()
+        with self._parm_lock:
+            self._parm_cache = None
+
+    def _resume_extra(self) -> dict:
+        """What every durable copy of this server carries: the serving
+        version (continuous staleness across a restart) and the rank
+        allocation (no rank minted twice)."""
+        with self._rank_lock:
+            next_rank, workers_seen = self._next_rank, self._workers_seen
+        return {"served_version": self._served_version,
+                "next_rank": next_rank,
+                "workers_seen": workers_seen}
+
+    def _apply_resume_extra(self, extra: dict) -> None:
+        self._served_version = int(extra.get("served_version") or 0)
+        with self._rank_lock:
+            self._next_rank = max(self._next_rank,
+                                  int(extra.get("next_rank") or 0))
+            self._workers_seen = max(self._workers_seen,
+                                     int(extra.get("workers_seen") or 0))
+
+    def resume_from(self, path) -> int:
+        """Restore optimizer state and the serving version from an
+        auto-checkpoint (``serve(checkpoint_every=...)``).  Returns the
+        global step to continue from — pass it back as ``start_step``."""
+        from .utils import checkpoint as _checkpoint
+
+        info = _checkpoint.load_optimizer(path, self)
+        self._apply_resume_extra(info.get("extra") or {})
+        return int(info.get("step") or 0)
+
+    def _auto_checkpoint(self, path, step: int) -> None:
+        from .utils import checkpoint as _checkpoint
+
+        _checkpoint.save_optimizer(path, self, step=step,
+                                   extra=self._resume_extra())
+
+    def applied_updates(self) -> int:
+        """Updates applied so far (the current fill boundary)."""
+        with self._stats_lock:
+            return self._fill_next_step
+
+    # -- the PS loop ----------------------------------------------------------
+
+    def _stack(self, batch_codes):
+        """A fill's host codes stacked on the host, on the PS's device in
+        one copy."""
+        return stack_to_device(batch_codes, self.ps_device)
+
+    def serve(self, steps: int, log_every: int = 0,
+              idle_timeout: float = 300.0, *,
+              eviction_timeout: float = 30.0,
+              dead_conn_grace: float = 2.0,
+              checkpoint_path=None, checkpoint_every: int = 0,
+              start_step: int = 0,
+              warmup_steps: int = 0) -> "dict[str, Any]":
+        """Serve until ``steps`` updates have been applied, then stop
+        (every later PULL answers ``DONE``, shutting workers down).
+
+        ``idle_timeout``: the longest wait between gradients — a dead (or
+        never-started) fleet errors out instead of hanging.
+        ``eviction_timeout`` / ``dead_conn_grace``: a rank past the
+        timeout with no frame, or past the grace with no connection, is
+        evicted and the quota clamps to the live fleet.
+        ``checkpoint_every``/``checkpoint_path``: an atomic checkpoint
+        every N updates — a killed PS restarts, calls `resume_from` and
+        serves the rest while workers reconnect.  ``warmup_steps``:
+        updates before the steady-state clock starts
+        (``history["steady_wall_time"]``)."""
+        if self._worker_fn is None:
+            raise NotCompiledError(
+                "call compile_step(loss_fn) before serve()")
+        if checkpoint_every and not checkpoint_path:
+            raise ValueError("checkpoint_every needs a checkpoint_path")
+        if self._closed.is_set():
+            raise FleetDeadError(
+                "serve() called on a closed server — this PS was shut "
+                "down permanently")
+        self._net_stop.clear()
+        accept = threading.Thread(target=self._accept_loop, daemon=True,
+                                  name="async-ps-accept")
+        accept.start()
+        poll = min(0.5, max(idle_timeout / 4.0, 0.02))
+        self._idle_timeout = idle_timeout
+        with self._stats_lock:
+            self._fill_next_step = start_step
+        idle = Deadline(idle_timeout)
+        plan = self.fault_plan
+
+        def receive(timeout):
+            try:
+                item = self._net_queue.get(timeout=timeout)
+            except queue.Empty:
+                if self._closed.is_set():
+                    raise FleetDeadError(
+                        "PS closed while serving — shutdown requested "
+                        "before the run completed")
+                self._evict_dead(eviction_timeout, dead_conn_grace)
+                if idle.expired():
+                    self._bump("deadline_expired")
+                    with self._stats_lock:
+                        conn_drops = self._conn_drops
+                        last_drop = self._last_drop
+                    with self._rank_lock:
+                        workers_seen = self._workers_seen
+                    detail = (f"; last dropped connection: {last_drop!r}"
+                              if last_drop else "")
+                    raise FleetDeadError(
+                        f"no gradient received for {idle_timeout:.0f}s "
+                        f"({workers_seen} workers ever connected, "
+                        f"{conn_drops} connections dropped{detail}) — "
+                        f"fleet dead or never started") from last_drop
+                return None
+            idle.restart()
+            if plan is not None and plan.slow_consumer > 0:
+                time.sleep(plan.slow_consumer)
+                self._bump("slow_consumed")
+            return item
+
+        def drain_nowait():
+            try:
+                return self._net_queue.get_nowait()
+            except queue.Empty:
+                return None
+
+        history: "dict[str, Any]" = {"losses": [], "staleness": [],
+                                     "versions": [], "contributors": [],
+                                     "grads_consumed": 0}
+        t_start = time.perf_counter()
+        t_steady = t_start
+        self._serve_t0 = t_start
+        try:
+            for update in range(steps):
+                if update == warmup_steps and warmup_steps > 0:
+                    t_steady = time.perf_counter()
+                gstep = start_step + update
+                # The kill fires only if this serve() started before the
+                # planned step: a relaunch with --resume lands at
+                # start_step == kill_ps_at and must not die again.
+                if (plan is not None and plan.should_kill_ps(gstep)
+                        and (gstep > start_step or start_step == 0)):
+                    from .utils.faults import SimulatedCrash
+                    self._dying = True
+                    raise SimulatedCrash(
+                        f"FaultPlan: PS killed before update {gstep}")
+                data: "dict[str, float]" = {}
+                t0 = time.perf_counter()
+                with self._stats_lock:
+                    self._fill_next_step = gstep
+                self._evict_dead(eviction_timeout, dead_conn_grace)
+                idle.restart()
+                (batch_codes, stalenesses, losses, ranks, fill_target,
+                 _short) = self._fill_gradients(
+                    receive, drain_nowait,
+                    current_version=lambda: self._served_version,
+                    base_timeout=poll)
+                data["comm_wait"] = time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    stacked = self._stack(batch_codes)
+                    self.params, self.state = self._apply_weighted(
+                        stacked, stalenesses, ranks, data,
+                        n_target=fill_target)
+                data["optim_step_time"] = time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                # One copy to fresh host memory (it waits for the update
+                # on the card), then the leaf-wise publish.
+                self._publish()
+                data["isend_time"] = time.perf_counter() - t0
+                data["msg_bytes"] = float(bytes_of(batch_codes[0]))
+
+                mean_loss = float(np.mean(losses))
+                mean_stale = float(np.mean(stalenesses))
+                history["losses"].append(mean_loss)
+                history["staleness"].append(mean_stale)
+                history["versions"].append(self._served_version)
+                history["contributors"].append(list(ranks))
+                history["grads_consumed"] += len(batch_codes)
+                self.timings.append(data)
+                if checkpoint_every and (gstep + 1) % checkpoint_every == 0:
+                    self._auto_checkpoint(checkpoint_path, gstep + 1)
+                if log_every and (update + 1) % log_every == 0:
+                    print(f"async update {update + 1:5d}  loss "
+                          f"{mean_loss:.4f}  staleness {mean_stale:.2f}")
+        finally:
+            self._net_stop.set()
+            self._listener.close()
+            accept.join(timeout=5.0)
+            with self._stats_lock:
+                drops = dict(self.fault_stats["dropped_queue_full"])
+            for r in sorted(drops):
+                who = "unranked conn" if r == -1 else f"worker rank {r}"
+                print(f"async PS warning: {who}: {drops[r]} gradient(s) "
+                      f"dropped (net queue full at shutdown)",
+                      file=sys.stderr)
+        history["wall_time"] = time.perf_counter() - t_start
+        history["steady_wall_time"] = time.perf_counter() - t_steady
+        history["warmup_steps"] = warmup_steps
+        history["fault_stats"] = self._fault_stats_snapshot()
+        return history
+
+    def close(self, join_timeout: float = 5.0):
+        """Shut down for good: stop serving, close the listener and give
+        the connection threads ``join_timeout`` seconds in all to finish
+        (a thread left inside torch at interpreter exit aborts it)."""
+        self._closed.set()
+        self._net_stop.set()
+        self._decode_pool.shutdown(wait=False)
+        try:
+            self._listener.close()
+        except OSError as exc:  # pragma: no cover - close rarely fails
+            self._bump("accept_errors")
+            with self._stats_lock:
+                self._last_drop = exc
+        end = Deadline(join_timeout)
+        for t in list(self._conn_threads):
+            t.join(end.timeout())
+
+
+class AsyncSGDServer(AsyncPSServer):
+    def __init__(self, named_params, **kw):
+        kw["optim"] = "sgd"
+        super().__init__(named_params, **kw)
+
+
+class AsyncAdamServer(AsyncPSServer):
+    def __init__(self, named_params, **kw):
+        kw["optim"] = "adam"
+        super().__init__(named_params, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The worker
+# ---------------------------------------------------------------------------
+
+class AsyncPSWorker:
+    """A worker process: pull params, grad + encode on the local device,
+    push coded gradients::
+
+        w = AsyncPSWorker("ps-host", 5555, code="blockq")
+        w.run(loss_fn, batch_fn)     # returns when the PS answers DONE
+
+    ``batch_fn(rank, it)`` supplies this worker's ``it``-th local batch
+    (numpy or tensors); the rank is assigned by the server at connect
+    time.  ``device`` is the card unless the caller passes ``"cpu"``: a
+    worker that finds no card raises (it does not fall back to the CPU).
+
+    Transport faults heal instead of killing the worker: a lost
+    connection reconnects with jittered exponential backoff, re-presenting
+    this worker's rank; a PS that stays gone past ``reconnect_retries``
+    attempts ends the run cleanly, as a DONE would.  ``fault_plan``
+    injects deterministic chaos: planned death, NaN gradients, wire
+    mangling of outbound GRAD frames, overload.
+    """
+
+    def __init__(self, host: str, port: int,
+                 code: "Codec | str | None" = None,
+                 device=None,
+                 token: "str | None" = None,
+                 fault_plan=None,
+                 io_timeout: float = 60.0,
+                 reconnect_retries: int = 3,
+                 backoff_base: float = 0.1,
+                 backoff_max: float = 1.0,
+                 op_deadline: "float | None" = None,
+                 credit_cap: "int | None" = None):
+        from .ops.codecs import get_codec
+
+        self.code = get_codec(code)
+        self.device = resolve_device("cuda" if device is None else device)
+        self.token = token or None  # "" behaves exactly like unset
+        self.host, self.port = host, port
+        self.io_timeout = io_timeout
+        self.reconnect_retries = reconnect_retries
+        self.backoff_base = backoff_base
+        self.backoff_max = backoff_max
+        self.fault_plan = fault_plan
+        self.reconnects = 0
+        # Each pull round trip runs under ``Deadline(op_deadline)``; a
+        # blown budget is counted and heals through the reconnect ladder.
+        self.op_deadline = op_deadline
+        self._credit_cap = credit_cap
+        # Worker-side counters; the session's stall/shed counts merge in
+        # via `fault_snapshot` (the JAX worker's keys).
+        self.fault_stats: "dict[str, int]" = {
+            "deadline_expired": 0, "flood_injected": 0,
+            "burst_injected": 0, "parm_unchanged": 0}
+        self.shard_index = 0
+        self.num_shards = 1
+        self.plan_digest = 0
+        # Monotone GRAD sequence id: survives reconnects, so the PS tells
+        # a wire-duplicated frame from a fresh gradient.
+        self._push_seq = 0
+        self.rank: "int | None" = None
+        self._session: "Session | None" = None
+        self._wire_segmented = False
+        # PARM replies land in a receive ring, decoded before the next
+        # receive (nbufs=2).
+        self._recv_arena = _transport.RecvArena(nbufs=2)
+        # Conditional-pull cache: the last decoded (version, host params).
+        self._parm_cache: "tuple[int, Any] | None" = None
+        # The codec's element order per leaf, from the first pull's
+        # shapes (`utils.interop.jax_order`).
+        self._orders: "dict[str, tuple]" = {}
+        # Gradients computed over every run: pushed, or lost to a
+        # transport error (the kernels' launch counts are per computed
+        # gradient).
+        self.grads_computed = 0
+        # Test/diagnostic knob: after a push, pull until the served
+        # version moves past the one the gradient was computed from — with
+        # a quota-1 server, sequential SGD through the wire.  Never the
+        # default: a barrier.
+        self._lockstep = False
+        self._connect(prior_rank=None)
+        self._rng = np.random.default_rng(np.random.SeedSequence(
+            [fault_plan.seed if fault_plan is not None else 0,
+             self.rank, 0xB0FF]))
+        self._mangler = (fault_plan.wire_mangler(self.rank)
+                         if fault_plan is not None
+                         and fault_plan.any_wire_faults() else None)
+
+    # -- the session ----------------------------------------------------------
+
+    @property
+    def sock(self) -> "socket.socket | None":
+        return self._session.sock if self._session is not None else None
+
+    def fault_snapshot(self) -> "dict[str, int]":
+        """This worker's counters plus its session's stall/shed counts —
+        one dict `utils.timing.format_fault_stats` renders."""
+        snap = dict(self.fault_stats)
+        if self._session is not None:
+            for k, v in self._session.stats.items():
+                snap[k] = snap.get(k, 0) + v
+        return snap
+
+    def _connect(self, prior_rank: "int | None") -> None:
+        """Dial the PS and run the HELO handshake under one
+        ``Deadline(io_timeout)``; the session adopts the new socket
+        (credit/pending state and the heartbeat survive a redial).
+        ``prior_rank`` marks a reconnect, so the PS re-books the rank."""
+        dial = Deadline(self.io_timeout)
+        sock = socket.create_connection((self.host, self.port),
+                                        timeout=dial.timeout())
+        try:
+            sock.settimeout(dial.timeout())
+            try:
+                sock.setsockopt(socket.IPPROTO_TCP,
+                                socket.TCP_NODELAY, 1)
+            except OSError:  # pragma: no cover - non-TCP transports
+                pass
+            if prior_rank is not None:
+                flags, extra = 1, struct.pack("<I", prior_rank)
+            else:
+                flags, extra = 0, b""
+            send_frame(sock, b"HELO" + bytes([flags]) + extra
+                       + (self.token.encode() if self.token else b""))
+            reply = recv_frame(sock)
+            if reply == b"NOAU":
+                raise ValueError(
+                    "server refused the admission token (launch the worker "
+                    "with the server's --token)")
+            if reply[:3] != b"PSA":
+                raise ValueError(
+                    "incompatible protocol: the server's HELO reply carries "
+                    "no PSA magic — it speaks a pre-versioning (or foreign) "
+                    "protocol; upgrade both peers to the same release")
+            if reply[3] != PROTOCOL_VERSION:
+                raise ValueError(
+                    f"incompatible protocol version: server speaks "
+                    f"{reply[3]}, this worker speaks {PROTOCOL_VERSION} — "
+                    f"run matching releases on both ends")
+            (rank,) = struct.unpack_from("<I", reply, 4)
+            auth_enforced = reply[8:9] == b"\x01"
+            if self.token and not auth_enforced:
+                raise ValueError(
+                    "this worker was given an admission token but the "
+                    "server is not enforcing one — refusing to run against "
+                    "an open PS port (launch the server with --token)")
+            shard_index, num_shards, plan_digest = struct.unpack_from(
+                "<HHQ", reply, 9)
+            if num_shards > 1:
+                raise ValueError(
+                    f"this server is shard {shard_index} of a "
+                    f"{num_shards}-shard PS fleet; a plain worker would "
+                    f"push full-tree gradients at a slice owner "
+                    f"({_not_ported('the shard router')})")
+            self.shard_index, self.num_shards = shard_index, num_shards
+            self.plan_digest = plan_digest
+            (credits,) = _U32.unpack_from(reply, 21)
+            self._wire_segmented = bool(reply[25] & _WIRE_SEGMENTED)
+            server_codec = reply[26:].decode()
+            if server_codec and server_codec != self.code.name:
+                raise ValueError(
+                    f"codec mismatch: the server decodes {server_codec!r} "
+                    f"codes but this worker encodes {self.code.name!r} — "
+                    f"launch the worker with the server's codec")
+        except BaseException:
+            sock.close()
+            raise
+        if self._session is None:
+            self._session = Session(
+                sock, io_timeout=self.io_timeout,
+                heartbeat_interval=_HEARTBEAT_S,
+                credit_cap=self._credit_cap)
+        else:
+            self._session.adopt(sock)
+        self.rank = rank
+        # Versions are comparable only within one server lifetime: a
+        # restored server may serve an earlier number with other bytes,
+        # so the read cache does not survive the dial.
+        self._parm_cache = None
+        self._session.replenish(credits)
+
+    def _reconnect(self) -> bool:
+        """Jittered backoff redial, re-presenting our rank.  ValueError
+        refusals propagate: a configuration error does not heal."""
+        ladder = Backoff(base=self.backoff_base, maximum=self.backoff_max,
+                         retries=self.reconnect_retries, rng=self._rng)
+        for _attempt in ladder.sleeps():
+            try:
+                self._connect(prior_rank=self.rank)
+            except TRANSPORT_ERRORS:
+                continue
+            self.reconnects += 1
+            return True
+        return False
+
+    def _send(self, payload: bytes) -> None:
+        self._session.send(payload)
+
+    def _push_grad(self, payload: bytes) -> None:
+        """A GRAD frame through the fault plan's wire mangler (which owns
+        the raw framing, bypassing the credit gate)."""
+        wire = frame_header(payload) + payload
+        chunks, close_after = self._mangler(wire)
+        self._session.raw_send(chunks)
+        if close_after:
+            try:
+                self.sock.close()
+            except OSError:  # pragma: no cover - close best-effort
+                pass
+            raise ConnectionResetError(
+                "FaultPlan: frame truncated, connection killed")
+
+    # -- protocol round trips -------------------------------------------------
+
+    def pull(self, force: bool = False) -> "tuple[int, Any] | None":
+        """One PULL round trip under the op `Deadline`: ``(version, host
+        params)``, or None on DONE.  The PARM credit field replenishes the
+        session's window.  The pull is conditional on the cached version:
+        an unchanged server answers head-only (``parm_unchanged``) and the
+        cached host tree is returned again (the same object).
+        ``force=True`` pulls unconditionally."""
+        dl = Deadline(self.op_deadline)
+        have = (self._parm_cache[0]
+                if self._parm_cache is not None and not force
+                else _UNVERSIONED)
+        self._send(b"PULL" + _U64.pack(have))
+        try:
+            reply = self._session.recv(dl, into=self._recv_arena)
+        except DeadlineExpired:
+            self.fault_stats["deadline_expired"] += 1
+            raise
+        kind = bytes(reply[:4])
+        if kind == b"DONE":
+            return None
+        if kind == b"PARM":
+            version = _U64.unpack_from(reply, 4)[0]
+            credits = _U32.unpack_from(reply, 4 + _U64.size)[0]
+            codec = _U8.unpack_from(reply, 4 + _U64.size + _U32.size)[0]
+            self._session.replenish(credits)
+            payload = reply[4 + _U64.size + _U32.size + _U8.size:]
+            if len(payload) == 0:
+                if (self._parm_cache is None
+                        or self._parm_cache[0] != version):
+                    raise ValueError(
+                        "empty PARM payload for a version this worker "
+                        "never decoded — protocol violation")
+                self.fault_stats["parm_unchanged"] += 1
+                return self._parm_cache
+            params = _codecs.decode_wire_tree(
+                codec, serializer.loads(payload))
+            self._parm_cache = (version, params)
+            return self._parm_cache
+        raise ValueError(f"unexpected reply {kind!r}")
+
+    def push(self, codes_host, version: int, loss: float) -> None:
+        """Serialize one host code tree and hand it to the transport as a
+        GRAD frame tagged with the params ``version`` it was computed
+        from.  Under the credit gate "pushed" means gate-entered: at zero
+        credits the frame parks and may be shed oldest-first (the
+        session's ``credits_stalled``/``shed_data_frames``).  The seq is
+        burned even if the send fails.  The caller keeps ``codes_host``:
+        its leaves go out as zero-copy views inside this call, or are
+        copied on park."""
+        seq = self._push_seq
+        self._push_seq += 1
+        head = (b"GRAD" + _BKT.pack(0, 1) + _U64.pack(seq)
+                + _U64.pack(version) + _F64.pack(float(loss)))
+        if self._mangler is None and self._wire_segmented:
+            meta_blob, segs = serializer.encode_segments(
+                codes_host, level=_WIRE_LEVEL)
+            self._session.send_data_segments(
+                [head, meta_blob, *segs],
+                cached=(segs.wire_crc, segs.wire_len))
+            return
+        blob = serializer.dumps(codes_host, level=_WIRE_LEVEL)
+        if self._mangler is None:
+            self._send(head + blob)
+        else:
+            self._push_grad(head + blob)
+
+    def close(self) -> None:
+        if self._session is not None:
+            self._session.close()
+
+    # -- the worker loop ------------------------------------------------------
+
+    def _codes_to_host(self, codes, loss) -> "tuple[Any, float]":
+        """The code tree and the loss in fresh host memory, one copy
+        (synchronized): the serializer's leaves."""
+        host_codes, host_loss = tree_to_host((codes, loss))
+        return (tree_map(_wire_leaf, host_codes),
+                float(host_loss.to(torch.float64)))
+
+    def run(self, loss_fn: Callable, batch_fn: Callable[[int, int], Any],
+            max_iters: "int | None" = None) -> int:
+        """Work until the PS says DONE (or ``max_iters``).  Returns the
+        number of gradients pushed."""
+        from .async_ps import make_worker_step
+        from .utils.interop import jax_order
+
+        plan = self.fault_plan
+        # The Byzantine map runs on the raw gradients before encoding.
+        transform = (plan.byzantine_transform(self.rank)
+                     if plan is not None else None)
+        fn = None
+        pushed = 0
+        it = 0
+        # Device params for the conditional pull, keyed by the identity
+        # of the pulled host tree: an unchanged pull returns the same
+        # object; a fresh decode (or a re-served version number after a
+        # reconnect) is a new one.
+        dev_params = None
+        dev_src = None
+        unchanged_streak = 0
+        last_version = None
+        self._session.start_heartbeat()
+        try:
+            while max_iters is None or it < max_iters:
+                if (plan is not None
+                        and plan.should_kill_worker(self.rank, it)):
+                    from .utils.faults import SimulatedCrash
+                    raise SimulatedCrash(
+                        f"FaultPlan: worker {self.rank} killed at "
+                        f"iteration {it}")
+                if plan is not None and plan.should_slow(self.rank):
+                    time.sleep(plan.slow_delay_s)
+                try:
+                    pulled = self.pull()
+                    while (self._lockstep and pulled is not None
+                           and last_version is not None
+                           and pulled[0] <= last_version):
+                        time.sleep(0.001)
+                        pulled = self.pull()
+                except TRANSPORT_ERRORS:
+                    # Server unreachable (restarting PS, network blip, a
+                    # lost DONE): redial; a server that stays gone ends
+                    # the run as a DONE would.
+                    if self._reconnect():
+                        continue
+                    break
+                if pulled is None:  # DONE
+                    break
+                version, params = pulled
+                if fn is None:
+                    if self.code.ordered:
+                        self._orders = {
+                            n: o for n, p in params.items()
+                            if (o := jax_order(n, tuple(p.shape)))
+                            is not None}
+                    fn = make_worker_step(loss_fn, self.code, transform,
+                                          orders=self._orders)
+                if params is not dev_src:
+                    dev_params = tree_to_device(params, self.device)
+                    dev_src = params
+                    unchanged_streak = 0
+                else:
+                    # Same-version pacing: several gradients are already
+                    # in flight at this version — yield so the serve
+                    # loop drains instead of deepening the backlog.
+                    unchanged_streak += 1
+                    over = unchanged_streak - _SAME_VERSION_PACE
+                    if over >= 0:
+                        time.sleep(min(
+                            _SAME_VERSION_YIELD_S * (over + 1),
+                            _SAME_VERSION_YIELD_MAX_S))
+                batch = tree_map(
+                    lambda x: torch.as_tensor(x).to(self.device,
+                                                    non_blocking=True),
+                    batch_fn(self.rank, it))
+                loss, codes = fn(dev_params, batch)
+                self.grads_computed += 1
+                codes_host, loss_f = self._codes_to_host(codes, loss)
+                if (plan is not None
+                        and plan.inject_nonfinite(self.rank, it)):
+                    from .utils.faults import poison_nonfinite
+                    codes_host = poison_nonfinite(codes_host)
+                try:
+                    self.push(codes_host, version, loss_f)
+                except TRANSPORT_ERRORS:
+                    if self._reconnect():
+                        continue  # this gradient is lost; pull afresh
+                    break
+                self._inject_overload(plan, it, codes_host, version, loss_f)
+                last_version = version
+                pushed += 1
+                it += 1
+        finally:
+            self.close()
+        return pushed
+
+    def _inject_overload(self, plan, it: int, codes_host, version: int,
+                         loss: float) -> None:
+        """Overload injectors (flood_rank / burst_at): extra copies of this
+        gradient under fresh seqs; send failures are swallowed."""
+        if plan is None:
+            return
+        flood, burst = plan.overload_extras(self.rank, it)
+        for i in range(flood + burst):
+            try:
+                self.push(codes_host, version, loss)
+            except TRANSPORT_ERRORS:
+                return
+            self.fault_stats["flood_injected" if i < flood
+                             else "burst_injected"] += 1

@@ -28,6 +28,14 @@ flattened in JAX's leaf order (`utils.flatten`) — under a magic of its
 own, ``PSTP``.  A JAX-written tree frame is refused with
 `ForeignTreeFrameError`, whose message names the way across.
 
+A ``torch.bfloat16`` leaf (the bf16 gradient codec's wire) has no numpy
+dtype without ``ml_dtypes``: it crosses as its 16-bit patterns (an
+``int16`` buffer frame) under the dtype tag ``"bf16"``, this package's
+own, and `loads` returns it as a ``torch.bfloat16`` tensor, bit for bit.
+Other tensors cross as their numpy arrays.  `encode_segments` is the
+scatter-gather form of `dumps` the multihost wire sends: the same bytes,
+never assembled into one blob.
+
 Trust model: the metadata blob is a pickle; `loads` runs it through a
 restricted unpickler that resolves only an explicit closed set of
 data-constructor globals (``_SAFE_PICKLE_GLOBALS``: containers, no JAX
@@ -50,7 +58,7 @@ from typing import Any
 import numpy as np
 
 from . import lib
-from ..utils.crc import fast_crc32
+from ..utils.crc import crc32_combine, fast_crc32
 
 _BUF_MAGIC = b"PSZ2"
 _BUF_MAGIC_V1 = b"PSZ1"
@@ -90,6 +98,39 @@ JAX_FRAME_HELP = (
     "the state with pytorch_ps_mpi_tpu_torch.utils.interop.state_from_jax, "
     "load it with MPI_PS.load_state_dict and write it again with "
     "pytorch_ps_mpi_tpu_torch.utils.checkpoint.save_optimizer")
+
+
+# The dtype tag of a bfloat16 leaf (numpy has no bfloat16 without
+# ml_dtypes): its payload is the int16 view of the bits.
+_BF16_TAG = "bf16"
+
+
+def _leaf_array(leaf) -> "tuple[np.ndarray, str]":
+    """A leaf as ``(host array, dtype tag)``: tensors leave the card and
+    the autograd graph; a bfloat16 leaf (tensor, or an ``ml_dtypes``
+    array) becomes the int16 view of its bits under `_BF16_TAG`."""
+    import torch
+
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy(), _BF16_TAG
+        a = t.numpy()
+    else:
+        a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16":
+        return a.view(np.int16), _BF16_TAG
+    return a, a.dtype.str
+
+
+def _leaf_from(arr: np.ndarray, tag: str):
+    """Inverse of `_leaf_array`'s tag: a bf16 leaf comes back as a
+    ``torch.bfloat16`` tensor sharing the decoded bytes."""
+    if tag != _BF16_TAG:
+        return arr
+    import torch
+
+    return torch.from_numpy(arr).view(torch.bfloat16)
 
 
 def _native_threads(total_bytes: int, nframes: int) -> int:
@@ -304,13 +345,18 @@ def dumps(tree, *, level: int = 1, meta: dict | None = None) -> bytes:
     The metadata is validated against the restricted unpickler `loads`
     uses, so a blob that could not be re-read fails at save time."""
     leaves, spec = tree_spec(tree)
-    arrs = [np.asarray(leaf) for leaf in leaves]
-    meta_blob = _tree_meta_blob(arrs, spec, meta)
+    arrs, tags = _leaf_arrays(leaves)
+    meta_blob = _tree_meta_blob(arrs, tags, spec, meta)
     frames = _encode_frames(arrs, level)
     out = io.BytesIO()
     out.write(meta_blob)
     out.write(frames)
     return out.getvalue()
+
+
+def _leaf_arrays(leaves) -> "tuple[list[np.ndarray], list[str]]":
+    pairs = [_leaf_array(leaf) for leaf in leaves]
+    return [a for a, _ in pairs], [t for _, t in pairs]
 
 
 def _encode_layout(arrs: list[np.ndarray]):
@@ -367,14 +413,14 @@ _META_CACHE: "dict[tuple, bytes]" = {}
 _META_CACHE_MAX = 64
 
 
-def _tree_meta_blob(arrs, spec, meta) -> bytes:
+def _tree_meta_blob(arrs, tags, spec, meta) -> bytes:
     """The framed metadata prefix of a tree blob: tree header + crc'd
-    meta pickle, validated against the restricted reader at save time."""
+    meta pickle, validated against the restricted reader at save time.
+    ``tags`` are the leaves' dtype tags (`_leaf_array`)."""
     key = None
     if meta is None:
         try:
-            key = (spec, tuple(a.shape for a in arrs),
-                   tuple(a.dtype.str for a in arrs))
+            key = (spec, tuple(a.shape for a in arrs), tuple(tags))
             cached = _META_CACHE.get(key)
         except TypeError:  # unhashable keys
             key, cached = None, None
@@ -383,7 +429,7 @@ def _tree_meta_blob(arrs, spec, meta) -> bytes:
     md = {
         "tree": spec,
         "shapes": [a.shape for a in arrs],
-        "dtypes": [a.dtype.str for a in arrs],
+        "dtypes": list(tags),
         "user": meta,
     }
     meta_pickle = pickle.dumps(md, protocol=pickle.HIGHEST_PROTOCOL)
@@ -401,6 +447,79 @@ def _tree_meta_blob(arrs, spec, meta) -> bytes:
             _META_CACHE.clear()
         _META_CACHE[key] = blob
     return blob
+
+
+class SegmentList(list):
+    """The segments half of `encode_segments`, with the whole payload's
+    chained checksum precomputed: ``wire_crc``/``wire_len`` cover
+    ``meta_blob + b"".join(segments)`` — what a transport frame whose
+    payload is (meta + segments) needs, derived without a second pass
+    over the leaf bytes (`utils.crc.crc32_combine`)."""
+
+    __slots__ = ("wire_crc", "wire_len")
+
+
+def encode_segments(tree, *, level: int = 0, meta: dict | None = None):
+    """Scatter-gather form of `dumps`: ``(meta_blob, segments)`` with
+    ``b"".join([meta_blob, *segments]) == dumps(tree, ...)`` — the wire
+    bytes without ever assembling them into one blob, so a sender hands
+    the pieces straight to ``socket.sendmsg``
+    (`transport.send_frame_segments`) and a PARM publisher encodes once
+    and fans the same list out to every puller.  ``segments`` is a
+    `SegmentList` carrying the payload's chained crc32.
+
+    * ``level=0`` (the wire's operating point): segments alternate
+      ``(frame_header_bytes, leaf_buffer_view)`` — each leaf's payload is
+      a zero-copy byte view of the caller's (C-contiguous) array, and one
+      crc32 pass over it yields both the leaf frame's crc and the chained
+      frame crc (`crc32_combine`).  The views alias the caller's arrays:
+      it must not write them until the send completes
+      (`transport.Session.send_data_segments` copies on park).
+    * ``level>=1``: the batched native shuffle+LZ encode runs as in
+      `dumps`, and the segments are per-frame views into its arena.
+    """
+    leaves, spec = tree_spec(tree)
+    arrs, tags = _leaf_arrays(leaves)
+    meta_blob = _tree_meta_blob(arrs, tags, spec, meta)
+    segments = SegmentList()
+    chain = zlib.crc32(meta_blob)
+    wire_len = len(meta_blob)
+    if level == 0:
+        for a in arrs:
+            if not a.flags["C_CONTIGUOUS"]:
+                a = np.ascontiguousarray(a)
+            n = a.nbytes
+            itemsize = a.itemsize if a.itemsize <= 255 else 1
+            head = _BUF_HDR_V1.pack(_BUF_MAGIC, 0, itemsize, n, n)
+            # One read pass over the leaf: both the header-seeded leaf
+            # frame crc and the running frame chain come from it.
+            p0 = fast_crc32(a)
+            leaf_crc = crc32_combine(zlib.crc32(head), p0, n)
+            seg_head = head + struct.pack("<I", leaf_crc)
+            segments.append(seg_head)
+            chain = zlib.crc32(seg_head, chain)
+            wire_len += len(seg_head)
+            if n:
+                segments.append(memoryview(a.reshape(-1)).cast("B"))
+                chain = crc32_combine(chain, p0, n)
+                wire_len += n
+    elif arrs:
+        arrs2, sizes, items, ptrs, regions, cap = _encode_layout(arrs)
+        arena = np.empty(cap, np.uint8)
+        fsizes, total = _encode_into(arrs2, sizes, items, ptrs, regions,
+                                     level, arena)
+        # The native encode compacts the frames: they sit back to back.
+        view = arena[:total].data
+        off = 0
+        for fsz in fsizes.tolist():
+            seg = view[off:off + int(fsz)]
+            segments.append(seg)
+            chain = fast_crc32(seg, chain)
+            wire_len += int(fsz)
+            off += int(fsz)
+    segments.wire_crc = chain
+    segments.wire_len = wire_len
+    return meta_blob, segments
 
 
 def loads(blob, *, with_meta: bool = False):
@@ -435,8 +554,10 @@ def loads(blob, *, with_meta: bool = False):
     meta = _restricted_loads(meta_bytes)
     off += meta_len
 
-    leaves = _decode_frames(view, off, meta["shapes"], meta["dtypes"])
-    tree = tree_from_spec(meta["tree"], leaves)
+    tags = meta["dtypes"]
+    leaves = _decode_frames(view, off, meta["shapes"], tags)
+    tree = tree_from_spec(meta["tree"], [_leaf_from(a, t)
+                                         for a, t in zip(leaves, tags)])
     if with_meta:
         return tree, meta.get("user")
     return tree
@@ -462,7 +583,8 @@ def _decode_frames(view: memoryview, off: int, shapes, dtype_strs):
     n = len(shapes)
     if n == 0:
         return []
-    dtypes = [np.dtype(d) for d in dtype_strs]
+    dtypes = [np.dtype(np.int16 if d == _BF16_TAG else d)
+              for d in dtype_strs]
     sizes_py = [math.prod(s) * dt.itemsize for s, dt in zip(shapes, dtypes)]
     offs_py, pos = [], 0
     for sz in sizes_py:

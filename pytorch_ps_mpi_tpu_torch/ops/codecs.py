@@ -1,7 +1,9 @@
 """Gradient codecs — the pluggable compression hook.
 
-Counterpart of `pytorch_ps_mpi_tpu/ops/codecs.py` (its gradient codecs;
-the host-side parameter wire codecs are not ported yet).  A codec encodes
+Counterpart of `pytorch_ps_mpi_tpu/ops/codecs.py`: its gradient codecs
+and its host-side parameter wire codecs (identity, bf16 bits, int8
+blocks; `encode_wire_tree`), but for the delta framing of the serve
+tier's DELT frames, which comes with that tier.  A codec encodes
 one rank's gradient into a code of static shape, and ``decode_sum`` turns
 the codes gathered from every rank (each leaf with a leading world dim)
 into the **sum** of the decoded gradients — the reference's
@@ -32,6 +34,7 @@ import math
 from collections import OrderedDict
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..utils.flatten import tree_leaves, tree_map
@@ -420,3 +423,159 @@ def get_codec(spec) -> Codec:
     if spec not in _TABLE:
         raise ValueError(f"unknown codec {spec!r}; have {sorted(_TABLE)}")
     return _TABLE[spec]()
+
+
+# ---------------------------------------------------------------------------
+# The server->reader parameter WIRE codec (protocol v12): host-side numpy.
+#
+# Copied from the JAX package, bit for bit.  The multihost server runs
+# it on its connection threads (`multihost_async.AsyncPSServer
+# ._parm_payload`), once per served version before
+# `native.serializer.encode_segments`; frames carry a one-byte codec id
+# (`WIRE_CODEC_IDS`), so readers decode from the frame alone.
+#
+# Wire representations (per f32 leaf; every other dtype passes through
+# untouched — a lossy cast of an integer step counter would corrupt it):
+#   bf16:  {"__psw_b16": uint16[shape]}   — round-to-nearest-even high
+#          halves of the f32 bits (decode is a bit shift; no ml_dtypes).
+#   int8:  {"__psw_q": int8[nblk, B], "__psw_s": f32[nblk],
+#           "__psw_sh": int64[ndim]}      — flat blocks of at most 4,096
+#          elements with a symmetric per-block scale.
+# ---------------------------------------------------------------------------
+
+WIRE_CODEC_IDS = {"identity": 0, "bf16": 1, "int8": 2}
+WIRE_CODEC_NAMES = {v: k for k, v in WIRE_CODEC_IDS.items()}
+_WIRE_BLOCK = 4096
+
+
+def wire_codec_id(name: str) -> int:
+    """Resolve a wire-codec name to its frame id byte (loud on drift)."""
+    if name not in WIRE_CODEC_IDS:
+        raise ValueError(
+            f"unknown wire codec {name!r}; have {sorted(WIRE_CODEC_IDS)}")
+    return WIRE_CODEC_IDS[name]
+
+
+def _f32_to_bf16_bits(a: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 as raw uint16 bits, round-to-nearest-even, NaN
+    payloads quieted instead of rounding into an inf."""
+    a = np.ascontiguousarray(a, np.float32)
+    u = a.view(np.uint32)
+    bias = np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))
+    r = ((u + bias) >> np.uint32(16)).astype(np.uint16)
+    nan = np.isnan(a)
+    if nan.any():
+        r = np.where(nan,
+                     ((u >> np.uint32(16)).astype(np.uint16)
+                      | np.uint16(0x0040)), r)
+    return r
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (np.ascontiguousarray(bits, np.uint16).astype(np.uint32)
+            << np.uint32(16)).view(np.float32)
+
+
+def _wire_block_for(n: int) -> int:
+    """Per-leaf quantization block length: the smallest 64-aligned block
+    that holds a small leaf, else 4,096 — derived from the element count
+    alone, so encoder and decoder agree without shipping it."""
+    return min(_WIRE_BLOCK, max(64, -(-n // 64) * 64))
+
+
+def _f32_to_blockq(a: np.ndarray):
+    flat = np.ascontiguousarray(a, np.float32).reshape(-1)
+    n = flat.size
+    blk = _wire_block_for(n)
+    nblk = max(1, -(-n // blk))
+    pad = nblk * blk - n
+    if pad:
+        flat = np.concatenate([flat, np.zeros(pad, np.float32)])
+    blocks = flat.reshape(nblk, blk)
+    amax = np.abs(blocks).max(axis=1)
+    scales = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.rint(blocks / scales[:, None]), -127, 127).astype(np.int8)
+    return q, scales
+
+
+def _blockq_to_f32(q: np.ndarray, scales: np.ndarray,
+                   shape) -> np.ndarray:
+    n = int(np.prod(shape, dtype=np.int64))
+    out = (q.astype(np.float32) * scales[:, None]).reshape(-1)[:n]
+    return out.reshape(shape)
+
+
+def _is_wire_leaf(x) -> bool:
+    return isinstance(x, dict) and ("__psw_b16" in x or "__psw_q" in x)
+
+
+def _map_host(fn, tree, is_leaf=None):
+    """``fn`` over the leaves of a tree of dicts, lists and tuples (the
+    container types kept), ``is_leaf`` marking subtrees taken whole."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_host(fn, v, is_leaf))
+                          for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_host(fn, v, is_leaf) for v in tree)
+    return fn(tree)
+
+
+def encode_wire_tree(name: str, tree):
+    """Apply the wire codec to every f32 leaf of a (numpy) tree — the
+    encode-once half the server runs per served version.  Identity
+    returns the tree unchanged (no copy: the segmented encoder's
+    zero-copy views keep aliasing the served arrays)."""
+    if wire_codec_id(name) == 0:
+        return tree
+
+    def enc(leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf  # a bf16 leaf: not f32, passes through
+        a = np.asarray(leaf)
+        if a.dtype != np.float32:
+            return a
+        if name == "bf16":
+            return {"__psw_b16": _f32_to_bf16_bits(a)}
+        q, scales = _f32_to_blockq(a)
+        sh = np.asarray(a.shape, np.int64)
+        if q.nbytes + scales.nbytes + sh.nbytes >= a.nbytes:
+            # Sub-block leaf: the padded int8 form would inflate the
+            # wire — ship it raw f32.
+            return a
+        return {"__psw_q": q, "__psw_s": scales, "__psw_sh": sh}
+
+    return _map_host(enc, tree)
+
+
+def decode_wire_tree(codec, tree):
+    """Invert `encode_wire_tree` from the frame's codec id (or name):
+    every marker-dict leaf expands back to a dense f32 array; pass-
+    through leaves return as they are."""
+    name = (WIRE_CODEC_NAMES.get(codec, None)
+            if isinstance(codec, int) else codec)
+    if name is None:
+        raise ValueError(f"unknown wire codec id {codec!r}")
+    if wire_codec_id(name) == 0:
+        return tree
+
+    def dec(leaf):
+        if not _is_wire_leaf(leaf):
+            return leaf
+        if "__psw_b16" in leaf:
+            return _bf16_bits_to_f32(leaf["__psw_b16"])
+        return _blockq_to_f32(leaf["__psw_q"], leaf["__psw_s"],
+                              tuple(int(d) for d in leaf["__psw_sh"]))
+
+    return _map_host(dec, tree, is_leaf=_is_wire_leaf)
+
+
+def tree_raw_nbytes(tree) -> int:
+    """Total leaf payload bytes of a host tree — the f32-baseline
+    numerator of the ``parm_bytes_raw``/``parm_bytes_wire`` ratio."""
+    return int(sum(leaf.nbytes if isinstance(leaf, np.ndarray)
+                   else leaf.numel() * leaf.element_size()
+                   if isinstance(leaf, torch.Tensor)
+                   else np.asarray(leaf).nbytes
+                   for leaf in tree_leaves(tree)))

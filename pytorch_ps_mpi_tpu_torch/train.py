@@ -7,11 +7,16 @@ resumable `data.loader.DataLoader`, on-disk checkpoints
 (`utils.checkpoint`: ``--save``, ``--save-every``, ``--resume``), the
 preemption path (SIGTERM/SIGINT: finish the step, write a RESUMABLE
 checkpoint, exit 75), the divergence guard's rollback and the sync chaos
-faults; and ``--async-ps``, the in-process async PS (`AsyncPS`: worker
+faults; ``--async-ps``, the in-process async PS (`AsyncPS`: worker
 threads on CUDA streams, quota'd fills, the robust reducers) on the MLP
-and the LM.  It takes the JAX CLI's flags and prints its lines; the roles
-not ported yet (``--serve``, ``--connect``, ``--subscribe``,
-``--sp/--tp/--pp/--ep > 1``, ``--moe-experts``) are refused by name.
+and the LM; and the multihost roles, ``--serve PORT`` (one PS process,
+`multihost_async.AsyncPSServer`; ``serving on port N`` on stdout) and
+``--connect HOST:PORT`` (a worker process, `AsyncPSWorker`).  It takes
+the JAX CLI's flags and prints its lines; the roles and flags not ported
+yet (``--subscribe``, ``--sp/--tp/--pp/--ep > 1``, ``--moe-experts``, and
+on the multihost roles ``--shards``, ``--aggregators``, ``--fallback``,
+``--read-window``, ``--delta-parm``, ``--async-bucket-bytes`` and the
+replication flags) are refused by name.
 
 It runs on the card, and raises when there is none; ``--force-cpu-devices
 N`` runs it on the CPU (gloo) instead.  The sync world is one process, or
@@ -19,7 +24,9 @@ the group ``torchrun`` launches (each rank on its own card); ``N`` must
 equal that world.  Only rank 0 prints and writes checkpoints.  The async
 PS is one process: its devices are the visible cards (the first
 ``--n-devices``; one card holds the PS and one worker), or under
-``--force-cpu-devices N`` the CPU N times (a PS and N - 1 workers).
+``--force-cpu-devices N`` the CPU N times (a PS and N - 1 workers).  A
+multihost process runs on the card, or on the CPU under
+``--force-cpu-devices``.
 
 Examples::
 
@@ -428,8 +435,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "(transport.Deadline): each pull/replication "
                         "round trip must finish within S seconds or it "
                         "counts deadline_expired and heals through the "
-                        "normal reconnect ladder (multihost roles: "
-                        "--serve / --connect)")
+                        "normal reconnect ladder (--connect; on --serve "
+                        "it budgets replication, which is not ported "
+                        "yet, and is refused)")
     p.add_argument("--reconnect-retries", type=int, default=30, metavar="R",
                    help="--connect: redial attempts (exponential backoff + "
                         "jitter, ~50s total at the default) after a lost "
@@ -638,10 +646,6 @@ def main(argv=None):
 
 # The roles and flags of the JAX CLI this package does not port yet.
 def _unported(args) -> "str | None":
-    if args.serve is not None:
-        return "--serve"
-    if args.connect:
-        return "--connect"
     if args.subscribe:
         return "--subscribe"
     for flag in ("sp", "tp", "pp", "ep"):
@@ -649,6 +653,24 @@ def _unported(args) -> "str | None":
             return f"--{flag} {getattr(args, flag)}"
     if args.moe_experts:
         return "--moe-experts"
+    if args.serve is None and not args.connect:
+        return None
+    # On the multihost roles: the fleet, standby, hierarchy, serve-tier
+    # and bucket-stream flags.
+    for flag, given in (
+            ("--shards", args.shards > 1),
+            ("--partition-rules", args.partition_rules is not None),
+            ("--replicas", bool(args.replicas)),
+            ("--snapshot-every", bool(args.snapshot_every)),
+            ("--aggregators", bool(args.aggregators)),
+            ("--fallback", bool(args.fallback)),
+            ("--read-window", bool(args.read_window)),
+            ("--delta-parm", args.delta_parm),
+            ("--async-bucket-bytes", args.async_bucket_bytes is not None)):
+        if given:
+            return flag
+    if args.connect and "," in args.connect:
+        return "--connect with several endpoints (a shard fleet)"
     return None
 
 
@@ -656,12 +678,14 @@ def _dispatch(args):
     what = _unported(args)
     if what is not None:
         raise SystemExit(f"{what} is not ported to the PyTorch package yet "
-                         f"(the sync trainer and the in-process async PS "
-                         f"are; the multihost, serve and sp/tp/pp/ep/MoE "
-                         f"roles follow)")
+                         f"(the sync trainer, the in-process async PS and "
+                         f"the single-PS multihost roles are; the bucket "
+                         f"stream, the serve tier, the fleet, the "
+                         f"hierarchy and the sp/tp/pp/ep/MoE roles "
+                         f"follow)")
     # Refuse, don't drop: every flag below would be inert on the role that
     # runs (the JAX CLI's refusals and messages, in its order).
-    on_async = args.async_ps
+    on_async = args.async_ps or args.serve is not None or bool(args.connect)
     if args.pp_microbatches is not None and args.pp <= 1:
         raise SystemExit("--pp-microbatches needs --pp > 1")
     if args.sp_attn != "ring" and args.sp <= 1:
@@ -723,7 +747,7 @@ def _dispatch(args):
                          "DELT replies); on a worker, reader, sync "
                          "or in-process role it would be silently "
                          "inert, which is worse than refusing")
-    if args.wire_codec != "identity":
+    if args.wire_codec != "identity" and args.serve is None:
         raise SystemExit("--wire-codec is the PS-side wire compression "
                          "knob (--serve roles stamp the codec id into "
                          "every PARM/DELT/REPL frame; readers decode "
@@ -747,6 +771,9 @@ def _dispatch(args):
         raise SystemExit("--dataset lm requires --model transformer")
     elif args.dataset is None:
         args.dataset = "mnist"
+    if args.serve is not None and args.connect:
+        raise SystemExit("--serve and --connect are mutually exclusive "
+                         "(one process is either the PS or a worker)")
     if args.shards < 1:
         raise SystemExit(f"--shards must be >= 1, got {args.shards}")
     if args.shards > 1:
@@ -813,20 +840,27 @@ def _dispatch(args):
             raise SystemExit("--adaptive-deadline tunes the async PS's "
                              "quorum fill-deadline; the sync step has "
                              "no fills")
+        if args.connect:
+            raise SystemExit("--adaptive-deadline is PS-side: set it on "
+                             "the --serve process")
         if args.quorum is None:
             raise SystemExit("--adaptive-deadline adapts a QUORUM "
                              "deadline: set --quorum (root level) "
                              "and/or --group-quorum (group level), or "
                              "drop the flag (it would be silently "
                              "inert)")
-    if args.latency_weighting and not on_async:
-        raise SystemExit("--latency-weighting is async-PS admission "
-                         "(contribution weights from the latency "
-                         "EMA); the sync step admits no per-rank "
-                         "contributions")
+    if args.latency_weighting:
+        if not on_async:
+            raise SystemExit("--latency-weighting is async-PS admission "
+                             "(contribution weights from the latency "
+                             "EMA); the sync step admits no per-rank "
+                             "contributions")
+        if args.connect:
+            raise SystemExit("--latency-weighting is PS-side: set it on "
+                             "the --serve process")
     if plan is not None and on_async:
         # Faults that name a fleet shard, a fleet worker's link or a
-        # hierarchy's aggregator would be silently dead on this role.
+        # hierarchy's aggregator would be silently dead on these roles.
         if plan.kill_shard_at:
             raise SystemExit("--chaos kill_shard_at applies to the "
                              "sharded PS fleet (--serve --shards K); on "
@@ -843,6 +877,19 @@ def _dispatch(args):
                              "byzantine_agg name GROUP AGGREGATORS of a "
                              "hierarchy (--serve --aggregators G); on "
                              "this role they would be silently inert — "
+                             "which is worse than refusing")
+        if (plan.any_overload_worker_faults()
+                and not (args.connect or args.async_ps)):
+            raise SystemExit("--chaos flood_rank / burst_at are "
+                             "worker-side overload injectors (--connect "
+                             "or --async-ps push loops); on this role "
+                             "they would be silently inert — which is "
+                             "worse than refusing")
+        if (plan.slow_consumer > 0
+                and args.serve is None and not args.async_ps):
+            raise SystemExit("--chaos slow_consumer throttles the PS "
+                             "CONSUMER loop (--serve or --async-ps); on "
+                             "this role it would be silently inert — "
                              "which is worse than refusing")
     if args.zero and on_async:
         raise SystemExit("--zero applies to the sync PS only: the async "
@@ -877,12 +924,20 @@ def _dispatch(args):
         if args.op_deadline <= 0:
             raise SystemExit(f"--op-deadline must be > 0, got "
                              f"{args.op_deadline}")
-        raise SystemExit("--op-deadline budgets MULTIHOST transport "
-                         "operations (--serve / --connect round "
-                         "trips); the sync and --async-ps paths run "
-                         "no transport ops — the flag would be "
-                         "silently inert, which is worse than "
-                         "refusing")
+        if args.serve is None and not args.connect:
+            raise SystemExit("--op-deadline budgets MULTIHOST transport "
+                             "operations (--serve / --connect round "
+                             "trips); the sync and --async-ps paths run "
+                             "no transport ops — the flag would be "
+                             "silently inert, which is worse than "
+                             "refusing")
+        if args.serve is not None:
+            raise SystemExit("--op-deadline on --serve budgets the PS's "
+                             "own replication ops (--replicas), which are "
+                             "not ported to the PyTorch package yet; the "
+                             "flag would be silently inert, which is "
+                             "worse than refusing (a --connect worker "
+                             "takes it)")
     if args.async_bucket_bytes is not None:
         if args.async_bucket_bytes < 0:
             raise SystemExit(f"--async-bucket-bytes must be >= 0 "
@@ -902,11 +957,11 @@ def _dispatch(args):
                          "--async-bucket-bytes (0 auto-tunes); without "
                          "a bucket plan it would be silently inert, "
                          "which is worse than refusing")
-    if not on_async and (args.aggregate != "mean"
-                         or args.trim_k is not None
-                         or args.quorum is not None
-                         or args.fill_deadline is not None
-                         or args.anomaly_z is not None):
+    robust_flags = (args.aggregate != "mean" or args.trim_k is not None
+                    or args.quorum is not None
+                    or args.fill_deadline is not None
+                    or args.anomaly_z is not None)
+    if robust_flags and not on_async:
         raise SystemExit("--aggregate / --trim-k / --quorum / "
                          "--fill-deadline / --anomaly-z "
                          "are async-PS admission/aggregation knobs "
@@ -915,17 +970,33 @@ def _dispatch(args):
     if args.trim_k is not None and args.aggregate != "trimmed_mean":
         raise SystemExit("--trim-k only applies to "
                          "--aggregate trimmed_mean")
-    if args.fill_deadline is not None and args.quorum is None:
+    if (args.fill_deadline is not None and args.quorum is None
+            and not args.connect):
+        # (--connect gets the PS-side refusal below instead.)
         raise SystemExit("--fill-deadline only takes effect with --quorum "
                          "(a fill without one never closes short); set "
                          "--quorum or drop the flag (it would be silently "
                          "inert, which is worse than refusing)")
     if args.checkpoint_every:
-        raise SystemExit("--checkpoint-every is the --serve path's "
-                         "auto-checkpoint cadence (the sync loop uses "
-                         "--save-every)")
+        if args.serve is None:
+            raise SystemExit("--checkpoint-every is the --serve path's "
+                             "auto-checkpoint cadence (the sync loop uses "
+                             "--save-every)")
+        if not args.save:
+            raise SystemExit("--checkpoint-every needs --save PATH for the "
+                             "checkpoint file")
+    if args.connect and (args.skip_nonfinite
+                         or args.max_staleness is not None or robust_flags):
+        raise SystemExit("--skip-nonfinite / --max-staleness / --aggregate "
+                         "/ --trim-k / --quorum / --fill-deadline / "
+                         "--anomaly-z are PS-side "
+                         "admission knobs: set them on the --serve process "
+                         "(dropping them silently here would be worse than "
+                         "refusing)")
 
-    if on_async:
+    if args.serve is not None or args.connect:
+        return run_multihost(args, plan)
+    if args.async_ps:
         return run_async(args, plan)
     device, group = _join(args)
     if args.model == "transformer":
@@ -1472,6 +1543,125 @@ def run_async(args, plan=None):
     if args.summary:
         opt.print_summary()
     return opt
+
+
+def _multihost_device(args) -> torch.device:
+    """The multihost roles' device: the card, or the CPU under
+    ``--force-cpu-devices``."""
+    from .parallel.mesh import resolve_device
+
+    return resolve_device("cpu" if args.force_cpu_devices is not None
+                          else "cuda")
+
+
+def run_multihost(args, plan=None):
+    """Multi-host AsySG-InCon over TCP (`multihost_async`): one --serve
+    process and any number of --connect workers; ``plan`` is the
+    ``--chaos`` fault plan (``kill_ps_at`` on the server; worker kills,
+    wire faults and non-finite injection on a worker)."""
+    from .async_ps import dataset_batch_fn, lm_batch_fn
+    from .multihost_async import AsyncPSServer, AsyncPSWorker
+
+    if args.model == "transformer":
+        params, loss_fn, toks = _build_lm_async(args)
+        batch_fn = lm_batch_fn(toks, args.batch_size, seed=args.seed)
+    else:
+        params, aux, loss_fn, has_aux, (x, y), _model = build(args)
+        if has_aux or aux:
+            raise SystemExit(
+                "multi-host async PS supports aux-free models (mlp, "
+                "transformer)")
+        batch_fn = dataset_batch_fn(x, y, args.batch_size, seed=args.seed)
+    device = _multihost_device(args)
+
+    if args.serve is not None:
+        srv = AsyncPSServer(list(params.items()), optim=args.optim,
+                            code=args.codec, quota=args.quota or 1,
+                            port=args.serve, host="0.0.0.0",
+                            device=device, token=args.token,
+                            staleness_weighting=args.staleness_weighting,
+                            max_staleness=args.max_staleness,
+                            skip_nonfinite=args.skip_nonfinite,
+                            aggregate=args.aggregate, trim_k=args.trim_k,
+                            quorum=args.quorum,
+                            fill_deadline=_resolve_fill_deadline(args),
+                            anomaly_z=args.anomaly_z,
+                            adaptive_deadline=args.adaptive_deadline,
+                            latency_weighting=args.latency_weighting,
+                            credit_window=args.credit_window,
+                            wire_codec=args.wire_codec,
+                            fault_plan=plan,
+                            **hyper_from_args(args))
+        srv.compile_step(loss_fn)
+        start = 0
+        if args.resume:
+            start = srv.resume_from(args.resume)
+            print(f"resumed from {args.resume} at step {start}",
+                  file=sys.stderr)
+        updates = max(args.steps - start, 0)
+        if updates == 0:
+            print("nothing to do: checkpoint is already at "
+                  f"step {start} >= --steps {args.steps}", file=sys.stderr)
+            srv.close()
+            return srv
+        # Machine-parseable on stdout: launchers read the bound port from
+        # here when --serve 0 asked for an ephemeral one.
+        print(f"serving on port {srv.address[1]}", flush=True)
+        t0 = time.perf_counter()
+        try:
+            hist = srv.serve(steps=updates, log_every=10,
+                             checkpoint_path=args.save,
+                             checkpoint_every=args.checkpoint_every,
+                             start_step=start)
+        finally:
+            srv.close()
+        wall = time.perf_counter() - t0
+        grads = hist["grads_consumed"]
+        print(f"done: {updates} updates, {grads} grads, "
+              f"{grads * args.batch_size / wall:.1f} images/sec, "
+              f"mean staleness {np.mean(hist['staleness']):.2f}",
+              file=sys.stderr)
+        from .utils.timing import format_fault_stats
+        rendered = format_fault_stats(hist["fault_stats"])
+        if rendered != "clean":
+            print("fault stats: " + rendered, file=sys.stderr)
+        if args.save:
+            # The server's own checkpoint: it records the serving version
+            # a later --resume needs.
+            srv._auto_checkpoint(args.save, args.steps)
+            print(f"checkpoint -> {args.save} (step {args.steps})",
+                  file=sys.stderr)
+        if args.summary:
+            srv.print_summary()
+        return srv
+
+    host, _, port = args.connect.rpartition(":")
+    if not host or not port.isdigit():
+        raise SystemExit(f"--connect wants HOST:PORT (comma-separated "
+                         f"for a shard fleet), got {args.connect!r}")
+    # backoff_max=2.0 (the library's is 1.0): CLI workers face real PS
+    # relaunches (interpreter start, CUDA init, model build), so the
+    # retry budget must stretch over tens of seconds.
+    worker = AsyncPSWorker(host, int(port), code=args.codec,
+                           device=device, token=args.token,
+                           fault_plan=plan,
+                           reconnect_retries=args.reconnect_retries,
+                           op_deadline=args.op_deadline,
+                           credit_cap=args.credit_window or None,
+                           backoff_max=2.0)
+    print(f"worker rank {worker.rank} connected to {args.connect}",
+          file=sys.stderr)
+    pushed = worker.run(loss_fn, batch_fn)
+    if worker.reconnects:
+        print(f"worker rank {worker.rank}: {worker.reconnects} "
+              f"reconnect(s) to the PS", file=sys.stderr)
+    from .utils.timing import format_fault_stats
+    rendered = format_fault_stats(worker.fault_snapshot())
+    if rendered != "clean":
+        print(f"worker fault stats: {rendered}", file=sys.stderr)
+    print(f"worker rank {worker.rank} done: {pushed} gradients pushed",
+          file=sys.stderr)
+    return worker
 
 
 def cli_entry() -> None:

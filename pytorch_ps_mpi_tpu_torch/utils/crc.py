@@ -1,15 +1,81 @@
-"""crc32 over the native PCLMUL kernel — `fast_crc32`.
+"""crc32 over the native PCLMUL kernel, and zlib's ``crc32_combine``.
 
 The serializer checksums every buffer frame at save and again at load;
 `fast_crc32` routes multi-KB buffers through the native ``ps_crc32``
-kernel and the rest through ``zlib.crc32``, with the same result.
+kernel and the rest through ``zlib.crc32``, with the same result.  The
+zero-copy wire checksums each leaf once: ``crc32(a || b) ==
+crc32_combine(crc32(a), crc32(b), len(b))`` derives both the leaf
+frame's crc and the whole frame's chained crc from that one pass
+(`native.serializer.encode_segments`, `transport.frame_iovec`).
 
-Copied from `pytorch_ps_mpi_tpu/utils/crc.py` (framework-free), but for
-``crc32_combine``, which only the JAX package's scatter-gather wire
-encoder (``encode_segments``) calls; it comes with the wire transport.
+Copied from `pytorch_ps_mpi_tpu/utils/crc.py` (framework-free), not
+imported.
 """
 
 from __future__ import annotations
+
+import functools
+
+# CRC-32 (IEEE 802.3) reflected polynomial — the one zlib.crc32 uses.
+_POLY = 0xEDB88320
+
+
+def _times(mat: "list[int]", vec: int) -> int:
+    """GF(2) matrix × vector: XOR the rows selected by vec's set bits."""
+    out = 0
+    i = 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _square(mat: "list[int]") -> "list[int]":
+    return [_times(mat, mat[n]) for n in range(32)]
+
+
+@functools.lru_cache(maxsize=4096)
+def _shift_operator(len2: int) -> "list[int]":
+    """The GF(2) operator advancing a crc32 register over ``len2`` zero
+    bytes — zlib's even/odd squaring ladder, composed into ONE matrix so
+    the memoized per-call cost is a single matrix×vector product."""
+    # Operator for one zero BIT.
+    odd = [0] * 32
+    odd[0] = _POLY
+    row = 1
+    for n in range(1, 32):
+        odd[n] = row
+        row <<= 1
+    # Square to 2 bits, then 4: the ladder below starts at 8 (one byte).
+    even = _square(odd)
+    odd = _square(even)
+    op: "list[int] | None" = None
+    while True:
+        even = _square(odd)  # 8, 32, 128, ... bit shifts
+        if len2 & 1:
+            op = even if op is None else [_times(even, c) for c in op]
+        len2 >>= 1
+        if not len2:
+            break
+        odd = _square(even)  # 16, 64, 256, ... bit shifts
+        if len2 & 1:
+            op = odd if op is None else [_times(odd, c) for c in op]
+        len2 >>= 1
+        if not len2:
+            break
+    assert op is not None  # len2 >= 1 on entry
+    return op
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """``crc32(a || b)`` from ``crc1 = crc32(a)``, ``crc2 = crc32(b)``
+    and ``len2 = len(b)`` — no pass over either buffer."""
+    if len2 <= 0:
+        return crc1 & 0xFFFFFFFF
+    return (_times(_shift_operator(len2), crc1) ^ crc2) & 0xFFFFFFFF
+
 
 
 # ---------------------------------------------------------------------------

@@ -8,20 +8,27 @@ exactly as the JAX CLI does.  The sync trainer honors the sync faults
 `corrupt_replica` flips one bit of one rank's own copy of a parameter.
 The in-process async PS honors ``kill_ps_at`` (`SimulatedCrash`), the
 straggler, Byzantine (``byzantine_transform``: maps on trees of tensors)
-and overload faults.  What serves only the multihost and hierarchy
-roles waits for those slices: ``WireMangler``, ``poison_nonfinite`` and
-the aggregator's map (``agg_byzantine_transform``).
+and overload faults; the multihost server and worker honor those and
+the wire faults (`WireMangler`, on a worker's outbound GRAD frames) and
+the non-finite injection (`poison_nonfinite`, on its host codes).  The
+aggregator's map (``agg_byzantine_transform``) waits for the hierarchy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import time
 
 import numpy as np
 import torch
 
-from .flatten import tree_map
+from .flatten import tree_flatten, tree_map, tree_unflatten
+
+# The transport's frame header (u32 length + u32 crc32): the mangler's
+# corruption lands past it so a flipped bit costs the frame, not the
+# stream's alignment.
+_WIRE_HDR_SIZE = 8
 
 
 class SimulatedCrash(RuntimeError):
@@ -300,9 +307,6 @@ class FaultPlan:
                                            device=g.device), grads)
         return lambda grads: tree_map(torch.ones_like, grads)
 
-    # ``wire_mangler`` is the multihost slice's: the sync trainer and the
-    # in-process async PS refuse the wire faults it serves.
-
     # -- sync-trainer faults ----------------------------------------------
 
     def should_preempt(self, step: int) -> bool:
@@ -338,6 +342,9 @@ class FaultPlan:
                     or self.byzantine_agg is not None)
 
     # -- wire faults -------------------------------------------------------
+
+    def wire_mangler(self, rank: int) -> "WireMangler":
+        return WireMangler(self, rank)
 
     def any_wire_faults(self) -> bool:
         return bool(self.corrupt_every or self.dup_every or self.drop_every
@@ -384,6 +391,55 @@ class FaultPlan:
             d["partition_links"] = [[int(v) for v in row]
                                     for row in d["partition_links"]]
         return cls(**d)
+
+
+class WireMangler:
+    """Per-worker stateful frame mangler: owns the frame counter and the
+    seeded RNG stream, so fault schedules are reproducible per (plan, rank)
+    no matter how threads interleave."""
+
+    def __init__(self, plan: FaultPlan, rank: int):
+        self.plan = plan
+        self.rank = rank
+        self.seq = 0
+        self.rng = np.random.default_rng(
+            np.random.SeedSequence([plan.seed, rank]))
+
+    def _hit(self, every: int, prob: float) -> bool:
+        # Short-circuit keeps the RNG stream identical for plans that never
+        # configure the probabilistic knobs.
+        if every and self.seq % every == 0:
+            return True
+        return bool(prob) and float(self.rng.random()) < prob
+
+    def __call__(self, wire: bytes) -> "tuple[list[bytes], bool]":
+        """Mangle one outbound wire frame (header + payload bytes).
+
+        Returns ``(byte_chunks_to_send, close_connection_after)``.  An
+        empty chunk list drops the frame entirely."""
+        p = self.plan
+        self.seq += 1
+        if self._hit(p.delay_every, p.delay_p):
+            time.sleep(p.delay_s)
+        if self._hit(p.drop_every, p.drop_p):
+            return [], False
+        if self._hit(p.truncate_every, p.truncate_p):
+            # A prefix then a dead socket: what the receiver of a real
+            # mid-send crash observes ("peer closed mid-frame").
+            lo = min(_WIRE_HDR_SIZE, len(wire) - 1)
+            cut = lo + int(self.rng.integers(0, max(len(wire) - lo, 1)))
+            return [wire[:max(cut, 1)]], True
+        frames = [wire]
+        if self._hit(p.corrupt_every, p.corrupt_p) \
+                and len(wire) > _WIRE_HDR_SIZE:
+            b = bytearray(wire)
+            i = _WIRE_HDR_SIZE + int(
+                self.rng.integers(0, len(wire) - _WIRE_HDR_SIZE))
+            b[i] ^= 1 << int(self.rng.integers(0, 8))
+            frames = [bytes(b)]
+        if self._hit(p.dup_every, p.dup_p):
+            frames = frames * 2
+        return frames, False
 
 
 def corrupt_replica(opt, rank: int, name: "str | None" = None, *,
@@ -439,3 +495,29 @@ def corrupt_replica(opt, rank: int, name: "str | None" = None, *,
         view[flat_i] ^= np.array(1 << (nbits - 2), dtype=view.dtype)
     opt.params[name] = host.view(p.shape).to(p.device)
     return name
+
+
+def poison_nonfinite(tree):
+    """A copy of a host-side code tree with a NaN planted in its first
+    float leaf — the injected non-finite gradient the PS-side quarantine
+    must catch.  Leaves are numpy arrays or (for a bf16 wire) CPU
+    tensors; non-float trees (integer codecs) pass through unchanged:
+    there is nothing representable to poison."""
+    leaves, treedef = tree_flatten(tree)
+    out = []
+    poisoned = False
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor):
+            floating = leaf.is_floating_point()
+            size = leaf.numel()
+        else:
+            leaf = np.asarray(leaf)
+            floating = np.issubdtype(leaf.dtype, np.floating)
+            size = leaf.size
+        if not poisoned and floating and size:
+            leaf = leaf.clone() if isinstance(leaf, torch.Tensor) \
+                else leaf.copy()
+            leaf.reshape(-1)[0] = float("nan")
+            poisoned = True
+        out.append(leaf)
+    return tree_unflatten(treedef, out)

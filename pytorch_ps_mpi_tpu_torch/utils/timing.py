@@ -3,7 +3,8 @@
 Counterpart of `pytorch_ps_mpi_tpu/utils/timing.py`: the reference's
 ``step()`` returns a per-phase wall-clock dict, and every step of the port
 returns the same keys; `print_summary` prints their mean and max over a
-run, `format_fault_stats` the sync trainer's ``fault_stats``, and `trace`
+run, `format_fault_stats` a trainer's, server's or worker's
+``fault_stats``, and `trace`
 records a run with ``torch.profiler``.  `RequestLatency` and
 `RankLatency` are the async PS's per-rank latency record (host code,
 copied with the JAX package's numbers).  The overlap engine
@@ -34,10 +35,36 @@ STEP_METRIC_KEYS = (
     "packaged_bytes",         # on-wire bytes (after codec packaging)
 )
 
-# The counters of the sync trainer's ``fault_stats`` that
-# `format_fault_stats` prints, in the JAX package's order.
-_SYNC_FAULT_COUNTERS = ("fused_sync_encodes", "sdc_checks", "sdc_mismatches",
-                        "sdc_rebroadcasts")
+# The counters `format_fault_stats` prints, in the JAX package's order
+# (its keys, so both packages' lines read alike): the multihost server's
+# and worker's transport counters, the async PS's admission counters,
+# the fleet/hierarchy/serve-tier counters (0 until those slices land)
+# and the sync trainer's.
+_FAULT_COUNTERS = (
+    "evictions", "reconnects", "crc_dropped", "quarantined_frames",
+    "stale_dropped", "nonfinite_dropped", "accept_errors", "conn_drops",
+    "quorum_fills", "late_folded", "robust_clipped", "duplicate_dropped",
+    "evicted_dropped", "quarantined_drops", "surplus_dropped",
+    "breakdown_floor_stalls", "floor_relaxed_admits",
+    "shard_restores", "promotions",
+    "repl_sent", "repl_received", "repl_refused", "repl_lag",
+    "snapshot_barriers", "partition_drops", "degraded_pulls",
+    "agg_frames", "agg_forwards", "agg_paced", "agg_failovers",
+    "agg_redials", "direct_fallbacks", "agg_restarts",
+    "latency_weighted", "deadline_adapted",
+    "deadline_expired", "credits_stalled", "shed_data_frames",
+    "admission_shed", "flood_injected", "burst_injected", "slow_consumed",
+    "sentinel_checks", "sentinel_trips", "race_checks", "race_trips",
+    "parm_encodes", "parm_fanout_reuse", "parm_unchanged",
+    "segments_sent", "decode_offloaded",
+    "buckets_sent", "buckets_filled", "bucket_partial_timeouts",
+    "fused_encodes",
+    "reads_served", "read_shed", "delta_frames", "subs_active",
+    "reads_stalled", "version_rewinds", "infer_requests", "infer_shed",
+    "param_swaps",
+    "parm_bytes_raw", "parm_bytes_wire", "delta_hits", "delta_misses",
+    "fused_sync_encodes",
+    "sdc_checks", "sdc_mismatches", "sdc_rebroadcasts")
 
 
 # ---------------------------------------------------------------------------
@@ -205,16 +232,27 @@ class RankLatency:
 
 
 def format_fault_stats(fs: "dict[str, Any]") -> str:
-    """One-line summary of a sync trainer's ``fault_stats`` (the
-    `MPI_PS.fault_stats` subset of the JAX package's
-    ``format_fault_stats``): the non-zero counters, the first leaf an SDC
-    check flagged and the number of rollbacks, or ``"clean"``."""
-    parts = [f"{key}={fs[key]}" for key in _SYNC_FAULT_COUNTERS
-             if fs.get(key)]
+    """One-line rendering of a ``fault_stats`` snapshot (the JAX
+    package's ``format_fault_stats``): evictions, reconnects, quarantined
+    or dropped frames and gradients, the transport's flow-control counts,
+    with zero-valued counters elided so a clean run renders as
+    ``clean``."""
+    parts = [f"{key}={fs[key]}" for key in _FAULT_COUNTERS if fs.get(key)]
+    if fs.get("quarantined_ranks"):
+        parts.append(f"quarantined_ranks={fs['quarantined_ranks']}")
     if fs.get("sdc_first_leaf"):
         parts.append(f"sdc_first_leaf={fs['sdc_first_leaf']!r}")
     if fs.get("rollbacks"):
         parts.append(f"rollbacks={len(fs['rollbacks'])}")
+    drops = fs.get("dropped_queue_full")
+    if drops:
+        total = sum(drops.values())
+        parts.append(f"dropped_queue_full={total} "
+                     f"(ranks {sorted(drops)})")
+    if fs.get("evicted_ranks"):
+        parts.append(f"evicted_ranks={fs['evicted_ranks']}")
+    if fs.get("groups"):
+        parts.append(f"groups={sorted(fs['groups'])}")
     return ", ".join(parts) if parts else "clean"
 
 

@@ -72,6 +72,19 @@ def test_no_source_imports_jax_or_the_jax_package():
                 assert not _forbidden(name), f"{path}: imports {name}"
 
 
+def test_the_multihost_modules_are_among_the_checked_sources():
+    """The multihost slice's modules are scanned by the import checks
+    above (they walk every module of the package)."""
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"transport.py", "multihost_async.py", "utils/backoff.py",
+            "utils/crc.py", "native/serializer.py",
+            "ops/codecs.py"} <= names
+    import pytorch_ps_mpi_tpu_torch.multihost_async as ma
+    import pytorch_ps_mpi_tpu_torch.transport as tr
+
+    assert ma.PROTOCOL_VERSION == 12 and hasattr(tr, "Session")
+
+
 def test_cuda_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible here")
