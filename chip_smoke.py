@@ -129,8 +129,24 @@ and carried on from):
    reconnect; 10 updates, continuous versions; 4 launches of each flash
    kernel a gradient in each worker); (3) a lockstep worker through the
    wire on the small MLP, card against CPU.
-8. The card line, one JSON line per the kernels, and the last line
-   ``{"ok": true, "device": {...}}``.
+8. The bucket-streamed gradient (the v11 GRAD stream): run 1's one-worker
+   cell with each gradient in 4 MiB buckets, encoded inside backward (8a)
+   and after it (8b), beside run 1a's images/s — every bucket sent is
+   assembled on the PS, none is left partial, one fused encode a gradient
+   in 8a, 62 ``block_quantize`` a gradient in the worker and one
+   ``block_dequant_sum`` a fill on the PS; and the lockstep MLP through
+   the wire in fused buckets, card against CPU.
+9. The CLI's LM with a dense MoE of 8 experts (capacity factor 1.25):
+   (a) the sync CLI, blockq, 10 steps; (b) a PS and 2 worker threads,
+   quota 2, 10 updates; (c) ``--serve 0`` and two ``--connect`` workers
+   streaming 1 MiB fused buckets — 4 launches of each flash kernel and a
+   ``block_quantize`` a leaf per step or gradient, tokens/s.
+   Beside phase 3: the reference's nonblocking collectives (``iallgather``,
+   ``igather``, ``ibroadcast``, ``ialltoall``, ``ireduce``) at NCCL world
+   1 against their definitions, and topk's selection on tied bf16 leaves,
+   the card against the CPU.
+10. The card line, one JSON line per the kernels, and the last line
+    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2529,9 +2545,11 @@ _MH_CLI_WORKER_BOOT = (
     "fa.reset_launch_counts()\n"
     "w = train.main(sys.argv[1:])\n"
     "torch.cuda.synchronize()\n"
+    "plan = w._bucket_plan\n"
     "print('MH_WORKER ' + json.dumps({'rank': w.rank, 'computed': "
-    "w.grads_computed, 'counts': {**ck.LAUNCHES, **fa.LAUNCHES}}), "
-    "flush=True)\n")
+    "w.grads_computed, 'counts': {**ck.LAUNCHES, **fa.LAUNCHES}, "
+    "'fs': w.fault_snapshot(), 'n_buckets': "
+    "1 if plan is None else plan.n_buckets}), flush=True)\n")
 
 
 def mh_worker_main(spec_json: str) -> int:
@@ -2551,15 +2569,19 @@ def mh_worker_main(spec_json: str) -> int:
     _named, loss_fn, batch_fn = _async_resnet18()
     worker = AsyncPSWorker("127.0.0.1", spec["port"], code=spec["code"],
                            device="cuda", io_timeout=MH_TIMEOUT,
-                           reconnect_retries=2)
+                           reconnect_retries=2,
+                           bucket_bytes=spec.get("bucket_bytes"),
+                           fused_encode=spec.get("fused", False))
     reset_launch_counts()
     pushed = worker.run(loss_fn, batch_fn)
     torch.cuda.synchronize()
+    plan = worker._bucket_plan
     print("MH_WORKER " + json.dumps({
         "rank": worker.rank, "pushed": pushed,
         "computed": worker.grads_computed, "counts": launch_counts(),
-        "fault_stats": format_fault_stats(worker.fault_snapshot())}),
-        flush=True)
+        "fault_stats": format_fault_stats(worker.fault_snapshot()),
+        "fs": worker.fault_snapshot(),
+        "plan": None if plan is None else plan.describe()}), flush=True)
     return 0
 
 
@@ -2679,12 +2701,14 @@ def _mh_joined(t, box, what) -> dict:
 
 
 def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
-                  threads_ips):
+                  threads_ips, bucket_bytes=None, fused=False):
     """Run 1: an `AsyncSGDServer` (ResNet-18, blockq, momentum 0.9) in
     this process on the card, ``workers`` worker processes on the same
     card over loopback; 4 warm-up and 40 timed updates.  The launch
     counts are read around the serve here (the PS's) and in each worker
-    (its own).  Returns images/s over the timed window."""
+    (its own).  ``bucket_bytes`` streams each gradient in buckets
+    (phase 8; ``fused``: encoded inside backward), with the stream's
+    counters asserted.  Returns images/s over the timed window."""
     import os
 
     import numpy as np
@@ -2700,8 +2724,12 @@ def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
     srv.compile_step(loss_fn)
     port = srv.address[1]
     tag = f"run1-{workers}"
+    if bucket_bytes is not None:
+        tag += f"-b{bucket_bytes}{'f' if fused else ''}"
+    spec = {"port": port, "code": "blockq", "bucket_bytes": bucket_bytes,
+            "fused": fused}
     procs = [_mh_spawn([os.path.abspath(__file__), "--mh-worker",
-                        json.dumps({"port": port, "code": "blockq"})],
+                        json.dumps(spec)],
                        os.path.join(tmp, f"{tag}-worker{i}.err"))
              for i in range(workers)]
     sampler = _UtilSampler(os.path.join(tmp, f"{tag}-util.txt"))
@@ -2717,9 +2745,14 @@ def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
     try:
         hist = _mh_joined(t, box, what)
     finally:
-        srv.close()
-        results = [_mh_worker_result(_mh_finish(p, e, what)[0], what)
-                   for p, e in procs]
+        # The workers end at their next pull (DONE).  The PS closes once
+        # they have, so every frame they sent is decoded (and a bucket
+        # stream assembled) before its decode pool shuts down.
+        try:
+            results = [_mh_worker_result(_mh_finish(p, e, what)[0], what)
+                       for p, e in procs]
+        finally:
+            srv.close()
     # The PS: one grouped decode a fill, nothing else.
     expect_counts(f"{what}, the PS", counts,
                   block_dequant_sum=updates * ck.group_launches(
@@ -2727,6 +2760,8 @@ def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
     for r in results:
         expect_counts(f"{what}, worker rank {r['rank']}", r["counts"],
                       block_quantize=len(named) * r["computed"])
+    if bucket_bytes is not None:
+        check_bucket_stream(what, srv, results, fused)
     check_params_finite(srv, what)
     losses = hist["losses"][ASYNC_WARM:]
     first, last = _fifths(losses)
@@ -2773,6 +2808,38 @@ def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
           f"phase 6's worker threads {threads_ips:.1f} (ratio "
           f"{ips / threads_ips:.3f})")
     return ips
+
+
+def check_bucket_stream(what, srv, results, fused):
+    """The bucket stream's counters once every worker has exited: each
+    worker sent its plan's buckets for every gradient it computed (one
+    fused encode a gradient when ``fused``), the PS assembled every bucket
+    sent, and no assembly was left partial."""
+    for t in list(srv._conn_threads):
+        t.join(MH_TIMEOUT)
+    sent = 0
+    for r in results:
+        fs, plan, g = r["fs"], r["plan"], r["computed"]
+        if plan is None or plan["n_buckets"] < 2:
+            fail(f"{what}, worker rank {r['rank']}: no bucket plan {plan}")
+        if fs["buckets_sent"] != plan["n_buckets"] * g:
+            fail(f"{what}, worker rank {r['rank']}: {fs['buckets_sent']} "
+                 f"buckets sent for {g} gradients of {plan['n_buckets']}")
+        if fs["fused_encodes"] != (g if fused else 0):
+            fail(f"{what}, worker rank {r['rank']}: fused_encodes "
+                 f"{fs['fused_encodes']} for {g} gradients")
+        sent += fs["buckets_sent"]
+    filled = srv.fault_stats["buckets_filled"]
+    partial = srv.fault_stats["bucket_partial_timeouts"]
+    if filled != sent or partial:
+        fail(f"{what}: the PS filled {filled} of {sent} buckets sent, "
+             f"{partial} partial")
+    plan = results[0]["plan"]
+    print(f"[mh] {what}: bucket plan {plan['n_buckets']} buckets of "
+          f"{plan['bucket_bytes']} bytes (leaves a bucket "
+          f"{plan['bucket_sizes']}), {sent} buckets sent and filled, "
+          f"{partial} partial, fused encodes "
+          f"{[r['fs']['fused_encodes'] for r in results]}")
 
 
 def mh_cli_lm(tmp):
@@ -2854,13 +2921,14 @@ def mh_cli_lm(tmp):
           f"gradient); {wall:.1f} s in all")
 
 
-def mh_card_vs_cpu():
+def mh_card_vs_cpu(bucket_bytes=None):
     """Run 3: a PS on the card and one lockstep worker on the card
     (quota 1, one gradient at a time: sequential SGD through the wire),
     the small MLP, 6 identity and 2 blockq updates, against the same
     conversation with ``device="cpu"`` everywhere: params within phase 6
     run 5's rtol 1e-4 / atol 1e-5, at most one element in 10,000 outside
-    (a blockq code one quantum apart)."""
+    (a blockq code one quantum apart).  ``bucket_bytes`` (phase 8) streams
+    each gradient in fused-encoded buckets, at least 2."""
     import numpy as np
     import torch
 
@@ -2882,14 +2950,21 @@ def mh_card_vs_cpu():
             reset_launch_counts()
             t, box = _serve_thread(srv, updates)
             try:
-                worker = AsyncPSWorker("127.0.0.1", srv.address[1],
-                                       code=code, device=device,
-                                       reconnect_retries=1)
+                worker = AsyncPSWorker(
+                    "127.0.0.1", srv.address[1], code=code, device=device,
+                    reconnect_retries=1, bucket_bytes=bucket_bytes,
+                    fused_encode=bucket_bytes is not None)
                 worker._lockstep = True
                 worker.run(mlp_loss_fn, dataset_batch_fn(x, y, 64, seed=2))
                 hist = _mh_joined(t, box, f"lockstep MLP {code} {device}")
             finally:
                 srv.close()
+            if bucket_bytes is not None:
+                n = worker._bucket_plan.n_buckets
+                if n < 2 or hist["fault_stats"]["buckets_filled"] != \
+                        n * updates:
+                    fail(f"lockstep MLP {code} {device}: {n} buckets, "
+                         f"{hist['fault_stats']['buckets_filled']} filled")
             torch.cuda.synchronize()
             counts = launch_counts()
             out[device] = (hist["losses"], {n: p.cpu().numpy()
@@ -2902,7 +2977,10 @@ def mh_card_vs_cpu():
         outside = sum(int((~np.isclose(a[n], b[n], rtol=1e-4,
                                        atol=1e-5)).sum()) for n in b)
         total = sum(v.size for v in b.values())
-        print(f"[mh] lockstep MLP {code} (run 3), {updates} updates through "
+        tag = ("run 3" if bucket_bytes is None else
+               f"phase 8, {worker._bucket_plan.n_buckets} fused buckets "
+               f"of {bucket_bytes} bytes")
+        print(f"[mh] lockstep MLP {code} ({tag}), {updates} updates through "
               f"the wire, card vs CPU: losses {out['cuda'][0]} vs "
               f"{out['cpu'][0]}, max difference {_np_max_diff(a, b)}, "
               f"{outside} of {total} elements outside rtol 1e-4 / atol "
@@ -2915,7 +2993,8 @@ def mh_card_vs_cpu():
 
 def run_multihost_phase(threads_ips):
     """Phase 7: the multihost async PS over loopback TCP, worker processes
-    on the one card (runs 1-3)."""
+    on the one card (runs 1-3); then phase 8, the bucket stream.  Returns
+    run 1a's images/s."""
     import shutil
     import tempfile
 
@@ -2926,9 +3005,10 @@ def run_multihost_phase(threads_ips):
     tmp = tempfile.mkdtemp(prefix="ps_mh_")
     try:
         named, loss_fn, _ = _async_resnet18()
-        mh_resnet_run("ResNet-18 blockq, 1 worker process, quota 1 "
-                      "(run 1a)", named, loss_fn, tmp, workers=1, quota=1,
-                      lr=ASYNC_LR, threads_ips=threads_ips["1 worker"])
+        run1a = mh_resnet_run(
+            "ResNet-18 blockq, 1 worker process, quota 1 (run 1a)", named,
+            loss_fn, tmp, workers=1, quota=1, lr=ASYNC_LR,
+            threads_ips=threads_ips["1 worker"])
         mh_resnet_run(f"ResNet-18 blockq, {ASYNC_WORKERS} worker processes, "
                       f"quota {ASYNC_QUOTA} (run 1b)", named, loss_fn, tmp,
                       workers=ASYNC_WORKERS, quota=ASYNC_QUOTA,
@@ -2941,6 +3021,305 @@ def run_multihost_phase(threads_ips):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[mh] phase 7 took {time.perf_counter() - t0:.1f} s")
+    return run1a
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the bucket-streamed gradient (the v11 GRAD stream)
+# ---------------------------------------------------------------------------
+
+# Run 1a's cell with each gradient streamed in 4 MiB buckets.
+MH_BUCKET_BYTES = 4 << 20
+# The lockstep MLP's buckets (its first kernel alone is 200,704 bytes).
+MH_MLP_BUCKET_BYTES = 64 << 10
+
+
+def run_bucket_phase(run1a_ips):
+    """Phase 8: run 1a's cell (ResNet-18 blockq, batch 512, one worker
+    process, quota 1, 4 warm-up and 40 timed updates) with each gradient
+    streamed in 4 MiB buckets, encoded inside backward (8a) and after it
+    (8b), beside run 1a's images/s from this call; then run 3's lockstep
+    MLP through the wire in fused buckets, card against CPU."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ps_bucket_")
+    try:
+        named, loss_fn, _ = _async_resnet18()
+        for tag, fused in (("8a", True), ("8b", False)):
+            ips = mh_resnet_run(
+                f"ResNet-18 blockq, 1 worker process, quota 1, "
+                f"{MH_BUCKET_BYTES >> 20} MiB buckets, "
+                f"{'fused' if fused else 'unfused'} encode (run {tag})",
+                named, loss_fn, tmp, workers=1, quota=1, lr=ASYNC_LR,
+                threads_ips=run1a_ips, bucket_bytes=MH_BUCKET_BYTES,
+                fused=fused)
+            print(f"[bucket] run {tag}: {ips:.1f} images/s against run "
+                  f"1a's whole-tree {run1a_ips:.1f} in this call (ratio "
+                  f"{ips / run1a_ips:.3f})")
+        del named, loss_fn
+        torch.cuda.empty_cache()
+        mh_card_vs_cpu(MH_MLP_BUCKET_BYTES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[bucket] phase 8 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the dense MoE LM
+# ---------------------------------------------------------------------------
+
+# The CLI's LM with a dense MoE MLP of 8 experts (capacity factor 1.25).
+MOE = ["--moe-experts", "8"]
+MOE_STEPS = 10
+MOE_BUCKET_BYTES = 1 << 20
+
+
+def _moe_leaves() -> int:
+    from pytorch_ps_mpi_tpu_torch import train
+
+    args = train.make_parser().parse_args(CLI_LM + MOE)
+    return len(train._build_lm_async(args)[0])
+
+
+def moe_sync(n_leaves):
+    """9a: the sync CLI, blockq, 10 steps, in this process with the launch
+    counts read around it: 4 of each flash kernel and a ``block_quantize``
+    a leaf (the expert leaves among them) a step, one grouped decode a
+    step."""
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    opt, err, counts = cli_in_process(
+        CLI_LM + MOE + ["--codec", "blockq", "--steps", str(MOE_STEPS)],
+        "MoE LM sync (9a)")
+    steps, tok_s = _done(err, "MoE LM sync")
+    losses = _losses(err, "MoE LM sync")
+    if len(opt.params) != n_leaves or not any(
+            ".moe.w1" in n for n in opt.params):
+        fail(f"MoE LM sync: {len(opt.params)} leaves")
+    expect_counts("MoE LM sync", counts, flash_fwd=4 * steps,
+                  flash_bwd_dkdv=4 * steps, flash_bwd_dq=4 * steps,
+                  block_quantize=n_leaves * steps,
+                  block_dequant_sum=steps * ck.group_launches(
+                      "block_dequant_sum", n_leaves))
+    check_params_finite(opt, "MoE LM sync")
+    print(f"[moe] 9a sync CLI, blockq, {steps} steps: {tok_s:.0f} tokens/s "
+          f"(done line, first step included); losses {losses}; steady "
+          f"step {_steady_ms(opt):.3f} ms; launches {counts}")
+    del opt
+
+
+def moe_async_threads(n_leaves):
+    """9b: the in-process async PS on the CLI's MoE LM: a PS and 2 worker
+    threads on the card, quota 2, blockq, 10 updates (the CLI's
+    ``--async-ps`` takes one worker a visible card, so on one card the
+    run uses `AsyncSGD` with the CLI's model and loss)."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import AsyncSGD, train
+    from pytorch_ps_mpi_tpu_torch.async_ps import lm_batch_fn
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    args = train.make_parser().parse_args(CLI_LM + MOE)
+    params, loss_fn, toks = train._build_lm_async(args)
+    opt = AsyncSGD(list(params.items()), lr=0.01, momentum=0.9, quota=2,
+                   code="blockq", devices=[torch.device("cuda")] * 3)
+    opt.compile_step(loss_fn)
+    batch_fn = lm_batch_fn(toks, args.batch_size, seed=0)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = opt.run(batch_fn, steps=MOE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    g = hist["grads_computed"]
+    expect_counts("MoE LM async", counts, flash_fwd=4 * g,
+                  flash_bwd_dkdv=4 * g, flash_bwd_dq=4 * g,
+                  block_quantize=n_leaves * g,
+                  block_dequant_sum=MOE_STEPS * ck.group_launches(
+                      "block_dequant_sum", n_leaves))
+    check_params_finite(opt, "MoE LM async")
+    if not all(math.isfinite(v) for v in hist["losses"]):
+        fail(f"MoE LM async: losses {hist['losses']}")
+    tok_s = hist["grads_consumed"] * args.batch_size * args.seq_len / wall
+    print(f"[moe] 9b async PS, 2 worker threads, quota 2, blockq, "
+          f"{MOE_STEPS} updates: {hist['grads_consumed']} grads ({g} "
+          f"computed), {tok_s:.0f} tokens/s (first update included), "
+          f"losses {[round(v, 4) for v in hist['losses']]}, staleness mean "
+          f"{sum(hist['staleness']) / len(hist['staleness']):.3f}; "
+          f"launches {counts}")
+    del opt
+    torch.cuda.empty_cache()
+
+
+def moe_multihost(tmp, n_leaves):
+    """9c: ``--serve 0`` and two ``--connect`` worker processes with the
+    MoE LM, quota 2, 10 updates, each worker streaming its gradients in 1
+    MiB buckets encoded inside backward (``--async-bucket-bytes 1048576
+    --fused-encode``): in each worker 4 of each flash kernel and a
+    ``block_quantize`` a leaf per gradient computed, one fused encode a
+    gradient, its plan's buckets for every gradient pushed (the last one
+    computed may be cut off mid-stream when the server's process exits);
+    the PS's buckets filled."""
+    import os
+
+    common = CLI_LM + MOE + ["--codec", "blockq", "--quota", "2"]
+    t0 = time.perf_counter()
+    srv, e = _mh_spawn(["-c", _CLI_BOOT, "default", *common, "--steps",
+                        str(MOE_STEPS), "--serve", "0"],
+                       os.path.join(tmp, "moe-server.err"))
+    port = _mh_port(srv, e, "MoE LM server")
+    workers = [_mh_spawn(["-c", _MH_CLI_WORKER_BOOT, *common,
+                          "--async-bucket-bytes", str(MOE_BUCKET_BYTES),
+                          "--fused-encode", "--connect",
+                          f"127.0.0.1:{port}"],
+                         os.path.join(tmp, f"moe-worker{i}.err"))
+               for i in range(2)]
+    results = []
+    for i, (p, we) in enumerate(workers):
+        out, err = _mh_finish(p, we, f"MoE LM worker {i}")
+        if "bucket streaming on (fused encode)" not in err:
+            fail(f"MoE LM worker {i}: bucket streaming not on")
+        r = _mh_worker_result(out, f"MoE LM worker {i}")
+        done = re.search(rf"^worker rank {r['rank']} done: (\d+) gradients "
+                         rf"pushed$", err, re.M)
+        if done is None:
+            fail(f"MoE LM worker {i}: no 'done:' line")
+        r["pushed"] = int(done.group(1))
+        results.append(r)
+    _, err = _mh_finish(srv, e, "MoE LM server")
+    wall = time.perf_counter() - t0
+    m = re.search(r"^done: (\d+) updates, (\d+) grads, ([\d.]+) images/sec,"
+                  r" mean staleness ([\d.]+)$", err, re.M)
+    if m is None or int(m.group(1)) != MOE_STEPS:
+        fail("MoE LM server: no 'done:' line")
+    filled = re.search(r"buckets_filled=(\d+)", err)
+    consumed = int(m.group(2))
+    for r in results:
+        g, fs, n = r["computed"], r["fs"], r["n_buckets"]
+        expect_counts(f"MoE LM worker rank {r['rank']}", r["counts"],
+                      flash_fwd=4 * g, flash_bwd_dkdv=4 * g,
+                      flash_bwd_dq=4 * g, block_quantize=n_leaves * g)
+        if (n < 2 or not n * r["pushed"] <= fs["buckets_sent"] <= n * g
+                or r["pushed"] < g - 1 or fs["fused_encodes"] != g):
+            fail(f"MoE LM worker rank {r['rank']}: {n} buckets, "
+                 f"{fs['buckets_sent']} sent, {fs['fused_encodes']} fused "
+                 f"encodes for {g} gradients, {r['pushed']} pushed")
+    n_buckets = results[0]["n_buckets"]
+    if (filled is None or int(filled.group(1)) < n_buckets * consumed
+            or "bucket_partial_timeouts" in err):
+        fail(f"MoE LM server: buckets filled "
+             f"{filled and filled.group(1)} for {consumed} gradients of "
+             f"{n_buckets} buckets")
+    rows_s = float(m.group(3))
+    print(f"[moe] 9c --serve 0 and two --connect workers, {n_buckets} "
+          f"fused buckets of {MOE_BUCKET_BYTES} bytes a gradient: "
+          f"{m.group(1)} updates, {consumed} grads, {rows_s * 1024:.0f} "
+          f"tokens/s ({rows_s:.1f} rows/s on the done line), mean "
+          f"staleness {m.group(4)}; the PS filled {filled.group(1)} "
+          f"buckets; workers (rank, gradients computed and pushed, "
+          f"buckets sent, launches) "
+          f"{[(r['rank'], r['computed'], r['pushed'], r['fs']['buckets_sent'], r['counts']) for r in results]}"
+          f"; {wall:.1f} s in all")
+
+
+def run_moe_phase():
+    """Phase 9: the CLI's LM with a dense MoE of 8 experts on the sync,
+    async and multihost roles (9a-9c)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ps_moe_")
+    try:
+        n_leaves = _moe_leaves()
+        moe_sync(n_leaves)
+        torch.cuda.empty_cache()
+        moe_async_threads(n_leaves)
+        moe_multihost(tmp, n_leaves)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[moe] phase 9 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# topk's selection on tied magnitudes: the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def check_topk_ties():
+    """The topk codec selects what ``lax.top_k`` does — magnitudes
+    descending, the lower index first among ties — on the card as on the
+    CPU: bf16 leaves (many equal magnitudes) of 2,000 elements and of the
+    largest ResNet-18 gradient's 2,359,296, at 1%, indices and values
+    equal."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops.codecs import TopKCodec
+
+    g = torch.Generator().manual_seed(0)
+    codec = TopKCodec(fraction=0.01)
+    for n in (2000, 2359296):
+        leaf = (torch.randn(n, generator=g) * 0.01).to(torch.bfloat16)
+        cpu, card = codec.encode(leaf), codec.encode(leaf.cuda())
+        kth = leaf.abs()[cpu["indices"].long()].float().min()
+        ties = int((leaf.abs().float() == kth).sum())
+        if not (torch.equal(cpu["indices"], card["indices"].cpu())
+                and torch.equal(cpu["values"], card["values"].cpu())):
+            fail(f"topk on a tied bf16 leaf of {n}: the card selects other "
+                 f"indices than the CPU")
+        print(f"[topk] bf16 leaf of {n}, k {cpu['indices'].numel()}: "
+              f"{ties} elements tie at the k-th magnitude; the card's "
+              f"indices and values equal the CPU's")
+
+
+# ---------------------------------------------------------------------------
+# The reference's nonblocking collectives, at NCCL world 1
+# ---------------------------------------------------------------------------
+
+
+def check_nonblocking_collectives(group):
+    """Each of `parallel.collectives`' ``i*`` ops once on the card over
+    the phase's one-rank NCCL group, against its definition at world 1,
+    with the JAX package's timing keys."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.parallel import collectives as C
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"w": torch.randn(3, 5, device="cuda", generator=g),
+            "q": torch.arange(7, dtype=torch.int16, device="cuda")}
+    stacked = {k: v[None] for k, v in tree.items()}
+    cases = [("iallgather", C.iallgather(tree, group), stacked),
+             ("iallgather", C.igather(tree, group), stacked),
+             ("igather", C.igather(tree, group, root=0, root_only=True),
+              stacked),
+             ("ibroadcast", C.ibroadcast(tree, group, root=0), tree),
+             ("ialltoall", C.ialltoall({"a": stacked["w"]}, group),
+              {"a": stacked["w"]}),
+             # NCCL sums no int16: the f32 leaf alone.
+             ("ireduce", C.ireduce({"w": tree["w"]}, group),
+              {"w": tree["w"]})]
+    for name, pending, want in cases:
+        got = pending.wait()
+        keys = sorted(pending.timings)
+        if keys != sorted(["msg_bytes", f"{name}_time", "comm_wait"]):
+            fail(f"{name}: timings {keys}")
+        for k in want:
+            if not (got[k].is_cuda and torch.equal(got[k], want[k])):
+                fail(f"{name}: {k} differs from its definition")
+    print(f"[coll] iallgather, igather (all and root only), ibroadcast, "
+          f"ialltoall and ireduce at NCCL world 1 on the card: results "
+          f"equal their definitions; timings keys msg_bytes, <op>_time, "
+          f"comm_wait (comm_wait of the last {pending.timings['comm_wait'] * 1e3:.3f} ms)")
 
 
 def run_cli(phase3_images_per_s, n_leaves):
@@ -3031,12 +3410,19 @@ def main() -> int:
     launches, images_per_s = run_slice(group, cpu_group)
     launches.update(run_lm(group, cpu_group))
 
+    check_nonblocking_collectives(group)
+    check_topk_ties()
+
     # --- 5. the training CLI, 6. the async PS, 7. the multihost PS ---
     run_cli(images_per_s, len(named))
     threads_ips = run_async_phase()
-    run_multihost_phase(threads_ips)
+    run1a_ips = run_multihost_phase(threads_ips)
 
-    # --- 8. results ---
+    # --- 8. the bucket stream, 9. the MoE LM ---
+    run_bucket_phase(run1a_ips)
+    run_moe_phase()
+
+    # --- 10. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({

@@ -10,17 +10,20 @@ the in-process async PS (`AsyncPS`, `AsyncSGD`, `AsyncAdam`: worker
 threads on CUDA streams, quota'd fills, the robust reducers); the
 single-PS multihost async PS over TCP (`AsyncPSServer`, `AsyncSGDServer`,
 `AsyncAdamServer`, `AsyncPSWorker`: worker processes, the JAX package's
-v12 frames, `transport`);
-the blockq and bf16 codecs' kernels are hand-written CUDA for Hopper
-(``csrc/codec_kernels.cu``); the ResNet/MLP models and the transformer
-LM, whose flash attention forward and backward are hand-written CUDA too
+v12 frames, `transport`, gradients streamed in buckets);
+the reference's nonblocking collectives (`parallel.collectives`'s
+``i*`` ops); the blockq and bf16 codecs' kernels are hand-written CUDA
+for Hopper (``csrc/codec_kernels.cu``); the ResNet/MLP models and the
+transformer LM (dense, or with dense MoE MLPs: `models.moe`), whose flash
+attention forward and backward are hand-written CUDA too
 (``csrc/flash_attention.cu``, `ops.flash_attention`); and the synthetic
 data the step trains on.  Entry points run on ``device="cuda"`` unless the
 caller asks for the CPU.
 """
 
 from .async_ps import AsyncAdam, AsyncPS, AsyncSGD
-from .errors import (ElasticResumeError, FillStarvedError, FleetDeadError,
+from .errors import (BufferMutatedError, ElasticResumeError,
+                     FillStarvedError, FleetDeadError, NativeToolchainError,
                      NotCompiledError, PSRuntimeError, SDCDetectedError,
                      WorkerFailedError)
 from .multihost_async import (AsyncAdamServer, AsyncPSServer,
@@ -29,10 +32,14 @@ from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
                          QuantizeCodec, SignCodec, TopKCodec, get_codec)
 from .ops.flash_attention import flash_attention
 from .parallel.mesh import make_ps_group
-from .ps import MPI_PS, SGD, Adam, AdamW
+from .ps import MPI_PS, PS, SGD, Adam, AdamW
+from .utils import checkpoint
+from .utils.checkpoint import CheckpointError
+from .utils.faults import FaultPlan, SimulatedCrash
 
 __all__ = [
     "MPI_PS",
+    "PS",
     "SGD",
     "Adam",
     "AdamW",
@@ -60,4 +67,10 @@ __all__ = [
     "WorkerFailedError",
     "FleetDeadError",
     "FillStarvedError",
+    "checkpoint",
+    "CheckpointError",
+    "FaultPlan",
+    "SimulatedCrash",
+    "NativeToolchainError",
+    "BufferMutatedError",
 ]

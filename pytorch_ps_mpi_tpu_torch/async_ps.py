@@ -59,7 +59,7 @@ from .errors import FleetDeadError, NotCompiledError, WorkerFailedError
 from .ops.codecs import Codec, get_codec
 from .optim.schedules import (hyper_for_checkpoint, hyper_from_checkpoint,
                               resolve_hyper)
-from .parallel.mesh import resolve_device
+from .parallel.mesh import record_event, resolve_device
 from .ps import init_ps_core
 from .utils.bytes import bytes_of, host_numpy
 from .utils.flatten import tree_flatten, tree_leaves, tree_map, tree_unflatten
@@ -135,16 +135,6 @@ def _stack_codes(codes_list):
     flats, treedef = zip(*(tree_flatten(c) for c in codes_list))
     return tree_unflatten(treedef[0], [torch.stack(xs) for xs in
                                        zip(*flats)])
-
-
-def _record_event(device: torch.device):
-    """An event recorded on ``device``'s current stream (None off the
-    card)."""
-    if device.type != "cuda":
-        return None
-    event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(device))
-    return event
 
 
 def _use_on(tensors, stream) -> None:
@@ -916,7 +906,7 @@ class AsyncPS:
                 f"that many workers (have {self.num_workers})")
 
         # The workers' streams start after the params' placement.
-        published = _Published(self.params, _record_event(self.ps_device))
+        published = _Published(self.params, record_event(self.ps_device))
         # Capacity: one in-flight grad per worker beyond what an update
         # drains, or the configured credit window, whichever is larger
         # (the bounded queue is the in-process flow control).
@@ -1005,14 +995,14 @@ class AsyncPS:
                     loss_host = torch.stack(
                         [l.to(torch.float32) for l in losses]).to(
                             "cpu", non_blocking=True)
-                    losses_ready = _record_event(self.ps_device)
+                    losses_ready = record_event(self.ps_device)
                     stacked = OrderedDict(
                         (n, _stack_codes([c[n] for c in batch_codes]))
                         for n in batch_codes[0])
                     new_params, new_state = self._apply_weighted(
                         stacked, stalenesses, ranks, data,
                         n_target=fill_target)
-                done = _record_event(self.ps_device)
+                done = record_event(self.ps_device)
                 data["optim_step_time"] = time.perf_counter() - t0
 
                 # --- publish (the inconsistent-read broadcast) ----------

@@ -34,8 +34,16 @@ Frames (layouts in the JAX module's docstring):
 * ``PULL | have u64`` → ``DONE`` or ``PARM | version u64 | credits u32 |
   codec u8 | [params]``, empty when ``have`` is the served version; each
   version is encoded once (``_parm_cache``) and fanned out;
-* ``GRAD | 0 u16 | 1 u16 | seq u64 | version u64 | loss f64 | codes``
-  (no reply), deduplicated per rank by ``seq``;
+* ``GRAD | bucket u16 | n_buckets u16 | seq u64 | version u64 | loss f64
+  | codes`` (no reply), deduplicated per rank by ``seq``; a whole-tree
+  gradient is ``(0, 1)``, a bucket-streamed one (`AsyncPSWorker`'s
+  ``bucket_bytes``) is ``n_buckets`` frames sharing one ``seq``, each one
+  bucket's code sub-tree, one code per parameter; the PS deduplicates per
+  ``(seq, bucket)``, assembles per ``(rank, seq)`` in any arrival order,
+  and the assembled tree enters the fill as a whole-tree frame does.  A
+  partial assembly is retired, counted in ``bucket_partial_timeouts``,
+  when a newer seq of the rank completes or its connection closes.  Flow
+  control charges one credit per gradient, not per frame;
 * ``BEAT`` (no reply); ``SPLN`` → ``SPLN`` with an empty plan.
 
 Fault tolerance as in the JAX module: CRC-failed frames are frame-local
@@ -50,8 +58,7 @@ the rank allocation, so a killed PS resumes with continuous versions.
 Not ported yet, and refused by name (a refused frame costs only its own
 connection and is counted in ``quarantined_frames``): REPL/ACKR, PROM and
 SNAP (hot standby and fleet snapshots), AGGR and HELO flags 8/16 (the
-hierarchy), SUBS/DELT and HELO flag 32 (the serve tier), and GRAD with
-``n_buckets > 1`` (bucket-streamed gradients).
+hierarchy), and SUBS/DELT and HELO flag 32 (the serve tier).
 
 On the card:
 
@@ -107,6 +114,14 @@ _U8 = struct.Struct("B")
 _F64 = struct.Struct("<d")
 # GRAD's bucket fields: a whole-tree gradient packs (0, 1).
 _BKT = struct.Struct("<HH")
+# Per-rank in-flight bucketed seqs remembered for dedup: older ones
+# retire as a seq completed with missing buckets would (memory bounded
+# against a flooding or seq-skipping peer).
+_BUCKET_SEQ_WINDOW = 4
+# Per-connection live partial assemblies: a peer streaming new seqs
+# without completing one keeps at most this many (oldest retired and
+# counted).
+_ASSEMBLY_CAP = 4
 
 # The JAX package's protocol version: the frame layouts above.
 PROTOCOL_VERSION = 12
@@ -158,7 +173,7 @@ _REFUSED_HELO_FLAGS = {8: "a hierarchy aggregator",
 
 def _not_ported(what: str) -> str:
     return (f"{what} is not ported to the PyTorch package yet (the "
-            f"single-PS multihost async PS is; the bucket stream, the "
+            f"single-PS multihost async PS and its bucket stream are; the "
             f"serve tier, the fleet and standby, and the hierarchy follow)")
 
 
@@ -373,6 +388,10 @@ class AsyncPSServer(AsyncPS):
         self._live_ranks: "set[int]" = set()
         self._evicted: "set[int]" = set()
         self._last_seq: "dict[int, int]" = {}
+        # Bucket-stream dedup: per rank, the buckets seen of each
+        # in-flight bucketed seq (at most `_BUCKET_SEQ_WINDOW`);
+        # `_last_seq` advances when a bucketed seq completes.
+        self._bucket_seen: "dict[int, dict[int, set]]" = {}
         # Transport counters on top of the admission counters `AsyncPS`
         # installs (connection threads bump them: `_bump` takes a lock).
         self.fault_stats.update({
@@ -410,10 +429,23 @@ class AsyncPSServer(AsyncPS):
                 (n, self.code.encode(torch.zeros(shape, dtype=dtype,
                                                  device=self.ps_device)))
                 for n, (shape, dtype) in self._metas.items())
+        self._index_code_meta(dummy)
+
+    def _index_code_meta(self, dummy) -> None:
+        """The validation indexes of incoming payloads, from one encoded
+        zero tree: the whole tree's (treedef, leaf meta), and the same
+        per parameter, which a bucket's sub-tree is checked against (the
+        worker chooses a bucket's names; the assembly checks that the
+        buckets cover the tree)."""
         leaves, self._code_treedef = tree_flatten(dummy)
         self._code_leaf_meta = [(tuple(x.shape), x.dtype) for x in leaves]
         self._code_nbytes = sum(x.numel() * x.element_size()
                                 for x in leaves)
+        self._code_meta_by_name = {}
+        for n, c in dummy.items():
+            sub, sub_def = tree_flatten(c)
+            self._code_meta_by_name[n] = (
+                sub_def, [(tuple(x.shape), x.dtype) for x in sub])
 
     def _validate_codes(self, codes) -> None:
         leaves, treedef = tree_flatten(codes)
@@ -423,11 +455,37 @@ class AsyncPSServer(AsyncPS):
                 "gradient payload does not match the server codec's code "
                 "structure (worker running a different codec?)")
 
+    def _validate_codes_bucket(self, codes) -> None:
+        """A bucket's payload: every name a parameter of this server, and
+        each name's code of the compiled structure (the assembly checks
+        that the buckets cover the tree)."""
+        if not isinstance(codes, dict) or not codes:
+            raise ValueError(
+                "bucket payload is not a name-keyed code sub-tree")
+        for n, c in codes.items():
+            expected = self._code_meta_by_name.get(n)
+            if expected is None:
+                raise ValueError(
+                    f"bucket payload names unknown parameter {n!r}")
+            sub, sub_def = tree_flatten(c)
+            meta = [(tuple(x.shape), x.dtype) for x in sub]
+            if sub_def != expected[0] or meta != expected[1]:
+                raise ValueError(
+                    f"bucket payload for {n!r} does not match the server "
+                    f"codec's code structure (worker running a different "
+                    f"codec?)")
+
     def _decode_codes(self, payload):
         """CRC-verify + decode + validate one GRAD payload (host only: the
         work the decode pool runs off the connection thread)."""
         codes = tree_map(_host_leaf, serializer.loads(payload))
         self._validate_codes(codes)
+        return codes
+
+    def _decode_codes_bucket(self, payload):
+        """`_decode_codes` for one bucket's frame: validated per name."""
+        codes = tree_map(_host_leaf, serializer.loads(payload))
+        self._validate_codes_bucket(codes)
         return codes
 
     def _norm_fn(self, codes):
@@ -606,28 +664,57 @@ class AsyncPSServer(AsyncPS):
         shedding turns on."""
         return self._net_queue.qsize() * 2 >= self._credit_window
 
-    def _shed_before_decode(self, rank, seq: int, version: int) -> bool:
+    def _shed_before_decode(self, rank, seq: int, version: int,
+                            bucket: int = 0, n_buckets: int = 1) -> bool:
         """Under queue pressure, a GRAD frame the policy would reject
-        anyway (stale beyond the clamp, or a per-rank duplicate) is shed
-        from its header alone, before decode (``admission_shed``)."""
+        anyway (stale beyond the clamp, or a per-rank duplicate, per
+        bucket on a bucket stream) is shed from its header alone, before
+        decode (``admission_shed``)."""
         if rank is None or not self._under_pressure():
             return False
         stale = (self.max_staleness is not None
                  and self._served_version - version > self.max_staleness)
         with self._rank_lock:
             dup = seq <= self._last_seq.get(rank, -1)
+            if not dup and n_buckets > 1:
+                dup = bucket in self._bucket_seen.get(rank, {}).get(
+                    seq, ())
         if stale or dup:
             self._bump("admission_shed")
             return True
         return False
 
-    def _burn_seq(self, rank: int, seq: int) -> bool:
+    def _burn_seq(self, rank: int, seq: int, bucket: int = 0,
+                  n_buckets: int = 1) -> bool:
         """Per-rank monotone dedup at receive time, in wire order: True
-        when the frame is fresh."""
+        when the frame is fresh.  A whole-tree frame keeps the high-water
+        rule.  A bucket frame is fresh while its seq is above the mark and
+        its bucket unseen for that seq; the seq's last bucket advances
+        the mark and retires the seq's set, so a late duplicate bucket
+        still reads as a duplicate by the high-water rule."""
         with self._rank_lock:
-            if seq <= self._last_seq.get(rank, -1):
+            last = self._last_seq.get(rank, -1)
+            if seq <= last:
                 return False
-            self._last_seq[rank] = seq
+            if n_buckets <= 1:
+                self._last_seq[rank] = seq
+                # A whole-tree frame above the mark retires the in-flight
+                # bucketed seqs at or below it.
+                seen = self._bucket_seen.get(rank)
+                if seen:
+                    for s in [s for s in seen if s <= seq]:
+                        del seen[s]
+                return True
+            seen = self._bucket_seen.setdefault(rank, {})
+            got = seen.setdefault(seq, set())
+            if bucket in got:
+                return False
+            got.add(bucket)
+            if len(got) >= n_buckets:
+                self._last_seq[rank] = max(last, seq)
+                del seen[seq]
+            elif len(seen) > _BUCKET_SEQ_WINDOW:
+                del seen[min(seen)]
             return True
 
     def _recv_arena_hint(self) -> int:
@@ -669,29 +756,89 @@ class AsyncPSServer(AsyncPS):
 
     def _finish_decode(self, decodes) -> None:
         """Complete the oldest in-flight decode and enqueue its item —
-        FIFO, so enqueue order stays receive order per connection."""
-        fut, tail, rank, _frame = decodes.popleft()
+        FIFO, so enqueue order stays receive order per connection.  A
+        bucket frame (``binfo`` set) goes to its assembly instead, which
+        enqueues once the gradient is complete."""
+        fut, tail, rank, _frame, binfo = decodes.popleft()
         try:
             codes = fut.result()
         except Exception:
             self._bump("quarantined_frames")
             raise
-        self._enqueue_grad((codes, *tail), rank)
+        self._deliver(codes, tail, rank, binfo)
+
+    def _deliver(self, codes, tail, rank, binfo) -> None:
+        if binfo is None:
+            self._enqueue_grad((codes, *tail), rank)
+        else:
+            self._assemble_bucket(binfo, codes, tail, rank)
+
+    def _assemble_bucket(self, binfo, codes, tail, rank) -> None:
+        """Fold one decoded bucket into its ``(rank, seq)`` assembly.  Once
+        every bucket of the seq has landed, the sub-trees are merged in
+        the server's parameter order and the gradient is enqueued: it
+        enters the fill exactly as a whole-tree frame does.
+
+        A newer seq completing from the same rank retires that rank's
+        older partial assemblies (their missing buckets were shed or lost
+        and can no longer arrive, since `_burn_seq` moved the mark), and
+        so does the `_ASSEMBLY_CAP`; each retirement counts
+        ``bucket_partial_timeouts``.  The gradient is absent, a straggler
+        the fill already absorbs."""
+        assembler, seq, bucket, n_buckets = binfo
+        key = (rank, seq)
+        entry = assembler.get(key)
+        if entry is None:
+            entry = assembler[key] = {"n": n_buckets, "parts": {},
+                                      "tail": tail}
+            if len(assembler) > _ASSEMBLY_CAP:
+                oldest = min(assembler,
+                             key=lambda k: (k[1], k[0] is None, k[0]))
+                if oldest != key:
+                    del assembler[oldest]
+                    self._bump("bucket_partial_timeouts")
+        entry["parts"][bucket] = codes
+        if len(entry["parts"]) < entry["n"]:
+            return
+        del assembler[key]
+        for old in [k for k in assembler if k[0] == rank and k[1] < seq]:
+            del assembler[old]
+            self._bump("bucket_partial_timeouts")
+        flat: dict = {}
+        for sub in entry["parts"].values():
+            flat.update(sub)
+        if set(flat) != set(self.params):
+            # Valid buckets whose union is not the tree: the worker's
+            # bucket plan does not match this server's parameters.
+            self._bump("quarantined_frames")
+            raise ValueError(
+                f"assembled bucket stream covers {len(flat)} parameter(s) "
+                f"but this server owns {len(self.params)} — worker bucket "
+                f"plan does not match the served tree")
+        self._bump("buckets_filled", entry["n"])
+        self._enqueue_grad(
+            (OrderedDict((n, flat[n]) for n in self.params),
+             *entry["tail"]), rank)
 
     def _dispatch_decode(self, decodes, payload, tail,
-                         rank: "int | None", frame_idx: int) -> None:
+                         rank: "int | None", frame_idx: int,
+                         binfo=None) -> None:
         """Decode one admitted GRAD payload and enqueue ``(codes,
         *tail)``: multi-MB frames on the decode pool (``decode_offloaded``),
         at most `_DECODE_DEPTH` deep per connection; small ones inline.
         ``frame_idx`` is the arena's receive count at dispatch, which the
-        connection loop's pre-receive drain checks."""
+        connection loop's pre-receive drain checks.  ``binfo`` marks a
+        bucket frame, ``(assembler, seq, bucket, n_buckets)``: decoded
+        like any frame (bucket b decodes while b+1 is on the wire), then
+        handed to `_assemble_bucket`."""
+        decode = (self._decode_codes if binfo is None
+                  else self._decode_codes_bucket)
         if (self._decode_offload_min is not None
                 and payload.nbytes >= self._decode_offload_min):
             while len(decodes) >= _DECODE_DEPTH:
                 self._finish_decode(decodes)
-            decodes.append((self._decode_pool.submit(self._decode_codes,
-                                                     payload),
-                            tail, rank, frame_idx))
+            decodes.append((self._decode_pool.submit(decode, payload),
+                            tail, rank, frame_idx, binfo))
             self._bump("decode_offloaded")
             while decodes and decodes[0][0].done():
                 self._finish_decode(decodes)
@@ -699,11 +846,11 @@ class AsyncPSServer(AsyncPS):
         while decodes:  # keep per-connection enqueue order
             self._finish_decode(decodes)
         try:
-            codes = self._decode_codes(payload)
+            codes = decode(payload)
         except Exception:
             self._bump("quarantined_frames")
             raise
-        self._enqueue_grad((codes, *tail), rank)
+        self._deliver(codes, tail, rank, binfo)
 
     def _enqueue_grad(self, item, rank: "int | None",
                       patience: "float | None" = None) -> bool:
@@ -755,6 +902,8 @@ class AsyncPSServer(AsyncPS):
         arena = _transport.RecvArena(self._recv_arena_hint(),
                                      nbufs=_RECV_NBUFS)
         decodes: "deque" = deque()
+        # This connection's partial bucket assemblies, by (rank, seq).
+        assembler: dict = {}
         try:
             with conn:
                 if self.conn_timeout:
@@ -884,20 +1033,23 @@ class AsyncPSServer(AsyncPS):
                         except Exception:
                             self._bump("quarantined_frames")
                             raise
-                        if n_buckets > 1:
-                            raise self._refuse(
-                                "a bucket-streamed GRAD (n_buckets "
-                                f"{n_buckets})")
-                        if self._shed_before_decode(rank, seq, version):
+                        if self._shed_before_decode(rank, seq, version,
+                                                    bucket, n_buckets):
                             continue
-                        if rank is not None and not self._burn_seq(rank,
-                                                                   seq):
+                        # The (seq, bucket) burns at receive time, in
+                        # wire order: pipelined decodes may finish out of
+                        # order, and a duplicate never pays a decode.
+                        if rank is not None and not self._burn_seq(
+                                rank, seq, bucket, n_buckets):
                             self._bump("duplicate_dropped")
                             continue
+                        binfo = ((assembler, seq, bucket, n_buckets)
+                                 if n_buckets > 1 else None)
                         self._dispatch_decode(
                             decodes,
                             body[_BKT.size + 2 * _U64.size + _F64.size:],
-                            (version, rank, loss), rank, arena.frames)
+                            (version, rank, loss), rank, arena.frames,
+                            binfo)
                     else:
                         self._bump("quarantined_frames")
                         raise ValueError(f"unknown message kind {kind!r}")
@@ -915,6 +1067,11 @@ class AsyncPSServer(AsyncPS):
                     self._finish_decode(decodes)
                 except Exception:
                     break
+            if assembler:
+                # Partial assemblies die with their connection: a worker
+                # that redials computes a fresh gradient under a fresh
+                # seq and never resends old frames.
+                self._bump("bucket_partial_timeouts", len(assembler))
             if rank is not None:
                 self._release_conn(rank)
 
@@ -1181,6 +1338,14 @@ class AsyncPSWorker:
     attempts ends the run cleanly, as a DONE would.  ``fault_plan``
     injects deterministic chaos: planned death, NaN gradients, wire
     mangling of outbound GRAD frames, overload.
+
+    ``bucket_bytes`` streams each gradient as bucket frames (None: one
+    whole-tree frame; 0: `parallel.overlap.auto_bucket_bytes`'s size): the
+    plan is built at the first pull (`plan_overlap`), and the buckets go
+    out last bucket first, each as soon as it is on the host
+    (`push_buckets`).  ``fused_encode`` encodes each bucket inside
+    backward (`parallel.overlap.make_async_bucket_step`); it needs a
+    bucket plan.
     """
 
     def __init__(self, host: str, port: int,
@@ -1193,9 +1358,24 @@ class AsyncPSWorker:
                  backoff_base: float = 0.1,
                  backoff_max: float = 1.0,
                  op_deadline: "float | None" = None,
-                 credit_cap: "int | None" = None):
+                 credit_cap: "int | None" = None,
+                 bucket_bytes: "int | None" = None,
+                 fused_encode: bool = False):
         from .ops.codecs import get_codec
 
+        if bucket_bytes is not None and bucket_bytes < 0:
+            raise ValueError(
+                f"bucket_bytes must be >= 0 (0 = auto) or None, got "
+                f"{bucket_bytes}")
+        if fused_encode and bucket_bytes is None:
+            raise ValueError(
+                "fused_encode fuses the PER-BUCKET encode into the grad "
+                "program — it needs bucket streaming (set bucket_bytes; "
+                "0 auto-tunes); without a plan the flag would be "
+                "silently inert")
+        self.bucket_bytes = bucket_bytes
+        self.fused_encode = bool(fused_encode)
+        self._bucket_plan = None
         self.code = get_codec(code)
         self.device = resolve_device("cuda" if device is None else device)
         self.token = token or None  # "" behaves exactly like unset
@@ -1214,7 +1394,10 @@ class AsyncPSWorker:
         # via `fault_snapshot` (the JAX worker's keys).
         self.fault_stats: "dict[str, int]" = {
             "deadline_expired": 0, "flood_injected": 0,
-            "burst_injected": 0, "parm_unchanged": 0}
+            "burst_injected": 0, "parm_unchanged": 0,
+            # Bucket frames handed to the transport, and fused bucketed
+            # grad + encode steps run.
+            "buckets_sent": 0, "fused_encodes": 0}
         self.shard_index = 0
         self.num_shards = 1
         self.plan_digest = 0
@@ -1236,6 +1419,8 @@ class AsyncPSWorker:
         # transport error (the kernels' launch counts are per computed
         # gradient).
         self.grads_computed = 0
+        # The bucket stream's device-to-host copies (`_to_host_after`).
+        self._d2h_stream = None
         # Test/diagnostic knob: after a push, pull until the served
         # version moves past the one the gradient was computed from — with
         # a quota-1 server, sequential SGD through the wire.  Never the
@@ -1441,6 +1626,64 @@ class AsyncPSWorker:
         else:
             self._push_grad(head + blob)
 
+    def push_buckets(self, buckets, n_buckets: int, version: int,
+                     loss: float) -> None:
+        """Stream one gradient as ``n_buckets`` GRAD frames sharing one
+        seq.  ``buckets`` yields host code sub-trees, or lists of them: a
+        list is a ready group, sent in one gather-send
+        (`Session.send_data_parts`).  The run loop hands in
+        `parallel.overlap.iter_ready_groups`, so a bucket whose encode
+        still runs on the card waits while its predecessors are on the
+        wire.
+
+        Flow control charges one credit for the whole gradient: the first
+        bucket consults the gate once (`Session.begin_data_parts`); a
+        closed gate collects every bucket and parks the gradient as one
+        entry, shed as a unit.  The caller keeps every buffer it hands in,
+        as in `push`.  With a wire mangler armed, or a peer without the
+        segmented wire, each bucket goes out as a frame of its own."""
+        seq = self._push_seq
+        self._push_seq += 1
+        direct: "bool | None" = None
+        parked: list = []
+        b = 0
+        for item in buckets:
+            group = item if isinstance(item, (list, tuple)) else [item]
+            batch: list = []
+            for codes_host in group:
+                head = (b"GRAD" + _BKT.pack(b, int(n_buckets))
+                        + _U64.pack(seq) + _U64.pack(version)
+                        + _F64.pack(float(loss)))
+                b += 1
+                self.fault_stats["buckets_sent"] += 1
+                if self._mangler is not None or not self._wire_segmented:
+                    blob = serializer.dumps(codes_host, level=_WIRE_LEVEL)
+                    if self._mangler is None:
+                        self._send(head + blob)
+                    else:
+                        self._push_grad(head + blob)
+                    continue
+                meta_blob, segs = serializer.encode_segments(
+                    codes_host, level=_WIRE_LEVEL)
+                batch.append((head, meta_blob, segs))
+            if not batch:
+                continue
+            if direct is None:
+                direct = self._session.begin_data_parts()
+            if not direct:
+                parked.extend([h, m, *sg] for h, m, sg in batch)
+            elif len(batch) == 1:
+                head, meta_blob, segs = batch[0]
+                self._session.send_data_part(
+                    [head, meta_blob, *segs],
+                    cached=(segs.wire_crc, segs.wire_len))
+            else:
+                self._session.send_data_parts(
+                    [([h, m, *sg], (sg.wire_crc, sg.wire_len))
+                     for h, m, sg in batch])
+        if parked:
+            self._session.park_data_parts(parked)
+
     def close(self) -> None:
         if self._session is not None:
             self._session.close()
@@ -1454,11 +1697,26 @@ class AsyncPSWorker:
         return (tree_map(_wire_leaf, host_codes),
                 float(host_loss.to(torch.float64)))
 
+    def _to_host_after(self, tree, event):
+        """``tree`` in fresh host memory as the serializer's leaves, one
+        copy once ``event`` has completed.  On the card the copy runs on a
+        stream of its own that waits for ``event`` alone, so a finished
+        bucket reaches the host while the rest of backward still runs."""
+        if event is None:
+            return tree_map(_wire_leaf, tree_to_host(tree))
+        if self._d2h_stream is None:
+            self._d2h_stream = torch.cuda.Stream(device=self.device)
+        with torch.cuda.stream(self._d2h_stream):
+            self._d2h_stream.wait_event(event)
+            host = tree_to_host(tree)
+        return tree_map(_wire_leaf, host)
+
     def run(self, loss_fn: Callable, batch_fn: Callable[[int, int], Any],
             max_iters: "int | None" = None) -> int:
         """Work until the PS says DONE (or ``max_iters``).  Returns the
         number of gradients pushed."""
         from .async_ps import make_worker_step
+        from .parallel.overlap import make_async_bucket_step, plan_overlap
         from .utils.interop import jax_order
 
         plan = self.fault_plan
@@ -1510,8 +1768,20 @@ class AsyncPSWorker:
                             n: o for n, p in params.items()
                             if (o := jax_order(n, tuple(p.shape)))
                             is not None}
-                    fn = make_worker_step(loss_fn, self.code, transform,
-                                          orders=self._orders)
+                    if self.bucket_bytes is None:
+                        fn = make_worker_step(loss_fn, self.code, transform,
+                                              orders=self._orders)
+                    else:
+                        # The plan needs the parameters' shapes, which
+                        # come with the first pull.
+                        self._bucket_plan = plan_overlap(
+                            OrderedDict((n, _host_leaf(p))
+                                        for n, p in params.items()),
+                            self.bucket_bytes, record=False)
+                        fn = make_async_bucket_step(
+                            loss_fn, self.code, self._bucket_plan,
+                            transform, fused=self.fused_encode,
+                            orders=self._orders)
                 if params is not dev_src:
                     dev_params = tree_to_device(params, self.device)
                     dev_src = params
@@ -1530,6 +1800,16 @@ class AsyncPSWorker:
                     lambda x: torch.as_tensor(x).to(self.device,
                                                     non_blocking=True),
                     batch_fn(self.rank, it))
+                if self._bucket_plan is not None:
+                    if not self._push_bucket_stream(fn, dev_params, batch,
+                                                    version, plan, it):
+                        if self._reconnect():
+                            continue  # this gradient is lost
+                        break
+                    last_version = version
+                    pushed += 1
+                    it += 1
+                    continue
                 loss, codes = fn(dev_params, batch)
                 self.grads_computed += 1
                 codes_host, loss_f = self._codes_to_host(codes, loss)
@@ -1551,6 +1831,44 @@ class AsyncPSWorker:
             self.close()
         return pushed
 
+    def _push_bucket_stream(self, fn, dev_params, batch, version: int,
+                            plan, it: int) -> bool:
+        """One bucket-streamed gradient: compute it, then stream its
+        buckets last bucket first (backward makes the output layers'
+        gradients first; the server assembles by name, so the order is
+        free), each as soon as it is on the host, a run of finished
+        buckets in one gather-send (`iter_ready_groups`).  False when the
+        transport failed (the gradient is lost)."""
+        from .parallel.overlap import iter_ready_groups
+
+        loss, bucket_codes = fn(dev_params, batch)
+        self.grads_computed += 1
+        if self.fused_encode:
+            self.fault_stats["fused_encodes"] += 1
+        # The loss was computed before any bucket: the first bucket's
+        # event covers it.
+        (loss_host,) = self._to_host_after((loss,), bucket_codes[-1].event)
+        loss_f = float(loss_host)
+        poison = plan is not None and plan.inject_nonfinite(self.rank, it)
+        host_parts: list = []
+
+        def to_host(sub):
+            host = self._to_host_after(sub, sub.event)
+            if poison and not host_parts:
+                from .utils.faults import poison_nonfinite
+                host = poison_nonfinite(host)
+            host_parts.append(host)
+            return host
+
+        try:
+            self.push_buckets(
+                iter_ready_groups(reversed(bucket_codes), to_host),
+                self._bucket_plan.n_buckets, version, loss_f)
+        except TRANSPORT_ERRORS:
+            return False
+        self._inject_overload_buckets(plan, it, host_parts, version, loss_f)
+        return True
+
     def _inject_overload(self, plan, it: int, codes_host, version: int,
                          loss: float) -> None:
         """Overload injectors (flood_rank / burst_at): extra copies of this
@@ -1561,6 +1879,23 @@ class AsyncPSWorker:
         for i in range(flood + burst):
             try:
                 self.push(codes_host, version, loss)
+            except TRANSPORT_ERRORS:
+                return
+            self.fault_stats["flood_injected" if i < flood
+                             else "burst_injected"] += 1
+
+    def _inject_overload_buckets(self, plan, it: int, host_parts,
+                                 version: int, loss: float) -> None:
+        """`_inject_overload` for the bucket stream: each extra copy
+        re-streams the buckets already on the host, as one ready group,
+        under a fresh seq."""
+        if plan is None:
+            return
+        flood, burst = plan.overload_extras(self.rank, it)
+        for i in range(flood + burst):
+            try:
+                self.push_buckets(iter([list(host_parts)]),
+                                  len(host_parts), version, loss)
             except TRANSPORT_ERRORS:
                 return
             self.fault_stats["flood_injected" if i < flood

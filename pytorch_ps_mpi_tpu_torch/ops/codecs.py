@@ -261,6 +261,23 @@ class BlockQuantizeCodec(Codec):
         return n_blocks * per_block * (self.bits // 8) + n_blocks * 4
 
 
+def _top_k_indices(mag: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices ``lax.top_k`` selects, in its order: magnitudes
+    descending, and among equal magnitudes the lower index first (a NaN
+    above every number).  ``torch.topk`` breaks ties in another order, so
+    it only finds the k-th magnitude ``t``: every element above ``t``
+    (or NaN) is kept, and the candidates at or above it, taken in index
+    order, are sorted stably by magnitude, which keeps the lowest indices
+    among the ties at ``t``."""
+    t = torch.topk(mag, k).values[-1]  # NaNs sort first
+    if torch.isnan(t):  # every one of the k is NaN
+        cand = torch.nonzero(torch.isnan(mag)).reshape(-1)
+    else:
+        cand = torch.nonzero((mag >= t) | torch.isnan(mag)).reshape(-1)
+    order = torch.sort(mag[cand], descending=True, stable=True).indices
+    return cand[order[:k]]
+
+
 class TopKCodec(Codec):
     """Magnitude top-k sparsification: ``k`` (value, int32 index) pairs a
     leaf, ``k`` fixed per shape (``fraction`` of the element count,
@@ -272,7 +289,7 @@ class TopKCodec(Codec):
 
     ``approx=True`` is the JAX package's ``lax.approx_max_k``, which
     returns at least ``recall_target`` of the true top-k; here the exact
-    ``torch.topk`` selects (recall 1.0 meets any target), as the JAX
+    selection runs (recall 1.0 meets any target), as the JAX
     package's own selection does on the CPU.  The wire format is the
     same, so exact and approximate ranks interoperate."""
 
@@ -299,7 +316,7 @@ class TopKCodec(Codec):
 
     def encode(self, grad):
         flat = grad.reshape(-1)
-        _, idx = torch.topk(flat.abs(), self._k_for(flat.numel()))
+        idx = _top_k_indices(flat.abs(), self._k_for(flat.numel()))
         return {"values": flat[idx], "indices": idx.to(torch.int32)}
 
     def decode(self, code, *, shape=None, dtype=None):

@@ -12,15 +12,25 @@ same elementwise sums as the per-leaf lowering.
 
 Trees are nested dicts of tensors, flattened in JAX's leaf order
 (`utils.flatten`).
+
+The host API at the end (`iallgather`, `igather`, `ibroadcast`,
+`ialltoall`, `ireduce`, each returning a `PendingTree`) is the
+reference's nonblocking layer (its ``mpi_comms.py``): collectives posted
+with ``async_op=True``, waited for by `PendingTree.wait`.  Where the JAX
+package passes a global array whose slice ``r`` is rank ``r``'s payload,
+each rank here passes its own payload, in a process group (``group``,
+the default group when None) in place of a mesh axis.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
+from ..utils.bytes import bytes_of
 from ..utils.flatten import tree_flatten, tree_map, tree_unflatten
 
 Tree = Any
@@ -280,3 +290,148 @@ def reduce_scatter_flats_bucketed(
             out[i] = mine[off:off + chunk]
             off += chunk
     return tree_unflatten(treedef, out)
+
+
+# ---------------------------------------------------------------------------
+# Host API — nonblocking collectives on trees
+# ---------------------------------------------------------------------------
+
+
+class PendingTree:
+    """A posted collective — the ``MPI.Request`` analogue.  ``result`` holds
+    the output tree (valid after `wait`); ``timings`` has ``msg_bytes``
+    (the bytes of the tree this rank passed) and ``<name>_time`` (the
+    time to post).  `wait` blocks until every transfer is complete (on
+    the card, until the stream has run them) and records ``comm_wait``
+    once, as the reference's ``ps.py`` does."""
+
+    def __init__(self, result: Tree, timings: "dict[str, float]",
+                 works=()):
+        self.result = result
+        self.timings = timings
+        # (work, buffer) pairs: each buffer the work reads or writes is
+        # referenced until the wait.
+        self._works = list(works)
+        self._done = False
+
+    def wait(self) -> Tree:
+        start = time.perf_counter()
+        for work, _ in self._works:
+            work.wait()
+        cards = {x.device for x in tree_flatten(self.result)[0]
+                 if isinstance(x, torch.Tensor) and x.is_cuda}
+        for device in cards:
+            torch.cuda.current_stream(device).synchronize()
+        if not self._done:
+            self.timings["comm_wait"] = time.perf_counter() - start
+            self._done = True
+        return self.result
+
+    # The Request-like spelling.
+    Wait = wait
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x``'s bytes: what a collective may write,
+    in a dtype every backend moves."""
+    return x.detach().contiguous().clone().reshape(-1).view(torch.int8)
+
+
+def _post(name: str, tree: Tree, per_leaf) -> PendingTree:
+    """Post ``per_leaf(x, works) -> out`` on every leaf; one PendingTree."""
+    timings: "dict[str, float]" = {"msg_bytes": bytes_of(tree)}
+    works: list = []
+    start = time.perf_counter()
+    leaves, treedef = tree_flatten(tree)
+    out = tree_unflatten(treedef, [per_leaf(x, works) for x in leaves])
+    timings[f"{name}_time"] = time.perf_counter() - start
+    return PendingTree(out, timings, works)
+
+
+def _src(group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def iallgather(tree: Tree, group=None) -> PendingTree:
+    """Every rank ends with the stack ``[world, ...]`` of every rank's
+    leaves — the reference's ``Iallgather`` of sizes and ``Iallgatherv``
+    of payloads."""
+    def leaf(x, works):
+        world = dist.get_world_size(group)
+        flat = x.detach().contiguous().reshape(-1)
+        return _all_gather_flat(flat, group, works).view(world, *x.shape)
+
+    return _post("iallgather", tree, leaf)
+
+
+def igather(tree: Tree, group=None, *, root: int = 0,
+            root_only: bool = False) -> PendingTree:
+    """Gather to ``root`` — the reference's ``Igatherv``.  ``root_only=
+    False`` is the all-gather (every rank holds the stack, as the JAX
+    package's SPMD lowering has it); ``root_only=True`` is a true gather:
+    the stack ``[world, ...]`` lands on ``root`` alone, and every other
+    rank sends its payload and holds no stack (its result is None)."""
+    if not root_only:
+        return iallgather(tree, group)
+    world = dist.get_world_size(group)
+    me = dist.get_rank(group)
+
+    def leaf(x, works):
+        raw = _bytes(x)
+        if me != root:
+            works.append((dist.gather(raw, None, dst=_src(group, root),
+                                      group=group, async_op=True), raw))
+            return None
+        stack = raw.new_empty((world, raw.numel()))
+        works.append((dist.gather(raw, list(stack.unbind(0)),
+                                  dst=_src(group, root), group=group,
+                                  async_op=True), raw))
+        return stack.view(x.dtype).view(world, *x.shape)
+
+    pending = _post("igather", tree, leaf)
+    if me != root:
+        pending.result = None
+    return pending
+
+
+def ibroadcast(tree: Tree, group=None, *, root: int = 0) -> PendingTree:
+    """Every rank ends with ``root``'s payload — the reference's ``Ibcast``
+    of the parameters (AsySG-InCon's push); the caller's tree is not
+    written."""
+    def leaf(x, works):
+        raw = _bytes(x)
+        works.append((dist.broadcast(raw, src=_src(group, root),
+                                     group=group, async_op=True), raw))
+        return raw.view(x.dtype).view(x.shape)
+
+    return _post("ibroadcast", tree, leaf)
+
+
+def ialltoall(tree: Tree, group=None) -> PendingTree:
+    """Slice ``j`` of each rank's ``[world, ...]`` payload goes to rank
+    ``j``: afterwards slice ``i`` of rank ``j``'s result is rank ``i``'s
+    slice ``j`` — the reference's ``Ialltoallv``, static shapes."""
+    def leaf(x, works):
+        world = dist.get_world_size(group)
+        if x.shape[0] != world:
+            raise ValueError(f"ialltoall needs a leading dim of the world "
+                             f"size {world}, got shape {tuple(x.shape)}")
+        raw = _bytes(x).view(world, -1)
+        out = torch.empty_like(raw)
+        works.append((dist.all_to_all_single(out, raw, group=group,
+                                             async_op=True), raw))
+        return out.view(x.dtype).view(x.shape)
+
+    return _post("ialltoall", tree, leaf)
+
+
+def ireduce(tree: Tree, group=None) -> PendingTree:
+    """The sum of every rank's payload, on every rank (an all-reduce, as
+    the JAX package lowers it); the caller's tree is not written."""
+    def leaf(x, works):
+        out = x.detach().contiguous().clone()
+        works.append((dist.all_reduce(out, op=dist.ReduceOp.SUM,
+                                      group=group, async_op=True), out))
+        return out
+
+    return _post("ireduce", tree, leaf)

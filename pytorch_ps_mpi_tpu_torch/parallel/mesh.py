@@ -31,6 +31,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def record_event(device: torch.device):
+    """An event recorded on ``device``'s current stream (None off the
+    card)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 def make_ps_group(device="cuda", *, rank: int = 0, world_size: int = 1,
                   init_file: str | None = None):
     """Join (or create) the PS process group — the ``mpirun -n N``

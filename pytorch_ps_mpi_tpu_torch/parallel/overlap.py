@@ -1,7 +1,9 @@
 """Overlapped bucket-scheduled gradient sync — each bucket's exchange
-issued inside backward.
+issued inside backward — and the async PS's bucket-streamed gradient.
 
-Counterpart of the sync half of `pytorch_ps_mpi_tpu/parallel/overlap.py`.
+Counterpart of `pytorch_ps_mpi_tpu/parallel/overlap.py`: its sync half
+first, its async half (`make_async_bucket_step`, `split_tree`,
+`iter_ready_groups`, `merge_buckets`) at the end.
 The reference hides communication behind computation with per-parameter
 backward hooks that put each gradient on the wire the moment it is
 produced (the reference's `ps.py:63-66,98-101`).  The gradients are
@@ -55,6 +57,7 @@ from ..utils.interop import to_jax_order as _wire
 from ..utils.timing import record_overlap_schedule
 from . import collectives
 from .collectives import _allreduce_rs_ag, _plan_buckets
+from .mesh import record_event
 
 # The JAX package's bounds for a tuned bucket: below ~1 MiB a bucket's
 # wire time stops amortizing a collective's issue cost; above ~32 MiB the
@@ -492,3 +495,138 @@ def wrap_loss(loss_fn: Callable, plan: OverlapPlan,
         return loss_fn(attach(params, plan, sync_fn), *rest)
 
     return wrapped
+
+
+# ---------------------------------------------------------------------------
+# Async gradient production: bucket-streamed grad + encode
+# ---------------------------------------------------------------------------
+# The async PS's worker has no collective: a bucket's operation is its
+# codec encode, an output of the step.  The step hands back one encoded
+# sub-tree per bucket, each with the event that completes it on the card,
+# so the worker can copy a finished bucket to the host and put it on the
+# wire while earlier layers' backward still runs
+# (`multihost_async.AsyncPSWorker.push_buckets`).
+
+
+class BucketCodes(OrderedDict):
+    """One bucket's codes (name -> code) and ``event``, recorded on the
+    card after the bucket's encode was queued; None off the card."""
+
+    event = None
+
+
+def split_tree(tree: "OrderedDict", plan: OverlapPlan) -> tuple:
+    """Slice a name-keyed tree into the plan's bucket sub-trees (every
+    name exactly once, in plan order)."""
+    return tuple(OrderedDict((n, tree[n]) for n in names)
+                 for names in plan.buckets)
+
+
+def _ready(sub) -> bool:
+    event = getattr(sub, "event", None)
+    return event is None or event.query()
+
+
+def iter_ready_groups(subs, to_host: Callable):
+    """Walk bucket sub-trees in stream order and group them: before
+    ``to_host`` would block on a bucket whose event has not completed,
+    yield the run already on the host as one group (its frames go out in
+    one gather-send while the card finishes); a stream that is complete
+    throughout is one group.  The JAX package asks each array
+    ``is_ready()``; here the bucket's event answers (`BucketCodes`), and
+    a bucket without one (on the CPU) is ready."""
+    group: list = []
+    for sub in subs:
+        if not _ready(sub) and group:
+            yield group
+            group = []
+        group.append(to_host(sub))
+    if group:
+        yield group
+
+
+def merge_buckets(buckets, order) -> "OrderedDict":
+    """Inverse of `split_tree`: one tree keyed in canonical ``order``."""
+    flat: dict = {}
+    for sub in buckets:
+        flat.update(sub)
+    return OrderedDict((n, flat[n]) for n in order)
+
+
+def make_async_bucket_step(loss_fn: Callable, code: Codec, plan: OverlapPlan,
+                           grad_transform=None, *, fused: bool = True,
+                           orders=None):
+    """The bucket-streamed worker program: ``(params, batch) -> (loss,
+    bucket_codes)``, one `BucketCodes` per plan bucket, each leaf encoded
+    in the element order ``orders`` names (`utils.interop.jax_order`), as
+    `async_ps.make_worker_step` encodes the whole tree.
+
+    ``fused=True`` encodes each bucket inside backward: a hook on every
+    parameter leaf keeps its gradient, and the hook that completes a
+    bucket encodes it and records its event (nothing waits in a hook).
+    Leaves that get no gradient are zeros, encoded after backward.
+    ``fused=False`` runs backward first, then encodes bucket by bucket.
+    Both give codes bitwise equal to the whole-tree step's.
+
+    ``grad_transform`` (the Byzantine map) runs on the raw gradients
+    before encoding.  Every mode of `FaultPlan.byzantine_transform` maps
+    each leaf on its own, so applying it to each bucket's sub-tree (as
+    the fused hooks do) equals applying it to the whole tree."""
+    orders = orders or {}
+
+    def encode(grads: "OrderedDict", device) -> BucketCodes:
+        with torch.no_grad():
+            if grad_transform is not None:
+                grads = grad_transform(grads)
+            out = BucketCodes(
+                (n, code.encode(_wire(g, orders.get(n))))
+                for n, g in grads.items())
+        out.event = record_event(device)
+        return out
+
+    def fused_step(params, batch):
+        leaves = OrderedDict((n, p.detach().requires_grad_())
+                             for n, p in params.items())
+        device = next(iter(leaves.values())).device
+        got: list = [OrderedDict.fromkeys(b) for b in plan.buckets]
+        left = [len(b) for b in plan.buckets]
+        out: list = [None] * plan.n_buckets
+
+        def hook(i: int, name: str) -> Callable:
+            def on_grad(grad):
+                got[i][name] = grad
+                left[i] -= 1
+                if not left[i]:
+                    out[i] = encode(got[i], device)
+                    got[i] = None
+            return on_grad
+
+        handles = [leaves[n].register_hook(hook(i, n))
+                   for i, names in enumerate(plan.buckets) for n in names]
+        try:
+            loss = loss_fn(leaves, batch)
+            torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+        finally:
+            for h in handles:
+                h.remove()
+        for i, grads in enumerate(got):
+            if out[i] is None:
+                out[i] = encode(OrderedDict(
+                    (n, torch.zeros_like(leaves[n]) if g is None else g)
+                    for n, g in grads.items()), device)
+        return loss.detach(), tuple(out)
+
+    def host_step(params, batch):
+        leaves = OrderedDict((n, p.detach().requires_grad_())
+                             for n, p in params.items())
+        device = next(iter(leaves.values())).device
+        loss = loss_fn(leaves, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        grads = OrderedDict(zip(leaves, grads))
+        return loss.detach(), tuple(encode(sub, device)
+                                    for sub in split_tree(grads, plan))
+
+    return fused_step if fused else host_step

@@ -81,7 +81,7 @@ _HYPER_DEFAULTS = {
 
 # Options of the JAX MPI_PS that this package does not port yet, with the
 # defaults under which they are inert.
-_NOT_PORTED = {"mesh": None, "axis": "ps", "batch_spec": None, "cuda": False}
+_NOT_PORTED = {"mesh": None, "axis": "ps", "batch_spec": None}
 
 
 def init_ps_core(named_params, optim: str, hyper: dict, place):
@@ -200,8 +200,11 @@ class MPI_PS:
                  fused_encode: bool = False,
                  consensus_every: int = 0,
                  consensus_policy: str = "abort",
-                 names=(), use_mpi: bool = True, **kwargs):
-        del names, use_mpi  # accepted for API parity with the reference
+                 names=(), use_mpi: bool = True, cuda: bool = False,
+                 **kwargs):
+        # Accepted for API parity with the reference's constructor; the
+        # device is ``device``'s, whatever ``cuda`` says.
+        del names, use_mpi, cuda
         for key, default in _NOT_PORTED.items():
             if key in kwargs and kwargs.pop(key) != default:
                 raise NotImplementedError(
@@ -1110,6 +1113,10 @@ class MPI_PS:
     def print_summary(self) -> None:
         """Mean and max of each step metric over the run so far."""
         print_summary(self.timings)
+
+
+class PS(MPI_PS):
+    """The JAX package's alias of `MPI_PS`."""
 
 
 class SGD(MPI_PS):

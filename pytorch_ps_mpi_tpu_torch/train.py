@@ -13,10 +13,13 @@ and the LM; and the multihost roles, ``--serve PORT`` (one PS process,
 `multihost_async.AsyncPSServer`; ``serving on port N`` on stdout) and
 ``--connect HOST:PORT`` (a worker process, `AsyncPSWorker`).  It takes
 the JAX CLI's flags and prints its lines; the roles and flags not ported
-yet (``--subscribe``, ``--sp/--tp/--pp/--ep > 1``, ``--moe-experts``, and
-on the multihost roles ``--shards``, ``--aggregators``, ``--fallback``,
-``--read-window``, ``--delta-parm``, ``--async-bucket-bytes`` and the
-replication flags) are refused by name.
+yet (``--subscribe``, ``--sp/--tp/--pp/--ep > 1``, and on the multihost
+roles ``--shards``, ``--aggregators``, ``--fallback``, ``--read-window``,
+``--delta-parm`` and the replication flags) are refused by name.  A
+``--connect`` worker streams its gradients in buckets under
+``--async-bucket-bytes N`` (0: auto), encoded inside backward under
+``--fused-encode``; ``--moe-experts E`` gives the LM dense MoE MLPs on
+every role.
 
 It runs on the card, and raises when there is none; ``--force-cpu-devices
 N`` runs it on the CPU (gloo) instead.  The sync world is one process, or
@@ -651,12 +654,10 @@ def _unported(args) -> "str | None":
     for flag in ("sp", "tp", "pp", "ep"):
         if getattr(args, flag) > 1:
             return f"--{flag} {getattr(args, flag)}"
-    if args.moe_experts:
-        return "--moe-experts"
     if args.serve is None and not args.connect:
         return None
-    # On the multihost roles: the fleet, standby, hierarchy, serve-tier
-    # and bucket-stream flags.
+    # On the multihost roles: the fleet, standby, hierarchy and serve-tier
+    # flags.
     for flag, given in (
             ("--shards", args.shards > 1),
             ("--partition-rules", args.partition_rules is not None),
@@ -665,8 +666,7 @@ def _unported(args) -> "str | None":
             ("--aggregators", bool(args.aggregators)),
             ("--fallback", bool(args.fallback)),
             ("--read-window", bool(args.read_window)),
-            ("--delta-parm", args.delta_parm),
-            ("--async-bucket-bytes", args.async_bucket_bytes is not None)):
+            ("--delta-parm", args.delta_parm)):
         if given:
             return flag
     if args.connect and "," in args.connect:
@@ -679,10 +679,10 @@ def _dispatch(args):
     if what is not None:
         raise SystemExit(f"{what} is not ported to the PyTorch package yet "
                          f"(the sync trainer, the in-process async PS and "
-                         f"the single-PS multihost roles are; the bucket "
-                         f"stream, the serve tier, the fleet, the "
-                         f"hierarchy and the sp/tp/pp/ep/MoE roles "
-                         f"follow)")
+                         f"the single-PS multihost roles with the bucket "
+                         f"stream are, with the dense MoE LM; the serve "
+                         f"tier, the fleet, the hierarchy and the "
+                         f"sp/tp/pp/ep roles follow)")
     # Refuse, don't drop: every flag below would be inert on the role that
     # runs (the JAX CLI's refusals and messages, in its order).
     on_async = args.async_ps or args.serve is not None or bool(args.connect)
@@ -942,16 +942,17 @@ def _dispatch(args):
         if args.async_bucket_bytes < 0:
             raise SystemExit(f"--async-bucket-bytes must be >= 0 "
                              f"(0 = auto), got {args.async_bucket_bytes}")
-        raise SystemExit("--async-bucket-bytes is the MULTIHOST "
-                         "worker's gradient-streaming knob "
-                         "(--connect): the sync step has no wire, "
-                         "the PS side assembles whatever bucket "
-                         "plan its workers chose, and the "
-                         "in-process --async-ps path moves device "
-                         "arrays, not frames — anywhere else the "
-                         "flag would be silently inert, which is "
-                         "worse than refusing")
-    if args.fused_encode:
+        if not args.connect:
+            raise SystemExit("--async-bucket-bytes is the MULTIHOST "
+                             "worker's gradient-streaming knob "
+                             "(--connect): the sync step has no wire, "
+                             "the PS side assembles whatever bucket "
+                             "plan its workers chose, and the "
+                             "in-process --async-ps path moves device "
+                             "arrays, not frames — anywhere else the "
+                             "flag would be silently inert, which is "
+                             "worse than refusing")
+    if args.fused_encode and args.async_bucket_bytes is None:
         raise SystemExit("--fused-encode fuses the PER-BUCKET encode "
                          "into the grad program — it needs "
                          "--async-bucket-bytes (0 auto-tunes); without "
@@ -1355,8 +1356,9 @@ def _maybe_rollback(args, opt, guard, loss, step: int, loader):
 
 def transformer_model(args):
     """The CLI's LM configuration (the JAX CLI's): 4 layers, d_model 256,
-    8 heads (head dim 32), d_ff 1024; ``--attn flash`` runs the flash
-    kernels."""
+    8 heads (head dim 32), d_ff 1024, a dense MoE MLP of ``--moe-experts``
+    experts (capacity factor 1.25) where that is set; ``--attn flash``
+    runs the flash kernels."""
     import functools
 
     from .models.transformer import TransformerLM
@@ -1368,7 +1370,7 @@ def transformer_model(args):
     return TransformerLM(vocab_size=args.vocab, d_model=256, n_heads=8,
                          n_layers=4, d_ff=1024,
                          max_len=max(2048, args.seq_len), dtype=dtype,
-                         attn=attn)
+                         attn=attn, moe_experts=args.moe_experts)
 
 
 def run_transformer(args, device, group):
@@ -1648,9 +1650,16 @@ def run_multihost(args, plan=None):
                            reconnect_retries=args.reconnect_retries,
                            op_deadline=args.op_deadline,
                            credit_cap=args.credit_window or None,
+                           bucket_bytes=args.async_bucket_bytes,
+                           fused_encode=args.fused_encode,
                            backoff_max=2.0)
     print(f"worker rank {worker.rank} connected to {args.connect}",
           file=sys.stderr)
+    if args.async_bucket_bytes is not None:
+        # Machine-parseable: harnesses assert the streaming mode engaged.
+        print(f"bucket streaming on "
+              f"({'fused' if args.fused_encode else 'host'} encode)",
+              file=sys.stderr)
     pushed = worker.run(loss_fn, batch_fn)
     if worker.reconnects:
         print(f"worker rank {worker.rank}: {worker.reconnects} "

@@ -9,7 +9,9 @@ and BatchNorm buffers, undoing its layout rules:
 * flax ``Dense`` kernels ``(in, out)`` -> torch ``(out, in)``;
 * ``kernel``, BatchNorm/LayerNorm ``scale`` and ``Embed``'s
   ``embedding`` -> ``weight`` (an embedding table keeps ``(num, features)``);
-* ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+* ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+* the MoE layer's ``router``, ``w1``, ``b1``, ``w2`` and ``b2`` keep their
+  names and expert-major layouts.
 
 It serves flax module trees (the ResNets and the transformer LM).  The
 MLP's plain dict keeps ``(in, out)`` in both packages and crosses
@@ -34,6 +36,10 @@ from .flatten import SEP, named_params
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias", "mean": "running_mean", "var": "running_var"}
+# The MoE layer's raw parameters keep their flax names and expert-major
+# layouts in both packages.
+_MOE_LEAVES = ("router", "w1", "b1", "w2", "b2")
+_LEAF.update({n: n for n in _MOE_LEAVES})
 
 # The port's names of the flax kernels, by rank: conv kernels of the
 # ResNets, the ResNets' Dense head and the LM's PDense kernels.  Embedding
@@ -54,7 +60,8 @@ def _flax_name(torch_name: str, kind: str) -> str:
     ``weight`` was (``kernel``, ``scale`` or ``embedding``)."""
     *path, leaf = torch_name.split(".")
     flax_leaf = {"weight": kind, "bias": "bias", "running_mean": "mean",
-                 "running_var": "var"}[leaf]
+                 "running_var": "var",
+                 **{n: n for n in _MOE_LEAVES}}[leaf]
     return SEP.join([*path, flax_leaf])
 
 

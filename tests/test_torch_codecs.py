@@ -214,6 +214,45 @@ def _np(x):
 
 
 @pytest.mark.parametrize("approx", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_topk_breaks_ties_as_lax_top_k(approx, k):
+    """Ties at the k-th magnitude: ``lax.top_k`` (the JAX codec's exact
+    selection) keeps the lower index first (``[1, 2, 2, 2, .5]``, k = 2
+    -> ``[1, 2]``), and so must the port, in the same order — its
+    approximate variant too, which selects exactly (the JAX package's
+    ``approx_max_k`` may take any of the tied indices)."""
+    g = np.array([1.0, -2.0, 2.0, 2.0, 0.5], np.float32)
+    ours = tcodecs.TopKCodec(k=k, approx=approx).encode(torch.from_numpy(g))
+    ref = jcodecs.TopKCodec(k=k).encode(jnp.asarray(g))
+    np.testing.assert_array_equal(_np(ours["indices"]), _np(ref["indices"]))
+    np.testing.assert_array_equal(_np(ours["values"]), _np(ref["values"]))
+    if k == 2:
+        np.testing.assert_array_equal(_np(ours["indices"]), [1, 2])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed", range(6))
+def test_topk_matches_jax_on_bf16_precision_ties(dtype, seed):
+    """Gradients of bf16 precision (f32 values rounded to bf16, or bf16
+    leaves) at n = 2,000 and fraction 0.01 meet ties at the k-th
+    magnitude; the selection, its order and the decode-sum are the JAX
+    package's, bitwise."""
+    g = torch.from_numpy(np.random.RandomState(seed).randn(2000)
+                         .astype(np.float32) * np.float32(0.01))
+    g = g.to(torch.bfloat16)
+    jg = jnp.asarray(g.to(torch.float32).numpy())
+    if dtype == "float32":
+        g = g.to(torch.float32)
+    else:
+        jg = jg.astype(jnp.bfloat16)
+    ours = tcodecs.TopKCodec(fraction=0.01).encode(g)
+    ref = jcodecs.TopKCodec(fraction=0.01).encode(jg)
+    np.testing.assert_array_equal(_np(ours["indices"]), _np(ref["indices"]))
+    np.testing.assert_array_equal(_np(ours["values"].to(torch.float32)),
+                                  np.asarray(ref["values"], np.float32))
+
+
+@pytest.mark.parametrize("approx", [False, True])
 @pytest.mark.parametrize("shape,kw", [((1000,), dict(fraction=0.01)),
                                       ((7, 33), dict(fraction=0.25)),
                                       ((3, 3, 4, 8), dict(k=5)),

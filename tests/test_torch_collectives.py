@@ -9,8 +9,14 @@
   the padding of sizes that are not a multiple of the world).  Tolerance:
   none — a sum of two float32 values is exact in either order, and a
   gather moves bytes.
+* The reference's nonblocking layer (`iallgather`, `igather` with and
+  without ``root_only``, `ibroadcast`, `ialltoall`, `ireduce` and
+  `PendingTree`) at gloo world 2 against the JAX package's on a 2-device
+  CPU mesh, each rank's payload slice ``r`` of the JAX global array:
+  bitwise, with the same timing keys.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,3 +102,60 @@ def test_world2_psum_decomposed(tmp_path):
                                               x + trees[1][n])
                 np.testing.assert_array_equal(got["input"][n],
                                               trees[rank][n])
+
+
+def _payload(rank):
+    rng = np.random.RandomState(rank)
+    return {"w": rng.randn(2, 3).astype(np.float32),
+            "n": {"b": np.full((5,), rank + 3, np.int16)},
+            "a2a": (np.arange(2)[:, None] * 10 + rank
+                    + np.zeros((2, 4))).astype(np.float32)}
+
+
+def test_world2_nonblocking_collectives_match_jax(tmp_path, mesh2):
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    pays = [_payload(0), _payload(1)]
+    results = run_world("icollectives_case", 2, tmp_path, pays)
+
+    def glob(get):
+        return jax.device_put(np.stack([get(p) for p in pays]),
+                              NamedSharding(mesh2, P("ps")))
+
+    tree = {"w": glob(lambda p: p["w"]),
+            "n": {"b": glob(lambda p: p["n"]["b"])}}
+    want = {}
+    for name, post in (
+            ("iallgather", lambda: jcoll.iallgather(tree, mesh2)),
+            ("igather", lambda: jcoll.igather(tree, mesh2, root=1)),
+            ("igather_root_only", lambda: jcoll.igather(
+                tree, mesh2, root=1, root_only=True)),
+            ("ibroadcast", lambda: jcoll.ibroadcast(tree, mesh2, root=1)),
+            ("ialltoall", lambda: jcoll.ialltoall(
+                {"x": glob(lambda p: p["a2a"])}, mesh2)),
+            ("ireduce", lambda: jcoll.ireduce({"w": tree["w"]}, mesh2))):
+        pending = post()
+        out = jax.tree.map(np.asarray, pending.wait())
+        want[name] = (out, sorted(pending.timings),
+                      pending.timings["msg_bytes"])
+    for rank, res in enumerate(results):
+        for name, (out, keys, jbytes) in want.items():
+            got = res[name]
+            assert got["timings"] == keys, name
+            # msg_bytes: the tree each caller passed — the global array
+            # in the JAX package, this rank's payload here.
+            assert got["msg_bytes"] * 2 == jbytes, name
+            if name == "igather_root_only" and rank != 1:
+                assert got["result"] is None  # only the root holds a stack
+                continue
+            if name == "ialltoall":
+                out = {"x": out["x"][rank]}   # row r is rank r's result
+            jl, tl = tree_leaves(out), tree_leaves(got["result"])
+            assert len(jl) == len(tl), name
+            for a, b in zip(jl, tl):
+                assert a.dtype == b.dtype and a.shape == b.shape, name
+                np.testing.assert_array_equal(a, b, err_msg=name)
+        # No op writes the caller's payload.
+        np.testing.assert_array_equal(res["input_after"]["w"],
+                                      pays[rank]["w"])

@@ -73,12 +73,19 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_the_multihost_modules_are_among_the_checked_sources():
-    """The multihost slice's modules are scanned by the import checks
-    above (they walk every module of the package)."""
+    """The multihost slice's modules, and the bucket stream's, the
+    nonblocking collectives' and the MoE's, are scanned by the import
+    checks above (they walk every module of the package)."""
     names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"transport.py", "multihost_async.py", "utils/backoff.py",
             "utils/crc.py", "native/serializer.py",
-            "ops/codecs.py"} <= names
+            "ops/codecs.py", "parallel/overlap.py",
+            "parallel/collectives.py", "models/moe.py"} <= names
+    from pytorch_ps_mpi_tpu_torch.models import moe
+    from pytorch_ps_mpi_tpu_torch.parallel import collectives, overlap
+
+    assert hasattr(overlap, "make_async_bucket_step")
+    assert hasattr(collectives, "PendingTree") and hasattr(moe, "MoEMLP")
     import pytorch_ps_mpi_tpu_torch.multihost_async as ma
     import pytorch_ps_mpi_tpu_torch.transport as tr
 

@@ -596,8 +596,6 @@ REFUSED = [
     ("SNAP", b"SNAP" + bytes(8), "SNAP frames (coordinated fleet"),
     ("PROM", b"PROM" + bytes(8), "PROM frames (standby promotion)"),
     ("SUBS", b"SUBS" + bytes(8), "SUBS frames (the serve tier"),
-    ("GRAD-buckets", _grad(0, 0, b"", bucket=(0, 3)),
-     "a bucket-streamed GRAD (n_buckets 3)"),
 ]
 
 
@@ -719,12 +717,13 @@ def test_lockstep_wire_equals_the_in_process_async_ps(code, updates):
 
 
 # The JAX server's and worker's counters of slices not ported yet
-# (replication, fleet snapshots, the hierarchy, the bucket stream): the
-# port does not carry counters that nothing of it can move.
+# (replication, fleet snapshots, the hierarchy): the port does not carry
+# counters that nothing of it can move.  The worker's are all ported (the
+# bucket stream's ``buckets_sent`` and ``fused_encodes`` with it).
 _UNPORTED_SERVER_KEYS = {"repl_sent", "repl_received", "repl_refused",
                          "repl_lag", "snapshot_barriers", "agg_frames",
                          "direct_fallbacks"}
-_UNPORTED_WORKER_KEYS = {"buckets_sent", "fused_encodes"}
+_UNPORTED_WORKER_KEYS: set = set()
 
 
 def test_fault_stats_render_as_the_jax_package_renders_them():

@@ -163,8 +163,6 @@ STILL_UNPORTED = [
     (["--serve", "0", "--read-window", "4"], "--read-window"),
     (["--serve", "0", "--delta-parm"], "--delta-parm"),
     (["--connect", "h:1", "--fallback", "h:2"], "--fallback"),
-    (["--connect", "h:1", "--async-bucket-bytes", "0"],
-     "--async-bucket-bytes"),
     (["--connect", "h:1,h:2"],
      "--connect with several endpoints (a shard fleet)"),
     (["--subscribe", "h:1"], "--subscribe"),

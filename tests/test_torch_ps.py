@@ -213,8 +213,54 @@ def test_constructor_validates_like_jax():
 
 @pytest.mark.parametrize("kwargs", [dict(cuda=True)])
 def test_unported_options_raise(kwargs):
+    """``cuda=`` is the reference's constructor argument, accepted for API
+    parity as the JAX package accepts it: the device stays ``device``'s,
+    and the steps are those of ``cuda=False``, bitwise.  (Only the mesh
+    options are refused: `tests/test_torch_isolation.py`.)"""
+    runs = []
+    for extra in (kwargs, dict(cuda=False)):
+        opt = SGD(_named(), lr=0.05, momentum=0.9, device="cpu",
+                  code="blockq", **extra)
+        assert opt.device == torch.device("cpu")
+        opt.compile_step(_loss)
+        losses = [opt.step(_batch())[0] for _ in range(2)]
+        runs.append((losses, {n: p.clone() for n, p in opt.params.items()}))
+    assert runs[0][0] == runs[1][0]
+    for n, p in runs[1][1].items():
+        assert torch.equal(runs[0][1][n], p), n
     with pytest.raises(NotImplementedError, match="not ported"):
-        SGD(_named(), device="cpu", code="blockq", **kwargs)
+        SGD(_named(), device="cpu", mesh=object())
+
+
+def test_exports_cover_the_jax_package():
+    """Each name of the JAX package's ``__all__`` is exported by the port,
+    or waits for the slice named here."""
+    import pytorch_ps_mpi_tpu as jpkg
+
+    import pytorch_ps_mpi_tpu_torch as port
+
+    waiting = {
+        "PSFleet": "the fleet", "ShardPlan": "the fleet",
+        "ShardRouter": "the fleet", "build_shard_plan": "the fleet",
+        "match_partition_rules": "the fleet",
+        "ShardDeadError": "the fleet",
+        "AggregatorDeadError": "the hierarchy",
+        "make_ps_mesh": "the multi-rank LM paths (meshes)",
+        "TorchUnavailableError": "none: the port is the torch package",
+        "InferShedError": "the serve tier",
+        "SnapshotRewindError": "the serve tier",
+        "Subscriber": "the serve tier", "FleetSubscriber": "the fleet",
+        "InferenceFrontend": "the serve tier",
+        "InferRequest": "the serve tier",
+    }
+    for name in jpkg.__all__:
+        if name in waiting:
+            assert name not in port.__all__, name
+            continue
+        assert name in port.__all__, name
+        assert hasattr(port, name), name
+    assert port.PS.__mro__[1] is port.MPI_PS
+    assert port.checkpoint.save_optimizer is not None
 
 
 @pytest.mark.parametrize("kwargs", [

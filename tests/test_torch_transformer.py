@@ -237,9 +237,14 @@ def test_build_lm_initialises_like_flax():
 
 
 def test_unported_options_raise():
-    for kw in (dict(tp_axis="tp"), dict(moe_experts=4), dict(ep_axis="ep")):
+    """Tensor and expert parallelism wait for the multi-rank LM slice; the
+    dense MoE (``moe_experts`` alone) is ported
+    (`tests/test_torch_moe.py`)."""
+    for kw in (dict(tp_axis="tp"), dict(ep_axis="ep"),
+               dict(moe_experts=4, ep_axis="ep")):
         with pytest.raises(NotImplementedError, match="not ported"):
             tt.TransformerLM(vocab_size=8, **kw)
+    assert tt.TransformerLM(vocab_size=8, moe_experts=4).moe_experts == 4
 
 
 def test_synthetic_lm_and_lm_batch_match_jax():

@@ -116,6 +116,39 @@ def decomposed_case(rank, world, shapes):
     return out
 
 
+def icollectives_case(rank, world, payloads):
+    """The nonblocking collectives of `parallel.collectives` on this
+    rank's payload tree (``payloads[rank]``, numpy); each op's result as
+    numpy (None where the rank holds none) and its timings' keys."""
+    from pytorch_ps_mpi_tpu_torch.parallel import collectives as C
+    from pytorch_ps_mpi_tpu_torch.utils.flatten import tree_map
+
+    mine = tree_map(torch.from_numpy, payloads[rank])
+    a2a = {"x": torch.from_numpy(payloads[rank]["a2a"])}
+    mine = {k: v for k, v in mine.items() if k != "a2a"}
+    ops = {
+        "iallgather": lambda: C.iallgather(mine),
+        "igather": lambda: C.igather(mine, root=1),
+        "igather_root_only": lambda: C.igather(mine, root=1,
+                                               root_only=True),
+        "ibroadcast": lambda: C.ibroadcast(mine, root=1),
+        "ialltoall": lambda: C.ialltoall(a2a),
+        "ireduce": lambda: C.ireduce({"w": mine["w"]}),
+    }
+    out = {}
+    for name, post in ops.items():
+        pending = post()
+        first = pending.wait()
+        pending.wait()  # a second wait records nothing new
+        out[name] = {
+            "result": None if first is None else tree_map(
+                lambda t: t.numpy().copy(), first),
+            "timings": sorted(pending.timings),
+            "msg_bytes": pending.timings["msg_bytes"]}
+    out["input_after"] = tree_map(lambda t: t.numpy().copy(), mine)
+    return out
+
+
 def ps_trajectory(rank, world, kind, named, aux, batches, code, lr,
                   momentum):
     """A few SGD steps of the port's MPI_PS on ``kind`` ('resnet11': the
