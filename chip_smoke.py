@@ -31,13 +31,15 @@ and carried on from):
    * the flash attention kernels within stated tolerances, at the LM's
      main-path shape (strided q/k/v views, causal, bf16), D = 128, a ragged
      S, non-causal, a scale override, f32, odd head dims and the edges of
-     the bf16 kernels' 128-row blocks, each output also against an f32
-     dense reference, and how the three bf16 flash kernels occupy the card
+     the bf16 kernels' 128-row blocks and the serve tier's decode shape,
+     each output also against an f32 dense reference, and how the three
+     bf16 flash kernels occupy the card
      (registers, shared memory, blocks per SM; a spill fails the run);
    then each timed at the main path's shapes beside its plain version, a
    library call where one computes the same function, and its bound (the
    decode sums: device time of one grouped launch over the 62 ResNet-18
-   leaves from a CUDA graph, and the call's host time), and
+   leaves from a CUDA graph, and the call's host time), ``flash_fwd`` also
+   at the serve tier's decode shape ``[4, 1024, 16, 64]``, and
    ``block_quantize`` also alone on the largest ResNet-18 gradient, it and
    the decode sums on the LM's embedding (device time from a CUDA graph of
    back-to-back launches).
@@ -145,7 +147,26 @@ and carried on from):
    ``igather``, ``ibroadcast``, ``ialltoall``, ``ireduce``) at NCCL world
    1 against their definitions, and topk's selection on tied bf16 leaves,
    the card against the CPU.
-10. The card line, one JSON line per the kernels, and the last line
+10. The serve tier on a single PS: (a) an `AsyncSGDServer` on the card
+    holding the bench LM (bf16 parameter wire, delta snapshots), one
+    worker process pushing blockq gradients with flash attention for 6
+    updates, and here a `Subscriber(nonblock_heal=True)` feeding an
+    `InferenceFrontend` over the same LM with the flash kernel (4 slots,
+    a 1,024-token buffer, 32 requests of 8 tokens with prompts of 8-512
+    tokens, one each 0.2 s once training publishes, then drained):
+    p50/p95 request latency, generated tokens/s, decode steps and a
+    step's time, the hot swaps (the card's parameters bitwise the
+    reader's tree, the reader's bitwise the server's post-decode tree),
+    the read and delta counters, a full snapshot's and a delta's bytes,
+    a snapshot's read and its copy to the card; 12 ``flash_fwd`` a decode
+    step, 150 ``block_quantize`` a gradient in the worker and one
+    ``block_dequant_sum`` a fill on the PS; the front-end on a small f32
+    LM, the card's tokens against the CPU's under the 1e-4 top-2 margin
+    rule; (b) the CLI: ``--serve 0 --wire-codec bf16 --delta-parm`` with
+    the CLI's LM, two ``--connect`` workers, then a ``--subscribe
+    --infer-serve`` reader and a plain ``--subscribe``, their lines
+    printed.
+11. The card line, one JSON line per the kernels, and the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -782,7 +803,11 @@ FLASH_CASES = (
     ("S=65", 2, 65, 4, 64, True, "bfloat16", None, False),
     ("B=H=1 S=2048", 1, 2048, 1, 64, True, "bfloat16", None, False),
     ("d128 S=1000 views", 2, 1000, 4, 128, True, "bfloat16", None, True),
+    ("serve", 4, 1024, 16, 64, True, "bfloat16", None, True),
 )
+# The serve tier's decode step (phase 10a): the bench LM's heads over the
+# front-end's [max_batch, buf_len] buffer, causal, bf16.
+FLASH_SERVE = FLASH_CASES[-1]
 # Kernel against plain version, elementwise |a - b| <= atol + rtol * |b|.
 # Both compute the same tile math, but the products sum in other orders
 # (wgmma or FMA chains against cuBLAS) and exp differs in the last bit, so:
@@ -979,6 +1004,30 @@ def time_flash_kernels():
           f"forward + backward {lib_step:.4f} ms; the kernels' forward + "
           f"backward {sum(r['ms'] for r in out.values()):.4f} ms")
     return out
+
+
+def time_flash_serve_shape():
+    """``flash_fwd`` at the serve tier's decode shape (CUDA events) beside
+    its bound and, as a yardstick the port never calls,
+    F.scaled_dot_product_attention's forward at that shape."""
+    import torch.nn.functional as F
+
+    from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa
+
+    _, b, s, h, d, causal, dtype, _, _ = FLASH_SERVE
+    q, k, v, _ = _flash_inputs(b, s, h, d, dtype, 3, as_views=True)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms = time_ms(lambda: fa.flash_fwd(q, k, v, **kw))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=causal))
+    bound, by, flops, nbytes = _flash_bound("flash_fwd", b, s, h, d, causal,
+                                            q.element_size())
+    print(f"[flash] flash_fwd at the serve shape [{b},{s},{h},{d}] {dtype} "
+          f"causal: kernel {ms:.4f} ms, library (scaled_dot_product_"
+          f"attention, forward) {lib:.4f} ms, bound {bound:.4f} ms ({by}: "
+          f"{flops} operations at 989 TFLOP/s, {nbytes} bytes at 3.35 TB/s;"
+          f" {flops / ms / 1e9:.1f} TFLOP/s achieved)")
 
 
 # ---------------------------------------------------------------------------
@@ -2226,7 +2275,10 @@ ASYNC_LR = 0.02
 # SUMS its quota of gradients (the reference's contract), so lr / quota
 # keeps run 1's step per gradient.
 ASYNC_WORKERS, ASYNC_QUOTA = 4, 4
-ASYNC_ROBUST_UPDATES = 20
+# Run 3 takes the bench's 40 timed updates too: against a sign-flipping
+# rank the loss stalls or climbs for a few updates near update 10-17 on
+# its way down, where a 20-update run's last fifth falls.
+ASYNC_ROBUST_UPDATES = ASYNC_TIMED
 ASYNC_LM_STEPS = 10
 
 
@@ -2554,7 +2606,8 @@ _MH_CLI_WORKER_BOOT = (
 
 def mh_worker_main(spec_json: str) -> int:
     """A worker process of run 1 (``chip_smoke.py --mh-worker SPEC``):
-    run 1's ResNet-18 loss and batches, an `AsyncPSWorker` on the card
+    run 1's ResNet-18 loss and batches (phase 10a's bench LM where
+    ``spec["model"]`` is ``"bench_lm"``), an `AsyncPSWorker` on the card
     connected to the PS at ``spec["port"]``, trained until DONE with the
     launch counts zeroed just before; then one ``MH_WORKER {json}`` line
     on stdout.  Without a card it raises (no fall back to the CPU)."""
@@ -2566,7 +2619,10 @@ def mh_worker_main(spec_json: str) -> int:
     spec = json.loads(spec_json)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    _named, loss_fn, batch_fn = _async_resnet18()
+    if spec.get("model") == "bench_lm":
+        _model, _named, loss_fn, batch_fn = _bench_lm_worker(init=False)
+    else:
+        _named, loss_fn, batch_fn = _async_resnet18()
     worker = AsyncPSWorker("127.0.0.1", spec["port"], code=spec["code"],
                            device="cuda", io_timeout=MH_TIMEOUT,
                            reconnect_retries=2,
@@ -3251,6 +3307,396 @@ def run_moe_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the serve tier on a single PS
+# ---------------------------------------------------------------------------
+
+# 10a: the bench LM served while it trains.  The PS and one worker process
+# (blockq at the bench batch, flash attention) for SERVE_UPDATES updates;
+# a reader on the PS feeds the front-end SERVE_REQUESTS requests, one each
+# SERVE_SUBMIT_S once training publishes, then drains.
+SERVE_UPDATES = 6
+SERVE_MAX_BATCH, SERVE_BUF, SERVE_QUEUE = 4, 1024, 16
+SERVE_REQUESTS, SERVE_NEW, SERVE_SUBMIT_S = 32, 8, 0.2
+SERVE_PROMPT = (8, 512)
+# 10b: the CLI.  The readers run the CLI's LM without --attn flash (the
+# reader refuses it as inert: its front-end runs dense attention, as the
+# JAX CLI's does).
+SERVE_CLI_STEPS, SERVE_CLI_REQUESTS, SERVE_CLI_POLLS = 30, 16, 100
+# The small LM the front-end runs on the card and on the CPU: f32, so the
+# logits differ by f32 rounding and the 1e-4 top-2 margin rule applies.
+SERVE_SMALL = dict(vocab_size=512, d_model=256, n_heads=4, n_layers=2,
+                   d_ff=512, max_len=256)
+SERVE_MARGIN = 1e-4
+
+
+def _bench_lm_worker(init: bool = True):
+    """The bench LM's ``(model, named, loss_fn, batch_fn)`` for an async
+    PS: flash attention, batch 16 x 1024 from synthetic tokens, params
+    from seed 0 (None when ``init`` is False: a worker pulls them)."""
+    import functools
+
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import flash_attention
+    from pytorch_ps_mpi_tpu_torch.async_ps import lm_batch_fn
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
+    from pytorch_ps_mpi_tpu_torch.models import (TransformerLM, build_lm,
+                                                 make_lm_loss)
+
+    model = TransformerLM(**LM, dtype=torch.bfloat16,
+                          attn=functools.partial(flash_attention, causal=True))
+    named = build_lm(model, seed=0) if init else None
+    toks = synthetic_lm(4 * LM_BATCH, seq_len=LM_SEQ,
+                        vocab=LM["vocab_size"], seed=0)
+    return model, named, make_lm_loss(model), lm_batch_fn(toks, LM_BATCH)
+
+
+class _TimedSource:
+    """The front-end's ``params_source``: the subscriber, with the wall
+    time of each poll that decoded a snapshot (a full one or a delta)."""
+
+    def __init__(self, sub):
+        self.sub = sub
+        self.read_ms = []
+
+    def poll(self):
+        t0 = time.perf_counter()
+        out = self.sub.poll()
+        if out[2]:
+            self.read_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+
+def _same_tree_bits(trees, host) -> bool:
+    """Tensors (on the card or the host) against a host tree (numpy, or
+    CPU tensors for bf16), bit for bit."""
+    import numpy as np
+    import torch
+
+    for n, t in trees.items():
+        h = host[n]
+        if not isinstance(h, torch.Tensor):
+            h = torch.from_numpy(np.ascontiguousarray(h))
+        if not same_bits(t.detach().cpu(), h):
+            return False
+    return True
+
+
+def serve_bench_lm(tmp):
+    """10a: an `AsyncSGDServer` on the card holding the bench LM (bf16
+    parameter wire, delta snapshots), one `AsyncPSWorker` process pushing
+    blockq gradients with flash attention, and in this process a
+    `Subscriber(nonblock_heal=True)` feeding an `InferenceFrontend` over
+    the same LM with the flash kernel.  The launch counts here are the
+    PS's fills and the front-end's decode steps (the worker counts its
+    own)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
+    from pytorch_ps_mpi_tpu_torch.multihost_async import AsyncSGDServer
+    from pytorch_ps_mpi_tpu_torch.ops import codecs as tcodecs
+    from pytorch_ps_mpi_tpu_torch.serve import InferenceFrontend, Subscriber
+    from pytorch_ps_mpi_tpu_torch.errors import InferShedError
+    from pytorch_ps_mpi_tpu_torch.serve.infer import decode_step
+    from pytorch_ps_mpi_tpu_torch.utils.timing import format_fault_stats
+
+    t_start = time.perf_counter()
+    model, named, loss_fn, _ = _bench_lm_worker()
+    srv = AsyncSGDServer(list(named.items()), lr=0.01, momentum=0.9,
+                         quota=1, code="blockq", device="cuda",
+                         wire_codec="bf16", delta_parm=True)
+    srv.compile_step(loss_fn)
+    reset_launch_counts()
+    t, box = _serve_thread(srv, SERVE_UPDATES)
+    spec = {"port": srv.address[1], "code": "blockq", "model": "bench_lm"}
+    proc, err = _mh_spawn([os.path.abspath(__file__), "--mh-worker",
+                           json.dumps(spec)],
+                          os.path.join(tmp, "serve-worker.err"))
+    sub = Subscriber("127.0.0.1", srv.address[1], nonblock_heal=True,
+                     io_timeout=MH_TIMEOUT)
+    t0 = time.perf_counter()
+    version0, params = sub.snapshot()
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    source = _TimedSource(sub)
+    fe = InferenceFrontend(model, params, max_batch=SERVE_MAX_BATCH,
+                           buf_len=SERVE_BUF, max_queue=SERVE_QUEUE,
+                           params_source=source)
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1,
+                          size=SERVE_REQUESTS)
+    toks = synthetic_lm(SERVE_REQUESTS, seq_len=SERVE_PROMPT[1],
+                        vocab=LM["vocab_size"], seed=0)
+    # Traffic starts once training has published: the engine polls (and
+    # swaps) on every step, idle or not.
+    end = time.monotonic() + MH_TIMEOUT
+    while srv._served_version < 1 and time.monotonic() < end:
+        fe.step()
+        time.sleep(0.05)
+    if srv._served_version < 1:
+        fail("serve 10a: training published no version")
+    handles, shed = [], 0
+    t_traffic = time.perf_counter()
+    next_at = t_traffic
+    while len(handles) + shed < SERVE_REQUESTS:
+        if time.perf_counter() >= next_at:
+            i = len(handles) + shed
+            try:
+                handles.append(fe.submit(toks[i, :lengths[i]],
+                                         max_new=SERVE_NEW))
+            except InferShedError:
+                shed += 1
+            next_at += SERVE_SUBMIT_S
+        if fe.step() == 0:
+            time.sleep(0.005)
+    fe.drain()
+    wall = time.perf_counter() - t_traffic
+    hist = _mh_joined(t, box, "serve 10a")
+    out, werr = _mh_finish(proc, err, "serve 10a worker")
+    worker = _mh_worker_result(out, "serve 10a worker")
+    counts = launch_counts()
+    stats = fe.stats()
+    # Every admitted request returned its tokens; the front-end swapped
+    # while it decoded, and what the card holds is the reader's tree.
+    for h in handles:
+        if len(h.result(0)) != SERVE_NEW:
+            fail(f"serve 10a: a request returned {len(h.result(0))} tokens")
+    if stats["param_swaps"] < 1:
+        fail("serve 10a: no hot swap during the traffic")
+    if not _same_tree_bits(fe._dev_params, sub.params):
+        fail("serve 10a: the card's parameters are not the subscriber's "
+             "tree bit for bit")
+    ring = srv._delta_ring.get(sub.version)
+    ring_bitwise = ring is not None and _same_tree_bits(
+        {n: torch.from_numpy(np.asarray(a)) for n, a in ring.items()},
+        sub.params)
+    if ring is not None and not ring_bitwise:
+        fail(f"serve 10a: the subscriber's tree at version {sub.version} "
+             f"is not the server's post-decode tree")
+    # This process's launches: the front-end's, 12 flash_fwd a decode step
+    # (nothing else here runs attention), and the PS's, one
+    # block_dequant_sum a fill.
+    fills = len(hist["versions"])
+    expect_counts("serve 10a (the PS and the front-end)", counts,
+                  flash_fwd=LM["n_layers"] * stats["steps"],
+                  block_dequant_sum=fills)
+    g = worker["computed"]
+    expect_counts("serve 10a worker", worker["counts"],
+                  flash_fwd=LM["n_layers"] * g,
+                  flash_bwd_dkdv=LM["n_layers"] * g,
+                  flash_bwd_dq=LM["n_layers"] * g,
+                  block_quantize=LM_TENSORS * g)
+    fs = hist["fault_stats"]
+    # A decode step at the full buffer, CUDA events, and a snapshot's
+    # copy to the card (one staged host-to-device copy), outside the
+    # counted window.
+    module = fe._module()
+    tokens = torch.from_numpy(np.asarray(
+        synthetic_lm(SERVE_MAX_BATCH, seq_len=SERVE_BUF - 1,
+                     vocab=LM["vocab_size"], seed=1))).cuda()
+    positions = fe._positions
+    full = torch.full((SERVE_MAX_BATCH,), SERVE_BUF, dtype=torch.int32,
+                      device="cuda")
+    with torch.inference_mode():
+        step_ms = time_ms(lambda: decode_step(module, fe._dev_params, tokens,
+                                              positions, full), reps=5,
+                          warm=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fe._to_device(sub.params)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    lat = stats["request_latency"]
+    generated = SERVE_NEW * len(handles)
+    full_bytes = fs["parm_bytes_wire"] / max(1, fs["parm_encodes"])
+    # A delta's bytes (indices and values) between consecutive versions
+    # still in the ring, beside a full snapshot's.
+    with srv._parm_lock:
+        ring = dict(srv._delta_ring)
+    delta_bytes = [tcodecs.diff_wire_delta(ring[v - 1], ring[v])[1]
+                   for v in sorted(ring) if v - 1 in ring]
+    srv.close()
+    sub.close()
+    print(f"[serve] 10a bench LM served while it trains ({SERVE_UPDATES} "
+          f"updates, bf16 parameter wire, delta snapshots): "
+          f"{len(handles)} requests of {SERVE_NEW} tokens (prompts "
+          f"{lengths.min()}-{lengths.max()} tokens), {shed} shed; p50 "
+          f"{lat['p50_s'] * 1e3:.1f} ms, p95 {lat['p95_s'] * 1e3:.1f} ms; "
+          f"{generated / wall:.1f} generated tokens/s over {wall:.2f} s; "
+          f"{stats['steps']} decode steps, a step at [{SERVE_MAX_BATCH}, "
+          f"{SERVE_BUF}] {step_ms:.3f} ms (CUDA events)")
+    print(f"[serve] 10a reads: version 0 snapshot {snapshot_ms:.1f} ms "
+          f"(transfer and decode), snapshots decoded while serving "
+          f"{[round(x, 1) for x in source.read_ms]} ms, a snapshot's copy "
+          f"to the card {copy_ms:.1f} ms; {stats['param_swaps']} hot "
+          f"swaps (card bitwise the reader's tree; reader bitwise the "
+          f"server's post-decode tree at version {sub.version}: "
+          f"{ring_bitwise if ring is not None else 'out of the ring'}); "
+          f"reads_served {fs['reads_served']}, read_shed "
+          f"{fs['read_shed']}, delta_hits {fs['delta_hits']}, "
+          f"delta_misses {fs['delta_misses']}; a full bf16 snapshot "
+          f"{full_bytes:.0f} bytes, a delta between consecutive versions "
+          f"{delta_bytes} bytes")
+    print(f"[serve] 10a launches: front-end {counts['flash_fwd']} "
+          f"flash_fwd over {stats['steps']} steps ({LM['n_layers']} a "
+          f"step), PS {counts['block_dequant_sum']} block_dequant_sum over "
+          f"{fills} fills; worker {g} gradients, {worker['counts']}; PS "
+          f"fault stats: {format_fault_stats(fs)}; "
+          f"{time.perf_counter() - t_start:.1f} s in all")
+    del fe, srv
+
+
+def serve_small_card_vs_cpu():
+    """The front-end on a small f32 LM with the flash kernel, the card
+    against the CPU (the plain version): every CPU token's top-2 logit
+    margin exceeds 1e-4, then the tokens are equal."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import flash_attention
+    from pytorch_ps_mpi_tpu_torch.models import TransformerLM, build_lm
+    from pytorch_ps_mpi_tpu_torch.serve import InferenceFrontend
+
+    model = TransformerLM(**SERVE_SMALL, attn=functools.partial(
+        flash_attention, causal=True))
+    params = build_lm(model, seed=0)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, SERVE_SMALL["vocab_size"], size=n).tolist()
+               for n in (3, 17, 64, 100, 9, 40)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        fe = InferenceFrontend(model, params, max_batch=4, buf_len=128,
+                               max_queue=8, device=dev)
+        reqs = [fe.submit(p, max_new=12) for p in prompts]
+        fe.drain()
+        got[dev] = [r.result(0) for r in reqs]
+    small = float("inf")
+    for p, gen in zip(prompts, got["cpu"]):
+        seq = torch.tensor([p + gen], dtype=torch.int32)
+        with torch.inference_mode():
+            logits = torch.func.functional_call(model, params, (seq,))[0]
+        for j in range(len(gen)):
+            top2 = torch.topk(logits[len(p) - 1 + j], 2).values
+            small = min(small, float(top2[0] - top2[1]))
+    if small <= SERVE_MARGIN:
+        fail(f"serve card vs CPU: a top-2 margin of {small} is within "
+             f"{SERVE_MARGIN}")
+    if got["cuda"] != got["cpu"]:
+        fail(f"serve card vs CPU: tokens {got['cuda']} against "
+             f"{got['cpu']}")
+    print(f"[serve] small f32 LM {SERVE_SMALL}, flash kernel: card tokens "
+          f"equal the CPU's (plain version) on {len(prompts)} requests of 12"
+          f" tokens; least top-2 margin {small:.4g} > {SERVE_MARGIN}")
+
+
+def _wait_for_line(proc, path, pattern, what):
+    """Wait (at most `MH_TIMEOUT`) until the process's stderr file holds a
+    line matching ``pattern``."""
+    end = time.monotonic() + MH_TIMEOUT
+    while time.monotonic() < end:
+        with open(path) as f:
+            if re.search(pattern, f.read(), re.M):
+                return
+        if proc.poll() is not None:
+            break
+        time.sleep(0.1)
+    fail(f"{what}: no line {pattern!r}")
+
+
+def serve_cli(tmp):
+    """10b: ``--serve 0`` (the CLI's LM, bf16, flash, blockq, bf16
+    parameter wire, delta snapshots), two ``--connect`` workers, one
+    ``--subscribe --infer-serve`` reader and one plain ``--subscribe``,
+    each a process with a timeout and its stderr in a file."""
+    import os
+
+    from pytorch_ps_mpi_tpu_torch import train
+
+    common = CLI_LM + ["--codec", "blockq", "--quota", "2"]
+    reader = [a for a in CLI_LM if a not in ("--attn", "flash")]
+    t0 = time.perf_counter()
+    srv, e = _mh_spawn(["-c", _CLI_BOOT, "default", *common, "--steps",
+                        str(SERVE_CLI_STEPS), "--wire-codec", "bf16",
+                        "--delta-parm", "--serve", "0"],
+                       os.path.join(tmp, "cli-server.err"))
+    port = _mh_port(srv, e, "serve CLI server")
+    workers = [_mh_spawn(["-c", _MH_CLI_WORKER_BOOT, *common, "--connect",
+                          f"127.0.0.1:{port}", "--reconnect-retries", "2"],
+                         os.path.join(tmp, f"cli-worker{i}.err"))
+               for i in range(2)]
+    # The readers start once both workers have connected, so that they
+    # read while the PS trains.
+    for p, we in workers:
+        _wait_for_line(p, we.name, r"^worker rank \d+ connected to ",
+                       "serve CLI worker")
+    readers = [_mh_spawn(["-c", _CLI_BOOT, "default", *reader,
+                          "--subscribe", f"127.0.0.1:{port}", *extra,
+                          "--reconnect-retries", "2"],
+                         os.path.join(tmp, f"cli-reader{i}.err"))
+               for i, extra in enumerate((
+                   ["--infer-serve", "--steps", str(SERVE_CLI_REQUESTS)],
+                   ["--steps", str(SERVE_CLI_POLLS)]))]
+    lines = []
+    for i, ((p, rerr), done) in enumerate(zip(readers, (
+            r"^infer done: (\d+) served, (\d+) shed, .*$",
+            r"^subscriber done: .*$"))):
+        out, err = _mh_finish(p, rerr, f"serve CLI reader {i}")
+        m = re.search(done, err, re.M)
+        if not re.match(r"subscribed at version \d+$", out.strip()) \
+                or m is None:
+            fail(f"serve CLI reader {i}: no 'subscribed at version' or "
+                 f"'done' line")
+        if i == 0 and (int(m.group(1)), int(m.group(2))) != (
+                SERVE_CLI_REQUESTS, 0):
+            fail(f"serve CLI: the inference reader's {m.group(0)!r}")
+        lines.append(f"{out.strip()}; {m.group(0)}")
+    args = train.make_parser().parse_args(CLI_LM)
+    n_leaves = len(train._build_lm_async(args)[0])
+    for i, (p, we) in enumerate(workers):
+        out, _ = _mh_finish(p, we, f"serve CLI worker {i}")
+        r = _mh_worker_result(out, f"serve CLI worker {i}")
+        g = r["computed"]
+        expect_counts(f"serve CLI worker rank {r['rank']}", r["counts"],
+                      flash_fwd=4 * g, flash_bwd_dkdv=4 * g,
+                      flash_bwd_dq=4 * g, block_quantize=n_leaves * g)
+    _, err = _mh_finish(srv, e, "serve CLI server")
+    m = re.search(r"^done: (\d+) updates, (\d+) grads", err, re.M)
+    stats = re.search(r"^fault stats: (.*)$", err, re.M)
+    if m is None or int(m.group(1)) != SERVE_CLI_STEPS or stats is None \
+            or "reads_served=" not in stats.group(1):
+        fail("serve CLI server: no 'done:' line or no reads served")
+    for line in lines:
+        print(f"[serve] 10b {line}")
+    print(f"[serve] 10b server: {m.group(0)}; {stats.group(1)}; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
+def run_serve_phase():
+    """Phase 10: the serve tier on a single PS (10a, the card against the
+    CPU on a small LM, 10b)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ps_serve_")
+    try:
+        serve_bench_lm(tmp)
+        torch.cuda.empty_cache()
+        serve_small_card_vs_cpu()
+        serve_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[serve] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # topk's selection on tied magnitudes: the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -3403,6 +3849,7 @@ def main() -> int:
     print_flash_occupancy()
     errs.update(check_flash_kernels())
     times.update(time_flash_kernels())
+    time_flash_serve_shape()
 
     # --- 3. the slice, 4. the transformer LM ---
     group = make_ps_group("cuda")
@@ -3418,11 +3865,12 @@ def main() -> int:
     threads_ips = run_async_phase()
     run1a_ips = run_multihost_phase(threads_ips)
 
-    # --- 8. the bucket stream, 9. the MoE LM ---
+    # --- 8. the bucket stream, 9. the MoE LM, 10. the serve tier ---
     run_bucket_phase(run1a_ips)
     run_moe_phase()
+    run_serve_phase()
 
-    # --- 10. results ---
+    # --- 11. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({

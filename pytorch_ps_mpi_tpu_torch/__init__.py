@@ -10,7 +10,11 @@ the in-process async PS (`AsyncPS`, `AsyncSGD`, `AsyncAdam`: worker
 threads on CUDA streams, quota'd fills, the robust reducers); the
 single-PS multihost async PS over TCP (`AsyncPSServer`, `AsyncSGDServer`,
 `AsyncAdamServer`, `AsyncPSWorker`: worker processes, the JAX package's
-v12 frames, `transport`, gradients streamed in buckets);
+v12 frames, `transport`, gradients streamed in buckets); the serve
+tier on a single PS (`serve`: `Subscriber`, a versioned snapshot
+subscription over SUBS/DELT with delta snapshots, and
+`InferenceFrontend`, a continuous-batching greedy decoder that hot-swaps
+the subscribed parameters);
 the reference's nonblocking collectives (`parallel.collectives`'s
 ``i*`` ops); the blockq and bf16 codecs' kernels are hand-written CUDA
 for Hopper (``csrc/codec_kernels.cu``); the ResNet/MLP models and the
@@ -23,8 +27,9 @@ caller asks for the CPU.
 
 from .async_ps import AsyncAdam, AsyncPS, AsyncSGD
 from .errors import (BufferMutatedError, ElasticResumeError,
-                     FillStarvedError, FleetDeadError, NativeToolchainError,
-                     NotCompiledError, PSRuntimeError, SDCDetectedError,
+                     FillStarvedError, FleetDeadError, InferShedError,
+                     NativeToolchainError, NotCompiledError, PSRuntimeError,
+                     SDCDetectedError, SnapshotRewindError,
                      WorkerFailedError)
 from .multihost_async import (AsyncAdamServer, AsyncPSServer,
                               AsyncPSWorker, AsyncSGDServer)
@@ -33,6 +38,7 @@ from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
 from .ops.flash_attention import flash_attention
 from .parallel.mesh import make_ps_group
 from .ps import MPI_PS, PS, SGD, Adam, AdamW
+from .serve import InferenceFrontend, InferRequest, Subscriber
 from .utils import checkpoint
 from .utils.checkpoint import CheckpointError
 from .utils.faults import FaultPlan, SimulatedCrash
@@ -73,4 +79,9 @@ __all__ = [
     "SimulatedCrash",
     "NativeToolchainError",
     "BufferMutatedError",
+    "InferShedError",
+    "SnapshotRewindError",
+    "Subscriber",
+    "InferenceFrontend",
+    "InferRequest",
 ]

@@ -61,6 +61,26 @@ class RaceDetectedError(PSRuntimeError):
     retry ConnectionError/OSError only) never swallow it."""
 
 
+class InferShedError(PSRuntimeError):
+    """The inference front-end's bounded admission queue is full: the
+    request was SHED with this typed refusal instead of queueing
+    unboundedly (counted ``infer_shed``).  Graceful overload
+    degradation for the serve tier — a caller (or load balancer) can
+    catch it by type and back off / retry elsewhere, exactly like the
+    wire's READ-class shed; the alternative (an unbounded queue) turns
+    overload into unbounded tail latency for every request behind it."""
+
+
+class SnapshotRewindError(PSRuntimeError):
+    """A snapshot subscription observed the served version move
+    BACKWARDS with different bytes behind it — a reader hot-swapping
+    params on this stream would silently regress to an older model.
+    Raised only when rewind tolerance is disabled; by default the
+    subscriber counts (``version_rewinds``) and force-refreshes
+    instead (promotion and checkpoint restore preserve the serving
+    version counter precisely so this never fires)."""
+
+
 class NativeToolchainError(PSRuntimeError):
     """The in-repo native (C++) codec pipeline failed to build or its
     encoder reported a hard error."""

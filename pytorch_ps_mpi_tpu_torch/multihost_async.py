@@ -44,7 +44,15 @@ Frames (layouts in the JAX module's docstring):
   partial assembly is retired, counted in ``bucket_partial_timeouts``,
   when a newer seq of the rank completes or its connection closes.  Flow
   control charges one credit per gradient, not per frame;
-* ``BEAT`` (no reply); ``SPLN`` → ``SPLN`` with an empty plan.
+* ``BEAT`` (no reply); ``SPLN`` → ``SPLN`` with an empty plan;
+* a reader's HELO carries flag 32 (a rank-less subscriber, counted in
+  the ``subs_active`` gauge while its connection lives), then ``SUBS |
+  have u64`` → ``DONE`` or ``DELT | version u64 | read credits u32 |
+  flags u8 | codec u8 | [params]``: head-only with flag 1 when ``have``
+  is the served version, head-only with flag 2 when the per-version
+  read budget (``read_window``) is spent, else the version's
+  encode-once payload, or under ``delta_parm`` a sparse diff against
+  ``have`` (flag 4) from a ring of the recent post-decode trees.
 
 Fault tolerance as in the JAX module: CRC-failed frames are frame-local
 drops, silent ranks are evicted and the quota clamps, a reconnect
@@ -57,8 +65,8 @@ the rank allocation, so a killed PS resumes with continuous versions.
 
 Not ported yet, and refused by name (a refused frame costs only its own
 connection and is counted in ``quarantined_frames``): REPL/ACKR, PROM and
-SNAP (hot standby and fleet snapshots), AGGR and HELO flags 8/16 (the
-hierarchy), and SUBS/DELT and HELO flag 32 (the serve tier).
+SNAP (hot standby and fleet snapshots), and AGGR and HELO flags 8/16 (the
+hierarchy).
 
 On the card:
 
@@ -132,6 +140,21 @@ _WIRE_LEVEL = 0
 _WIRE_SEGMENTED = 1
 # Conditional-PULL "no cached version": an unconditional pull.
 _UNVERSIONED = (1 << 64) - 1
+# DELT reply flags (the serve tier): UNCHANGED = the subscriber's
+# ``have`` equals the served version (head-only); SHED = the read-token
+# budget of this version is spent (head-only, the reader backs off);
+# DELTA = the payload is a sparse diff against ``have``.  Absent DELTA a
+# payload is a full snapshot.
+_DELT_UNCHANGED = 1
+_DELT_SHED = 2
+_DELT_DELTA = 4
+# Delta ring depth: the recent post-decode versions kept for delta
+# serving; a reader further behind gets a full snapshot.
+_DELTA_RING = 4
+# Read-token time floor: the read budget refills on every served-version
+# advance, and after this many seconds at an unchanged version (an idle
+# server still serves a bounded read rate).
+_READ_REFILL_S = 0.25
 # Worker-side same-version pacing: after this many consecutive unchanged
 # pulls, the worker yields per further iteration, escalating with the
 # streak — past a couple of in-flight gradients per version every extra
@@ -164,17 +187,16 @@ _REFUSED_FRAMES = {
     b"PROM": "standby promotion",
     b"SNAP": "coordinated fleet snapshots",
     b"AGGR": "hierarchical aggregation",
-    b"SUBS": "the serve tier's snapshot subscriptions",
 }
 _REFUSED_HELO_FLAGS = {8: "a hierarchy aggregator",
-                       16: "a hierarchy direct-fallback worker",
-                       32: "a serve-tier subscriber"}
+                       16: "a hierarchy direct-fallback worker"}
 
 
 def _not_ported(what: str) -> str:
     return (f"{what} is not ported to the PyTorch package yet (the "
-            f"single-PS multihost async PS and its bucket stream are; the "
-            f"serve tier, the fleet and standby, and the hierarchy follow)")
+            f"single-PS multihost async PS, its bucket stream and the "
+            f"serve tier are; the fleet and standby, and the hierarchy "
+            f"follow)")
 
 
 def control_connect(host: str, port: int, token: "str | None" = None,
@@ -315,7 +337,8 @@ class AsyncPSServer(AsyncPS):
                  device=None,
                  token: "str | None" = None,
                  conn_timeout: float = 60.0,
-                 wire_codec: str = "identity", **kw):
+                 read_window: int = 0, wire_codec: str = "identity",
+                 delta_parm: bool = False, **kw):
         device = resolve_device("cuda" if device is None else device)
         super().__init__(named_params, quota=quota, devices=[device], **kw)
         # Credit-based flow control: the window advertised in PSA/PARM
@@ -323,6 +346,19 @@ class AsyncPSServer(AsyncPS):
         # senders (`_advertised_credits`); the net queue is never smaller
         # than the window.
         self._credit_window = self.credit_window or max(quota * 2, 8)
+        # The READ-class budget (the serve tier): at most this many
+        # full-payload DELT replies per served-version advance (with the
+        # idle-server time floor `_READ_REFILL_S`), so a reader flood
+        # sheds head-only (``read_shed``) instead of competing with GRAD
+        # service.  "Unchanged" replies are token-free.
+        if read_window < 0:
+            raise ValueError(
+                f"read_window must be >= 0, got {read_window}")
+        self._read_window = int(read_window) or max(4, quota)
+        self._read_lock = threading.Lock()
+        self._read_tokens = self._read_window  # guarded by _read_lock
+        self._read_tokens_version = -1  # guarded by _read_lock
+        self._read_tokens_t = 0.0  # guarded by _read_lock
         # An unsharded PS advertises the trivial (0, 1, digest=0) triple
         # and serves an empty plan over SPLN.
         self._shard_index, self._shard_count = 0, 1
@@ -362,6 +398,14 @@ class AsyncPSServer(AsyncPS):
         # encode-once cache; validated here, not at the first pull.
         self._wire_codec = str(wire_codec)
         self._wire_codec_id = _codecs.wire_codec_id(self._wire_codec)
+        # Delta snapshots (the DELT path only): a ring of the recent
+        # post-decode trees (what a reader holds after decoding a frame)
+        # and the encoded diff of each (have, version) pair, both under
+        # `_parm_lock` with the PARM cache; `load_state_dict` clears all
+        # three.
+        self._delta_parm = bool(delta_parm)
+        self._delta_ring = OrderedDict()  # guarded by _parm_lock
+        self._delta_cache = {}  # guarded by _parm_lock
         # Off-GIL decode pool (ctypes releases the interpreter lock): a
         # connection thread is back in recv_into while its previous
         # frame decodes.  A single-CPU host decodes inline.
@@ -659,6 +703,40 @@ class AsyncPSServer(AsyncPS):
             live = len(self._live_ranks)
         return max(1, room // max(1, live))
 
+    def _refill_read_tokens(self, version: int, now: float) -> None:
+        """Refill the read-token bucket when the served version moved
+        (``read_window`` full-payload reads per unit of training
+        progress) or after the idle-server time floor.  Holds
+        ``_read_lock``."""
+        if (version != self._read_tokens_version
+                or now - self._read_tokens_t >= _READ_REFILL_S):
+            self._read_tokens_version = version
+            self._read_tokens_t = now
+            self._read_tokens = self._read_window
+
+    def _take_read_token(self) -> bool:
+        """One full-payload DELT permit, or False = shed this read
+        (head-only SHED reply, counted).  Connection threads race for
+        tokens under ``_read_lock`` alone."""
+        version = self._served_version
+        now = time.monotonic()
+        with self._read_lock:
+            self._refill_read_tokens(version, now)
+            if self._read_tokens <= 0:
+                return False
+            self._read_tokens -= 1
+            return True
+
+    def _advertised_read_credits(self) -> int:
+        """The READ window advertised in every DELT reply, which seeds
+        the subscriber's sender-side gate (`Session.send_read`): the
+        tokens still available at the current version."""
+        version = self._served_version
+        now = time.monotonic()
+        with self._read_lock:
+            self._refill_read_tokens(version, now)
+            return max(0, self._read_tokens)
+
     def _under_pressure(self) -> bool:
         """Queue at >= half the credit window: pre-decode admission
         shedding turns on."""
@@ -744,6 +822,24 @@ class AsyncPSServer(AsyncPS):
                 cache = (version, meta_blob, segs)
                 self._parm_cache = cache
                 raw = _codecs.tree_raw_nbytes(leaves)
+                if self._delta_parm:
+                    # The ring keeps the post-decode tree, so the
+                    # server's diffs match a reader's patches bitwise.
+                    # Under identity it aliases the served leaves, which
+                    # the serve loop rebinds to fresh host memory each
+                    # version and never writes in place.
+                    if self._wire_codec_id == 0:
+                        decoded = leaves
+                    else:
+                        decoded = _codecs.decode_wire_tree(
+                            self._wire_codec_id, wire)
+                    ring = self._delta_ring
+                    ring[version] = decoded
+                    while len(ring) > _DELTA_RING:
+                        old, _ = ring.popitem(last=False)
+                        for key in [k for k in self._delta_cache
+                                    if k[0] == old]:
+                            del self._delta_cache[key]
         if fresh:
             self._bump("parm_encodes")
             self._bump("parm_bytes_raw", raw)
@@ -751,6 +847,33 @@ class AsyncPSServer(AsyncPS):
         else:
             self._bump("parm_fanout_reuse")
         return cache
+
+    def _delta_payload(self, have: int):
+        """One encoded delta ``(version, meta_blob, segs)`` for a
+        subscriber at version ``have``, or None on a ring miss or when the
+        delta is not smaller than the full frame (the caller serves the
+        full snapshot).  The diff of a (have, version) pair is computed
+        once and fanned out, as `_parm_payload` is."""
+        version, meta_blob, segs = self._parm_payload()
+        cached = (None, None)
+        with self._parm_lock:
+            base = self._delta_ring.get(have)
+            cur = self._delta_ring.get(version)
+            if (version == self._served_version and base is not None
+                    and cur is not None and have != version):
+                cached = self._delta_cache.get((have, version))
+                if cached is None:
+                    delta, nbytes = _codecs.diff_wire_delta(base, cur)
+                    # A delta bigger than the full frame serves nobody.
+                    if nbytes >= segs.wire_len:
+                        cached = (None, None)
+                    else:
+                        cached = serializer.encode_segments(
+                            delta, level=_WIRE_LEVEL)
+                    self._delta_cache[(have, version)] = cached
+        hit = cached[0] is not None
+        self._bump("delta_hits" if hit else "delta_misses")
+        return (version, *cached) if hit else None
 
     # -- the per-connection decode pipeline -----------------------------------
 
@@ -896,6 +1019,7 @@ class AsyncPSServer(AsyncPS):
         counted; the connection lives on (up to a bounded streak)."""
         authed = self.token is None
         rank: "int | None" = None
+        is_sub = False  # a subscriber (HELO flag 32): subs_active gauge
         crc_streak = 0
         # Every frame lands in a rotating receive ring: ``msg`` is a view
         # into it, valid for nbufs-1 further receives.
@@ -953,10 +1077,17 @@ class AsyncPSServer(AsyncPS):
                                 send_frame(conn, b"NOAU")
                                 raise ValueError("bad admission token")
                         authed = True
-                        if flags & 4:
-                            # A control connection: authenticated but
-                            # rank-less (no worker identity, eviction or
-                            # workers_seen entry).
+                        if flags & 32 and not is_sub:
+                            # A serve-tier reader: rank-less like a
+                            # control connection, counted in the
+                            # subs_active gauge while it lives.
+                            is_sub = True
+                            self._bump("subs_active")
+                        if flags & (4 | 32):
+                            # A control connection or a subscriber:
+                            # authenticated but rank-less (no worker
+                            # identity, eviction, quota or workers_seen
+                            # entry).
                             rank = None
                         else:
                             rank = self._register_conn(prior, assigned)
@@ -1016,6 +1147,9 @@ class AsyncPSServer(AsyncPS):
                             conn, [head, meta_blob, *segs],
                             cached=(segs.wire_crc, segs.wire_len))
                         self._bump("segments_sent", len(segs) + 2)
+                    elif kind == b"SUBS":
+                        if not self._serve_subs(conn, body):
+                            return
                     elif kind == b"GRAD":
                         if rank is not None:
                             self._mark_alive(rank)
@@ -1074,6 +1208,60 @@ class AsyncPSServer(AsyncPS):
                 self._bump("bucket_partial_timeouts", len(assembler))
             if rank is not None:
                 self._release_conn(rank)
+            if is_sub:
+                self._bump("subs_active", -1)
+
+    def _serve_subs(self, conn: socket.socket, body) -> bool:
+        """Answer one SUBS: conditional like a PULL (``have`` at the
+        served version answers head-only "unchanged"), but READ-class: a
+        payload reply costs a read token and a spent budget sheds
+        head-only.  A payload fans out the encode-once PARM cache, or
+        under ``delta_parm`` the (have, version) diff.  Counters move
+        before the reply is sent: a reader acts on a reply the moment it
+        lands, and the server's counters must not lag it.  A finished run
+        answers DONE (nothing, after a simulated crash) and returns False:
+        the connection ends."""
+        if self._net_stop.is_set():
+            if not self._dying:
+                send_frame(conn, b"DONE")
+            return False
+        have = _UNVERSIONED
+        if len(body) >= _U64.size:
+            (have,) = _U64.unpack_from(body, 0)
+        version_now = self._served_version
+        if have == version_now:
+            self._bump("reads_served")
+            send_frame(conn, b"DELT" + _U64.pack(version_now)
+                       + _U32.pack(self._advertised_read_credits())
+                       + bytes([_DELT_UNCHANGED])
+                       + _U8.pack(self._wire_codec_id))
+            return True
+        if not self._take_read_token():
+            # A zero window in the head closes the reader's sender gate.
+            self._bump("read_shed")
+            send_frame(conn, b"DELT" + _U64.pack(version_now)
+                       + _U32.pack(0) + bytes([_DELT_SHED])
+                       + _U8.pack(self._wire_codec_id))
+            return True
+        dpay = None
+        if self._delta_parm and have != _UNVERSIONED:
+            dpay = self._delta_payload(have)
+        if dpay is not None:
+            version, meta_blob, segs = dpay
+            dflags = _DELT_DELTA
+        else:
+            version, meta_blob, segs = self._parm_payload()
+            dflags = 0
+        dhead = (b"DELT" + _U64.pack(version)
+                 + _U32.pack(self._advertised_read_credits())
+                 + bytes([dflags]) + _U8.pack(self._wire_codec_id))
+        self._bump("reads_served")
+        self._bump("delta_frames")
+        self._bump("segments_sent", len(segs) + 2)
+        _transport.send_frame_segments(
+            conn, [dhead, meta_blob, *segs],
+            cached=(segs.wire_crc, segs.wire_len))
+        return True
 
     # -- checkpoint / resume --------------------------------------------------
 
@@ -1083,8 +1271,13 @@ class AsyncPSServer(AsyncPS):
         # encode-once cache: a restored version number may match with
         # other bytes.
         self._served = self._host_params()
+        # The delta ring and its diffs describe pre-restore versions: a
+        # diff across the restore would patch a reader onto bytes never
+        # published, so every subscriber's next read is a full frame.
         with self._parm_lock:
             self._parm_cache = None
+            self._delta_ring.clear()
+            self._delta_cache.clear()
 
     def _resume_extra(self) -> dict:
         """What every durable copy of this server carries: the serving

@@ -591,8 +591,89 @@ def decode_wire_tree(codec, tree):
 def tree_raw_nbytes(tree) -> int:
     """Total leaf payload bytes of a host tree — the f32-baseline
     numerator of the ``parm_bytes_raw``/``parm_bytes_wire`` ratio."""
-    return int(sum(leaf.nbytes if isinstance(leaf, np.ndarray)
-                   else leaf.numel() * leaf.element_size()
-                   if isinstance(leaf, torch.Tensor)
-                   else np.asarray(leaf).nbytes
-                   for leaf in tree_leaves(tree)))
+    return int(sum(_leaf_nbytes(leaf) for leaf in tree_leaves(tree)))
+
+
+# -- delta framing (protocol v12, the DELT delta path) ----------------------
+#
+# A delta leaf is {"__psd_i": uint32 flat indices, "__psd_v": changed
+# values} against the reader's known version of the SAME decoded tree;
+# a leaf whose shape/dtype changed (never in steady state) ships whole
+# as {"__psd_full": array}.  Patching writes the server's decoded-
+# current values at the changed positions, so the patched reader tree
+# is bitwise the full-snapshot decode — delta vs full is a pure wire-
+# size decision.  Copied from the JAX package; a leaf is a numpy array
+# or, for bfloat16 (no numpy dtype), a CPU tensor, compared by value
+# with ``!=`` as numpy compares (``-0.0 == +0.0``, NaN always changed).
+
+
+def _leaf_meta(a):
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), a.dtype
+    return a.shape, a.dtype
+
+
+def _leaf_nbytes(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return np.asarray(a).nbytes
+
+
+def diff_wire_delta(base_tree, cur_tree):
+    """Per-leaf sparse diff ``base -> cur`` over two same-structure host
+    trees: ``(delta_tree, payload_bytes)``.  Bytes count the index+value
+    payloads only (framing is per-frame constant), so the server can
+    compare against the full snapshot's wire size and fall back when the
+    tree churned too much for a delta to win."""
+    delta = OrderedDict()
+    nbytes = 0
+    for n2, cur in cur_tree.items():
+        if not isinstance(cur, torch.Tensor):
+            cur = np.asarray(cur)
+        base = base_tree.get(n2)
+        if base is not None and not isinstance(base, torch.Tensor):
+            base = np.asarray(base)
+        if (base is None or type(base) is not type(cur)
+                or _leaf_meta(base) != _leaf_meta(cur)):
+            delta[n2] = {"__psd_full": cur}
+            nbytes += _leaf_nbytes(cur)
+            continue
+        if isinstance(cur, torch.Tensor):
+            changed = (base != cur).reshape(-1).numpy()
+            idx = np.flatnonzero(changed).astype(np.uint32)
+            vals = cur.reshape(-1)[torch.from_numpy(idx.astype(np.int64))]
+        else:
+            changed = (base != cur).reshape(-1)
+            idx = np.flatnonzero(changed).astype(np.uint32)
+            vals = cur.reshape(-1)[idx]
+        delta[n2] = {"__psd_i": idx, "__psd_v": vals}
+        nbytes += idx.nbytes + _leaf_nbytes(vals)
+    return delta, nbytes
+
+
+def apply_wire_delta(base_tree, delta_tree):
+    """Patch a reader's decoded tree with a `diff_wire_delta` payload —
+    unchanged leaves alias the base (no copy), patched leaves are fresh
+    arrays (the reader's cached tree may be arena views)."""
+    out = OrderedDict()
+    for n2, d in delta_tree.items():
+        if "__psd_full" in d:
+            full = d["__psd_full"]
+            out[n2] = (full if isinstance(full, torch.Tensor)
+                       else np.asarray(full))
+            continue
+        base = base_tree[n2]
+        if not isinstance(base, torch.Tensor):
+            base = np.asarray(base)
+        idx = np.asarray(d["__psd_i"])
+        if idx.size == 0:
+            out[n2] = base
+            continue
+        if isinstance(base, torch.Tensor):
+            flat = base.reshape(-1).clone()
+            flat[torch.from_numpy(idx.astype(np.int64))] = d["__psd_v"]
+        else:
+            flat = np.array(base, copy=True).reshape(-1)
+            flat[idx] = d["__psd_v"]
+        out[n2] = flat.reshape(base.shape)
+    return out

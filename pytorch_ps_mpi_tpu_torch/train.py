@@ -9,13 +9,17 @@ preemption path (SIGTERM/SIGINT: finish the step, write a RESUMABLE
 checkpoint, exit 75), the divergence guard's rollback and the sync chaos
 faults; ``--async-ps``, the in-process async PS (`AsyncPS`: worker
 threads on CUDA streams, quota'd fills, the robust reducers) on the MLP
-and the LM; and the multihost roles, ``--serve PORT`` (one PS process,
-`multihost_async.AsyncPSServer`; ``serving on port N`` on stdout) and
-``--connect HOST:PORT`` (a worker process, `AsyncPSWorker`).  It takes
-the JAX CLI's flags and prints its lines; the roles and flags not ported
-yet (``--subscribe``, ``--sp/--tp/--pp/--ep > 1``, and on the multihost
-roles ``--shards``, ``--aggregators``, ``--fallback``, ``--read-window``,
-``--delta-parm`` and the replication flags) are refused by name.  A
+and the LM; the multihost roles, ``--serve PORT`` (one PS process,
+`multihost_async.AsyncPSServer`; ``serving on port N`` on stdout; the
+serve tier's ``--read-window`` and ``--delta-parm``) and ``--connect
+HOST:PORT`` (a worker process, `AsyncPSWorker`); and the reader role,
+``--subscribe HOST:PORT`` (a `serve.Subscriber`; ``subscribed at version
+N`` on stdout), with ``--infer-serve`` driving the continuous-batching
+`serve.InferenceFrontend` on the subscription.  It takes the JAX CLI's
+flags and prints its lines; the roles and flags not ported yet
+(``--sp/--tp/--pp/--ep > 1``, and on the multihost and reader roles
+``--shards``, several endpoints, ``--aggregators``, ``--fallback`` and
+the replication flags) are refused by name.  A
 ``--connect`` worker streams its gradients in buckets under
 ``--async-bucket-bytes N`` (0: auto), encoded inside backward under
 ``--fused-encode``; ``--moe-experts E`` gives the LM dense MoE MLPs on
@@ -43,6 +47,10 @@ Examples::
     python -m pytorch_ps_mpi_tpu_torch.train --model lenet --resume ckpt.psz
     python -m pytorch_ps_mpi_tpu_torch.train --async-ps \\
         --force-cpu-devices 3 --model mlp --quota 2 --steps 20
+    python -m pytorch_ps_mpi_tpu_torch.train --model transformer --bf16 \\
+        --serve 0 --wire-codec bf16 --delta-parm --steps 50
+    python -m pytorch_ps_mpi_tpu_torch.train --model transformer --bf16 \\
+        --subscribe 127.0.0.1:PORT --infer-serve --steps 32
 """
 
 from __future__ import annotations
@@ -649,14 +657,12 @@ def main(argv=None):
 
 # The roles and flags of the JAX CLI this package does not port yet.
 def _unported(args) -> "str | None":
-    if args.subscribe:
-        return "--subscribe"
     for flag in ("sp", "tp", "pp", "ep"):
         if getattr(args, flag) > 1:
             return f"--{flag} {getattr(args, flag)}"
-    if args.serve is None and not args.connect:
+    if args.serve is None and not args.connect and not args.subscribe:
         return None
-    # On the multihost roles: the fleet, standby, hierarchy and serve-tier
+    # On the multihost and reader roles: the fleet, standby and hierarchy
     # flags.
     for flag, given in (
             ("--shards", args.shards > 1),
@@ -664,13 +670,13 @@ def _unported(args) -> "str | None":
             ("--replicas", bool(args.replicas)),
             ("--snapshot-every", bool(args.snapshot_every)),
             ("--aggregators", bool(args.aggregators)),
-            ("--fallback", bool(args.fallback)),
-            ("--read-window", bool(args.read_window)),
-            ("--delta-parm", args.delta_parm)):
+            ("--fallback", bool(args.fallback))):
         if given:
             return flag
-    if args.connect and "," in args.connect:
-        return "--connect with several endpoints (a shard fleet)"
+    for role, value in (("--connect", args.connect),
+                        ("--subscribe", args.subscribe)):
+        if value and "," in value:
+            return f"{role} with several endpoints (a shard fleet)"
     return None
 
 
@@ -680,8 +686,8 @@ def _dispatch(args):
         raise SystemExit(f"{what} is not ported to the PyTorch package yet "
                          f"(the sync trainer, the in-process async PS and "
                          f"the single-PS multihost roles with the bucket "
-                         f"stream are, with the dense MoE LM; the serve "
-                         f"tier, the fleet, the hierarchy and the "
+                         f"stream and the serve tier are, with the dense "
+                         f"MoE LM; the fleet, the hierarchy and the "
                          f"sp/tp/pp/ep roles follow)")
     # Refuse, don't drop: every flag below would be inert on the role that
     # runs (the JAX CLI's refusals and messages, in its order).
@@ -732,21 +738,38 @@ def _dispatch(args):
                 "spike_at_step / sdc_at_step only; kill/NaN/wire faults "
                 "apply to the async roles (--serve / --connect / "
                 "--async-ps)")
+    # --- the serve tier: reader / inference roles ---
+    if args.subscribe:
+        if args.serve is not None or args.connect:
+            raise SystemExit("--subscribe / --serve / --connect are "
+                             "mutually exclusive roles (one process is "
+                             "the PS, a training worker, or a reader)")
+        if args.async_ps:
+            raise SystemExit("--subscribe reads a MULTIHOST PS over "
+                             "TCP; --async-ps runs entirely in-process "
+                             "with no server to subscribe to")
     if args.infer_serve:
-        raise SystemExit("--infer-serve runs the continuous-"
-                         "batching inference front-end ON a "
-                         "snapshot subscription: set --subscribe "
-                         "HOST:PORT (the sync and worker paths "
-                         "have no subscription to serve from)")
+        if not args.subscribe:
+            raise SystemExit("--infer-serve runs the continuous-"
+                             "batching inference front-end ON a "
+                             "snapshot subscription: set --subscribe "
+                             "HOST:PORT (the sync and worker paths "
+                             "have no subscription to serve from)")
+        if args.model != "transformer":
+            raise SystemExit("--infer-serve drives the in-tree "
+                             "transformer LM: set --model transformer "
+                             "(the subscribed parameter tree must "
+                             "match the model the front-end applies)")
     if args.read_window:
         if args.read_window < 0:
             raise SystemExit(f"--read-window must be >= 0, got "
                              f"{args.read_window}")
-        raise SystemExit("--read-window is the PS-side READ credit "
-                         "budget (--serve roles advertise it in "
-                         "DELT replies); on a worker, reader, sync "
-                         "or in-process role it would be silently "
-                         "inert, which is worse than refusing")
+        if args.serve is None:
+            raise SystemExit("--read-window is the PS-side READ credit "
+                             "budget (--serve roles advertise it in "
+                             "DELT replies); on a worker, reader, sync "
+                             "or in-process role it would be silently "
+                             "inert, which is worse than refusing")
     if args.wire_codec != "identity" and args.serve is None:
         raise SystemExit("--wire-codec is the PS-side wire compression "
                          "knob (--serve roles stamp the codec id into "
@@ -755,13 +778,23 @@ def _dispatch(args):
                          "worker, reader, sync or in-process role it "
                          "would be silently inert, which is worse than "
                          "refusing")
-    if args.delta_parm:
+    if args.delta_parm and args.serve is None:
         raise SystemExit("--delta-parm is the PS-side delta-snapshot "
                          "knob (--serve roles keep the recent-version "
                          "ring that deltas are diffed against); on a "
                          "worker, reader, sync or in-process role it "
                          "would be silently inert, which is worse than "
                          "refusing")
+    if args.subscribe:
+        if args.attn == "flash":
+            # The JAX CLI's reader builds `transformer_model(args)`,
+            # dense attention whatever --attn says; so does this one.
+            raise SystemExit("--attn flash on --subscribe would be "
+                             "silently inert: the reader's front-end "
+                             "(--infer-serve) runs the CLI's LM with "
+                             "dense attention, as the JAX CLI's does — "
+                             "drop the flag")
+        return run_subscribe(args)
     if args.model == "transformer":
         if args.dataset not in (None, "lm"):
             raise SystemExit(
@@ -1591,7 +1624,9 @@ def run_multihost(args, plan=None):
                             adaptive_deadline=args.adaptive_deadline,
                             latency_weighting=args.latency_weighting,
                             credit_window=args.credit_window,
+                            read_window=args.read_window,
                             wire_codec=args.wire_codec,
+                            delta_parm=args.delta_parm,
                             fault_plan=plan,
                             **hyper_from_args(args))
         srv.compile_step(loss_fn)
@@ -1671,6 +1706,69 @@ def run_multihost(args, plan=None):
     print(f"worker rank {worker.rank} done: {pushed} gradients pushed",
           file=sys.stderr)
     return worker
+
+
+def run_subscribe(args):
+    """--subscribe: the serve-tier READER role — a versioned snapshot
+    subscription against a live PS, optionally driving the
+    continuous-batching inference front-end (--infer-serve) on the card,
+    or on the CPU under ``--force-cpu-devices``."""
+    from .serve import InferenceFrontend, Subscriber
+    from .utils.timing import format_fault_stats
+
+    host, _, port = args.subscribe.rpartition(":")
+    if not host or not port.isdigit():
+        raise SystemExit(f"--subscribe wants HOST:PORT (comma-"
+                         f"separated for a shard fleet), got "
+                         f"{args.subscribe!r}")
+    # The inference engine keeps its per-step latency bound while the PS
+    # is down: the swap poll gets one bounded dial probe per backoff
+    # window, never the full redial ladder inside the decode loop.
+    sub = Subscriber(host, int(port), token=args.token,
+                     reconnect_retries=args.reconnect_retries,
+                     op_deadline=args.op_deadline, backoff_max=2.0,
+                     nonblock_heal=args.infer_serve)
+    version, params = sub.snapshot()
+    # Machine-parseable on stdout (like "serving on port N").
+    print(f"subscribed at version {version}", flush=True)
+
+    if args.infer_serve:
+        model = transformer_model(args)
+        fe = InferenceFrontend(
+            model, params, params_source=sub,
+            max_batch=4, buf_len=max(args.seq_len, 16) + 16,
+            max_queue=16, device=_multihost_device(args))
+        from .data.datasets import synthetic_lm
+        from .errors import InferShedError
+        toks = synthetic_lm(max(args.steps, 1), seq_len=8,
+                            vocab=args.vocab, seed=args.seed)
+        handles = []
+        for i in range(args.steps):
+            try:
+                handles.append(fe.submit(toks[i % len(toks)][:8],
+                                         max_new=8))
+            except InferShedError:
+                pass  # counted infer_shed; the request loop moves on
+            fe.step()
+        fe.drain()
+        stats = fe.stats()
+        lat = stats.get("request_latency") or {}
+        print(f"infer done: {len(handles)} served, "
+              f"{stats['infer_shed']} shed, "
+              f"p50 {lat.get('p50_s', 0):.4f}s "
+              f"p95 {lat.get('p95_s', 0):.4f}s over {stats['steps']} "
+              f"batch steps, {stats['param_swaps']} hot swaps",
+              file=sys.stderr)
+    else:
+        updates = sub.run(interval=0.02, max_polls=args.steps)
+        print(f"subscriber done: {updates} snapshot update(s) over "
+              f"{args.steps} polls, final version {sub.version}",
+              file=sys.stderr)
+    rendered = format_fault_stats(sub.fault_snapshot())
+    if rendered != "clean":
+        print(f"subscriber fault stats: {rendered}", file=sys.stderr)
+    sub.close()
+    return sub
 
 
 def cli_entry() -> None:

@@ -92,6 +92,27 @@ def test_the_multihost_modules_are_among_the_checked_sources():
     assert ma.PROTOCOL_VERSION == 12 and hasattr(tr, "Session")
 
 
+def test_the_serve_modules_are_among_the_checked_sources():
+    """The serve tier's modules are scanned by the import checks above,
+    and the reader and the front-end raise without a card unless asked
+    for the CPU."""
+    names = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"serve/__init__.py", "serve/subscribe.py",
+            "serve/infer.py"} <= names
+    from pytorch_ps_mpi_tpu_torch import serve
+
+    assert serve.__all__ == ["Subscriber", "InferenceFrontend",
+                             "InferRequest"]
+    assert not hasattr(serve, "FleetSubscriber")
+    if not torch.cuda.is_available():
+        from pytorch_ps_mpi_tpu_torch.models import TransformerLM, build_lm
+
+        model = TransformerLM(vocab_size=8, d_model=8, n_heads=2,
+                              n_layers=1, d_ff=8, max_len=8)
+        with pytest.raises(port.PSRuntimeError, match="no CUDA device"):
+            port.InferenceFrontend(model, build_lm(model))
+
+
 def test_cuda_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible here")

@@ -595,7 +595,6 @@ REFUSED = [
     ("REPL", b"REPL" + bytes(9), "REPL frames (hot-standby replication)"),
     ("SNAP", b"SNAP" + bytes(8), "SNAP frames (coordinated fleet"),
     ("PROM", b"PROM" + bytes(8), "PROM frames (standby promotion)"),
-    ("SUBS", b"SUBS" + bytes(8), "SUBS frames (the serve tier"),
 ]
 
 
@@ -623,8 +622,8 @@ def test_unported_frames_are_refused_by_name(frame, named):
 
 
 @pytest.mark.parametrize("flag,named", [
-    (8, "a hierarchy aggregator"), (16, "a hierarchy direct-fallback"),
-    (32, "a serve-tier subscriber")], ids=["agg", "fallback", "subscriber"])
+    (8, "a hierarchy aggregator"), (16, "a hierarchy direct-fallback")],
+    ids=["agg", "fallback"])
 def test_unported_helo_flags_are_refused_by_name(flag, named):
     srv = _accepting(_port_server())
     try:

@@ -160,13 +160,12 @@ STILL_UNPORTED = [
     (["--serve", "0", "--replicas", "1"], "--replicas"),
     (["--serve", "0", "--snapshot-every", "2"], "--snapshot-every"),
     (["--serve", "0", "--aggregators", "2"], "--aggregators"),
-    (["--serve", "0", "--read-window", "4"], "--read-window"),
-    (["--serve", "0", "--delta-parm"], "--delta-parm"),
     (["--connect", "h:1", "--fallback", "h:2"], "--fallback"),
     (["--connect", "h:1,h:2"],
      "--connect with several endpoints (a shard fleet)"),
-    (["--subscribe", "h:1"], "--subscribe"),
-    (["--subscribe", "h:1", "--infer-serve"], "--subscribe"),
+    (["--subscribe", "h:1,h:2"],
+     "--subscribe with several endpoints (a shard fleet)"),
+    (["--subscribe", "h:1", "--shards", "2"], "--shards"),
 ]
 
 

@@ -247,11 +247,7 @@ def test_exports_cover_the_jax_package():
         "AggregatorDeadError": "the hierarchy",
         "make_ps_mesh": "the multi-rank LM paths (meshes)",
         "TorchUnavailableError": "none: the port is the torch package",
-        "InferShedError": "the serve tier",
-        "SnapshotRewindError": "the serve tier",
-        "Subscriber": "the serve tier", "FleetSubscriber": "the fleet",
-        "InferenceFrontend": "the serve tier",
-        "InferRequest": "the serve tier",
+        "FleetSubscriber": "the fleet",
     }
     for name in jpkg.__all__:
         if name in waiting:

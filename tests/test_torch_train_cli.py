@@ -299,10 +299,12 @@ def test_cli_transformer_lm_resumes_bitwise(tmp_path, capsys):
 # and the "--serve" and "--connect" cases that those roles refuse the
 # flags of the multihost slices still to come by name.
 UNPORTED = [
-    ("--async-ps", ["--async-ps", "--subscribe", "h:1"], "--subscribe"),
+    ("--async-ps", ["--async-ps", "--subscribe", "h:1,h:2"],
+     "--subscribe with several endpoints (a shard fleet)"),
     ("--serve", ["--serve", "0", "--aggregators", "2"], "--aggregators"),
     ("--connect", ["--connect", "h:1", "--fallback", "h:2"], "--fallback"),
-    ("--subscribe", ["--subscribe", "h:1"], "--subscribe"),
+    ("--subscribe", ["--subscribe", "h:1,h:2"],
+     "--subscribe with several endpoints (a shard fleet)"),
     ("--sp 2", ["--model", "transformer", "--sp", "2"], "--sp 2"),
     ("--tp 2", ["--model", "transformer", "--tp", "2"], "--tp 2"),
     ("--pp 2", ["--model", "transformer", "--pp", "2"], "--pp 2"),
