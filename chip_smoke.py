@@ -166,7 +166,26 @@ and carried on from):
     the CLI's LM, two ``--connect`` workers, then a ``--subscribe
     --infer-serve`` reader and a plain ``--subscribe``, their lines
     printed.
-11. The card line, one JSON line per the kernels, and the last line
+11. The sharded PS fleet (`shard.PSFleet`, its K shards and hot standbys
+    threads of this process, `shard.ShardRouter` workers processes of
+    their own): (a) run 7's ResNet-18 cell on a 2-shard fleet
+    (size-balanced greedy, quota 1 a shard) with one router process:
+    images/s beside run 1a's in this call, each shard's leaves, bytes,
+    updates, PARM and GRAD bytes and staleness; 62 ``block_quantize`` a
+    gradient in the router and one ``block_dequant_sum`` a fill on each
+    shard; (b) (a) with a hot standby a shard, replication every update,
+    admission bounded at staleness 2, shard 1 killed before update 20:
+    one promotion with zero rewind, the
+    successor's state bitwise the replicated blob and the dead primary's,
+    the router keeps its rank, losses finite and falling over the 40
+    timed updates, the launch counts going on on the successor;
+    ``repl_sent``, ``repl_lag``, a REPL round trip's ms and the gap
+    around the promotion; (c) the CLI: ``--serve 0 --shards 2 --replicas
+    1 --snapshot-every 5 --save`` with its LM, a ``--subscribe
+    h:p0,h:p1 --infer-serve`` reader and two ``--connect h:p0,h:p1``
+    workers, then ``--resume`` from the manifest (the versions go on);
+    (d) a lockstep MLP through a 2-shard fleet, card against CPU.
+12. The card line, one JSON line per the kernels, and the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -2583,9 +2602,9 @@ MH_TIMEOUT = 300
 # Run 2: the CLI's LM killed before update 5, checkpointed every 2.
 MH_LM_STEPS, MH_LM_KILL_AT, MH_LM_CKPT_EVERY = 10, 5, 2
 _MH_LINE = re.compile(r"^MH_WORKER (.*)$", re.M)
-# A CLI worker process of run 2: the CLI's entry point with the launch
-# counts zeroed just before, then one MH_WORKER line with the counts and
-# the gradients it computed.
+# A CLI worker process of run 2 (and of phase 11c, a shard router): the
+# CLI's entry point with the launch counts zeroed just before, then one
+# MH_WORKER line with the counts and the gradients it computed.
 _MH_CLI_WORKER_BOOT = (
     "import json, sys, torch\n"
     "torch.backends.cudnn.allow_tf32 = False\n"
@@ -2597,10 +2616,12 @@ _MH_CLI_WORKER_BOOT = (
     "fa.reset_launch_counts()\n"
     "w = train.main(sys.argv[1:])\n"
     "torch.cuda.synchronize()\n"
-    "plan = w._bucket_plan\n"
+    "plan = getattr(w, '_bucket_plan', None)\n"
+    "fs = (w.fault_snapshot() if hasattr(w, 'fault_snapshot')\n"
+    "      else w.fault_stats)\n"
     "print('MH_WORKER ' + json.dumps({'rank': w.rank, 'computed': "
     "w.grads_computed, 'counts': {**ck.LAUNCHES, **fa.LAUNCHES}, "
-    "'fs': w.fault_snapshot(), 'n_buckets': "
+    "'fs': fs, 'n_buckets': "
     "1 if plan is None else plan.n_buckets}), flush=True)\n")
 
 
@@ -2608,12 +2629,14 @@ def mh_worker_main(spec_json: str) -> int:
     """A worker process of run 1 (``chip_smoke.py --mh-worker SPEC``):
     run 1's ResNet-18 loss and batches (phase 10a's bench LM where
     ``spec["model"]`` is ``"bench_lm"``), an `AsyncPSWorker` on the card
-    connected to the PS at ``spec["port"]``, trained until DONE with the
+    connected to the PS at ``spec["port"]`` (phase 11: a `ShardRouter`
+    over the fleet at ``spec["ports"]``), trained until DONE with the
     launch counts zeroed just before; then one ``MH_WORKER {json}`` line
     on stdout.  Without a card it raises (no fall back to the CPU)."""
     import torch
 
     from pytorch_ps_mpi_tpu_torch.multihost_async import AsyncPSWorker
+    from pytorch_ps_mpi_tpu_torch.shard import ShardRouter
     from pytorch_ps_mpi_tpu_torch.utils.timing import format_fault_stats
 
     spec = json.loads(spec_json)
@@ -2623,20 +2646,29 @@ def mh_worker_main(spec_json: str) -> int:
         _model, _named, loss_fn, batch_fn = _bench_lm_worker(init=False)
     else:
         _named, loss_fn, batch_fn = _async_resnet18()
-    worker = AsyncPSWorker("127.0.0.1", spec["port"], code=spec["code"],
-                           device="cuda", io_timeout=MH_TIMEOUT,
-                           reconnect_retries=2,
-                           bucket_bytes=spec.get("bucket_bytes"),
-                           fused_encode=spec.get("fused", False))
+    if "ports" in spec:
+        worker = ShardRouter([("127.0.0.1", p) for p in spec["ports"]],
+                             code=spec["code"], device="cuda",
+                             io_timeout=MH_TIMEOUT,
+                             reconnect_retries=spec["retries"],
+                             backoff_base=0.05, backoff_max=0.5)
+    else:
+        worker = AsyncPSWorker("127.0.0.1", spec["port"],
+                               code=spec["code"], device="cuda",
+                               io_timeout=MH_TIMEOUT, reconnect_retries=2,
+                               bucket_bytes=spec.get("bucket_bytes"),
+                               fused_encode=spec.get("fused", False))
     reset_launch_counts()
     pushed = worker.run(loss_fn, batch_fn)
     torch.cuda.synchronize()
-    plan = worker._bucket_plan
+    plan = getattr(worker, "_bucket_plan", None)
+    fs = (worker.fault_snapshot() if hasattr(worker, "fault_snapshot")
+          else worker.fault_stats)
     print("MH_WORKER " + json.dumps({
         "rank": worker.rank, "pushed": pushed,
         "computed": worker.grads_computed, "counts": launch_counts(),
-        "fault_stats": format_fault_stats(worker.fault_snapshot()),
-        "fs": worker.fault_snapshot(),
+        "fault_stats": format_fault_stats(fs), "fs": fs,
+        "reconnects": worker.reconnects,
         "plan": None if plan is None else plan.describe()}), flush=True)
     return 0
 
@@ -2678,8 +2710,10 @@ def _mh_worker_result(out, what) -> dict:
     return json.loads(m.group(1))
 
 
-def _mh_port(proc, err, what) -> int:
-    """The server's port from its first stdout line."""
+def _mh_first_line(proc, err, pattern, what):
+    """The match of ``pattern`` on the process's first stdout line (read
+    within `MH_TIMEOUT`); a process that prints none is killed and fails
+    the phase."""
     import select
 
     line, end = "", time.monotonic() + MH_TIMEOUT
@@ -2689,15 +2723,21 @@ def _mh_port(proc, err, what) -> int:
             line += proc.stdout.readline()
         elif proc.poll() is not None:
             break
-    m = re.match(r"serving on port (\d+)$", line.strip())
+    m = re.match(pattern, line.strip())
     if m is None:
         proc.kill()
         proc.communicate()
         err.close()
         with open(err.name) as f:
             print(f.read()[-6000:], file=sys.stderr)
-        fail(f"{what}: no 'serving on port' line")
-    return int(m.group(1))
+        fail(f"{what}: no first line {pattern!r} ({line.strip()!r})")
+    return m
+
+
+def _mh_port(proc, err, what) -> int:
+    """The server's port from its first stdout line."""
+    return int(_mh_first_line(proc, err, r"serving on port (\d+)$",
+                              what).group(1))
 
 
 class _UtilSampler:
@@ -3230,10 +3270,14 @@ def moe_multihost(tmp, n_leaves):
                         str(MOE_STEPS), "--serve", "0"],
                        os.path.join(tmp, "moe-server.err"))
     port = _mh_port(srv, e, "MoE LM server")
+    # --reconnect-retries 2: a push racing the server's exit redials, and
+    # the CLI's default ladder (30 attempts, up to 2 s apart) can hold a
+    # worker about a minute after the run ends (phase 9 took 82.9-87.3 s
+    # in two runs against 22.1-27.2 s in two others).
     workers = [_mh_spawn(["-c", _MH_CLI_WORKER_BOOT, *common,
                           "--async-bucket-bytes", str(MOE_BUCKET_BYTES),
                           "--fused-encode", "--connect",
-                          f"127.0.0.1:{port}"],
+                          f"127.0.0.1:{port}", "--reconnect-retries", "2"],
                          os.path.join(tmp, f"moe-worker{i}.err"))
                for i in range(2)]
     results = []
@@ -3697,6 +3741,453 @@ def run_serve_phase():
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the sharded PS fleet on the card
+# ---------------------------------------------------------------------------
+
+# 11b: shard 1 is killed before this update of the 44 and promoted from
+# its hot standby.  Replicating every update holds each shard's serve loop
+# for a REPL round trip (160-360 ms on an H100 host) while the router keeps
+# computing gradients: they queue up (staleness mean 8.15-9.05 in two runs
+# of 11a's configuration, whose loss rose over its last fifth in one).
+# 11b bounds admission at staleness 2 (the CLI's --max-staleness), where
+# 11a runs (staleness mean ~2.2), so that its loss check reads training,
+# not the backlog.
+FLEET_KILL_AT, FLEET_MAX_STALENESS = 20, 2
+# 11c: the CLI's LM on a 2-shard fleet with standbys and snapshots, then
+# resumed from the manifest for the rest.
+FLEET_CLI_STEPS, FLEET_CLI_RESUMED, FLEET_CLI_REQUESTS = 8, 10, 4
+_FLEET_SUBSCRIBED = r"subscribed at version \((\d+), (\d+)\)$"
+
+
+def _lockstep_links(router):
+    """Each link's pull repeats until its shard has applied the previous
+    gradient: with quota 1 a shard, sequential SGD through the fleet."""
+    for link in router.links:
+        orig, last = link.pull, {"v": None}
+
+        def pull(force=False, orig=orig, last=last):
+            while True:
+                got = orig(force)
+                if (got is None or last["v"] is None
+                        or got[0] > last["v"]):
+                    if got is not None:
+                        last["v"] = got[0]
+                    return got
+                time.sleep(0.001)
+
+        link.pull = pull
+
+
+def _fleet_thread(fleet, steps, **kw):
+    """``fleet.serve(steps)`` on a thread of this process: (thread, box)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["hist"] = fleet.serve(steps=steps, idle_timeout=MH_TIMEOUT,
+                                      **kw)
+        except BaseException as exc:  # noqa: BLE001 - re-raised by the caller
+            box["error"] = exc
+
+    t = threading.Thread(target=run, name="fleet-serve")
+    t.start()
+    return t, box
+
+
+def _host_state(srv) -> dict:
+    sd = srv.state_dict()
+    return {"params": sd["params"], "state": sd["state"]}
+
+
+def _same_state(a, b) -> bool:
+    import numpy as np
+
+    return (a["params"].keys() == b["params"].keys() and all(
+        np.array_equal(a["params"][n], b["params"][n])
+        and all(np.array_equal(a["state"][n][k], b["state"][n][k])
+                for k in a["state"][n])
+        for n in a["params"]))
+
+
+def _instrument_failover(fleet, box):
+    """11b's probes, on this run's objects: each primary's REPL round trip
+    (ms), the publish times of shard 1's primary and its standby, and at
+    the promotion the successor's state, the dead primary's and the
+    replicated blob."""
+    for srv in fleet.servers:
+        orig = srv._replicate
+
+        def timed(step, orig=orig):
+            t0 = time.perf_counter()
+            orig(step)
+            box["repl_ms"].append(1e3 * (time.perf_counter() - t0))
+
+        srv._replicate = timed
+    old, sb = fleet.servers[1], fleet.standbys[1]
+    for srv in (old, sb):
+        orig = srv._publish
+
+        def stamped(orig=orig):
+            orig()
+            box["published"].append(time.perf_counter())
+
+        srv._publish = stamped
+    orig_promote = sb.promote_from_replica
+
+    def capture():
+        step = orig_promote()
+        with sb._repl_lock:
+            box["blob"] = (sb._repl_blob, sb._repl_codec)
+        box["successor"] = _host_state(sb)
+        box["primary"] = _host_state(old)
+        box["promoted_at"] = time.perf_counter()
+        return step
+
+    sb.promote_from_replica = capture
+
+
+def fleet_resnet_run(what, named, loss_fn, tmp, *, run1a_ips, replicas=0,
+                     kill_at=None, max_staleness=None):
+    """11a/11b: a 2-shard `PSFleet` (size-balanced greedy, quota 1 a shard,
+    ResNet-18 blockq, momentum 0.9) in this process on the card, one
+    router worker process (``chip_smoke.py --mh-worker`` with the fleet's
+    ports); 4 warm-up and 40 timed updates a shard.  With ``kill_at``
+    (11b: ``replicas=1``, replication every update), shard 1 dies before
+    that update and its standby is promoted onto its port.  Returns
+    images/s over shard 0's timed window (a gradient a fill a shard)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+    from pytorch_ps_mpi_tpu_torch.ops.codecs import decode_wire_tree
+    from pytorch_ps_mpi_tpu_torch.shard import PSFleet
+    from pytorch_ps_mpi_tpu_torch.utils import checkpoint
+    from pytorch_ps_mpi_tpu_torch.utils.faults import FaultPlan
+    from pytorch_ps_mpi_tpu_torch.utils.interop import jax_tree_order
+    from pytorch_ps_mpi_tpu_torch.utils.timing import format_fault_stats
+
+    updates = ASYNC_WARM + ASYNC_TIMED
+    plan = (FaultPlan(kill_shard_at={1: kill_at}) if kill_at is not None
+            else None)
+    fleet = PSFleet(list(jax_tree_order(named).items()), num_shards=2,
+                    quota=1, lr=ASYNC_LR, momentum=0.9, code="blockq",
+                    device="cuda", replicas=replicas, fault_plan=plan,
+                    max_staleness=max_staleness)
+    fleet.compile_step(loss_fn)
+    probes = {"repl_ms": [], "published": []}
+    if kill_at is not None:
+        _instrument_failover(fleet, probes)
+    spec = {"ports": [p for _, p in fleet.addresses], "code": "blockq",
+            "retries": 20 if kill_at is not None else 2}
+    tag = "fleet-kill" if kill_at is not None else "fleet"
+    proc = _mh_spawn([os.path.abspath(__file__), "--mh-worker",
+                      json.dumps(spec)], os.path.join(tmp, f"{tag}.err"))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t, box = _fleet_thread(fleet, updates, warmup_steps=ASYNC_WARM)
+    t.join(MH_TIMEOUT + 60)
+    counts = launch_counts()
+    try:
+        hist = _mh_joined(t, box, what)
+    finally:
+        try:
+            result = _mh_worker_result(_mh_finish(proc[0], proc[1],
+                                                  what)[0], what)
+        finally:
+            fleet.close()
+    per = hist["per_shard"]
+    n_fills = [len(h["losses"]) for h in per]
+    restored = [s["restored_base"] for s in fleet._slots]
+    fills = [n + r for n, r in zip(n_fills, restored)]
+    if fills != [updates, updates]:
+        fail(f"{what}: shards applied {fills} updates, expected {updates}")
+    leaves = [len(fleet.plan.names_for(k)) for k in range(2)]
+    # A promoted standby compiles at its promotion: one encode of a zero
+    # tree (a block_quantize a leaf) gives it the codes' structure.
+    expect_counts(f"{what}, the fleet", counts, block_dequant_sum=sum(
+        f * ck.group_launches("block_dequant_sum", n)
+        for f, n in zip(fills, leaves)),
+        block_quantize=hist["fault_stats"]["promotions"] * leaves[1])
+    expect_counts(f"{what}, the router", result["counts"],
+                  block_quantize=len(named) * result["computed"])
+    for srv in fleet.servers:
+        check_params_finite(srv, what)
+    losses = per[0]["losses"][ASYNC_WARM:]
+    first, last = _fifths(losses)
+    ips = ASYNC_TIMED * ASYNC_BATCH / per[0]["steady_wall_time"]
+    fs = hist["fault_stats"]
+    d = fleet.describe()
+    shards = []
+    for k in range(2):
+        sfs = fs["shards"][str(k)]
+        parm = sfs["parm_bytes_wire"] / max(1, sfs["parm_encodes"])
+        grad = float(np.mean([x["msg_bytes"]
+                              for x in fleet.servers[k].timings]))
+        stale = per[k]["staleness"][ASYNC_WARM:] or per[k]["staleness"]
+        shards.append(
+            f"shard {k}: {d['shards'][k]['leaves']} leaves, "
+            f"{d['shards'][k]['bytes']} bytes, {fills[k]} updates, PARM "
+            f"{parm / 1e6:.3f} MB, GRAD {grad / 1e6:.3f} MB an update, "
+            f"staleness mean {sum(stale) / len(stale):.3f} max "
+            f"{max(stale):.3f}")
+    print(f"[fleet] {what}: {ASYNC_TIMED} timed updates a shard, "
+          f"{ips:.1f} images/s (phase 7's run 1a {run1a_ips:.1f} in this "
+          f"call: ratio {ips / run1a_ips:.3f}), loss first/last fifth "
+          f"{first:.4f} / {last:.4f}; router rank {result['rank']}, "
+          f"{result['computed']} gradients, "
+          f"{result['counts']['block_quantize']} block_quantize; fleet "
+          f"launches {counts}; plan digest {d['digest']:#x}")
+    for line in shards:
+        print(f"[fleet] {what}: {line}")
+    print(f"[fleet] {what}: fault stats {format_fault_stats(fs)}; router "
+          f"{result['fault_stats']}")
+    falling = all(math.isfinite(v) for v in losses) and last < first
+    if kill_at is None:
+        if not falling:
+            fail(f"{what}: losses {per[0]['losses']}")
+        return ips
+    # 11b: one promotion, zero rewind, the successor bitwise the blob.
+    if fs["promotions"] != 1 or fs["shard_restores"] != 0:
+        fail(f"{what}: promotions {fs['promotions']}, restores "
+             f"{fs['shard_restores']}")
+    if restored[1] != kill_at or per[1]["versions"][0] != kill_at + 1:
+        fail(f"{what}: the successor resumed at {restored[1]}, its first "
+             f"version {per[1]['versions'][:1]}")
+    blob, codec = probes["blob"]
+    arrays = decode_wire_tree(codec, checkpoint.loads_tree(blob))
+    if not _same_state(probes["successor"], arrays):
+        fail(f"{what}: the successor's state is not the replicated blob")
+    if not _same_state(probes["successor"], probes["primary"]):
+        fail(f"{what}: the successor's state is not the primary's at "
+             f"update {kill_at}")
+    live = fleet.servers[1]._fault_stats_snapshot()
+    if (result["rank"] != 0 or live["live_ranks"] != [0]
+            or live["workers_seen"] != 1 or result["reconnects"] < 1):
+        fail(f"{what}: the router's rank {result['rank']}, reconnects "
+             f"{result['reconnects']}, the successor's ranks "
+             f"{live['live_ranks']} ({live['workers_seen']} seen)")
+    pub = probes["published"]
+    gaps = np.diff(pub)
+    gap = gaps[kill_at - 1]
+    usual = float(np.median(np.delete(gaps, kill_at - 1)))
+    repl = probes["repl_ms"]
+    print(f"[fleet] {what}: promoted at replicated step {kill_at} (zero "
+          f"rewind; the successor bitwise the blob and the primary); "
+          f"repl_sent {fs['repl_sent']}, repl_received "
+          f"{fs['repl_received']}, repl_lag {fs['repl_lag']}; a REPL round "
+          f"trip {float(np.median(repl)):.1f} ms median ({min(repl):.1f}-"
+          f"{max(repl):.1f}, {len(repl)} of them); shard 1's update "
+          f"{kill_at} to {kill_at + 1}: {1e3 * gap:.1f} ms against a "
+          f"median {1e3 * usual:.1f} ms between updates "
+          f"({gap / usual:.1f} updates' time), the promotion "
+          f"{1e3 * (probes['promoted_at'] - pub[kill_at - 1]):.1f} ms after"
+          f" the last update of the primary")
+    if not falling:
+        fail(f"{what}: losses {per[0]['losses']}, staleness "
+             f"{per[0]['staleness']}")
+    return ips
+
+
+def fleet_cli(tmp):
+    """11c: ``--serve 0 --shards 2 --replicas 1 --snapshot-every 5 --save``
+    (the CLI's LM, bf16, flash, blockq, quota 2), two ``--connect
+    h:p0,h:p1`` workers, a ``--subscribe h:p0,h:p1 --infer-serve`` reader;
+    then ``--resume`` from the manifest with one worker, for updates 9-10
+    (the versions continue).  Each a process with a timeout and its stderr
+    in a file; each worker's launch counts: 4 of each flash kernel and a
+    ``block_quantize`` a leaf per gradient."""
+    import os
+
+    from pytorch_ps_mpi_tpu_torch import train
+    from pytorch_ps_mpi_tpu_torch.native import serializer
+    from pytorch_ps_mpi_tpu_torch.shard import FleetManifest
+    from pytorch_ps_mpi_tpu_torch.shard.fleet import (fleet_manifest_path,
+                                                      shard_checkpoint_path)
+
+    ckpt = os.path.join(tmp, "fleet_lm.psz")
+    common = CLI_LM + ["--codec", "blockq", "--quota", "2"]
+    reader = [a for a in CLI_LM if a not in ("--attn", "flash")]
+    args = train.make_parser().parse_args(CLI_LM)
+    n_leaves = len(train._build_lm_async(args)[0])
+    t0 = time.perf_counter()
+
+    def server(extra, log):
+        proc, err = _mh_spawn(["-c", _CLI_BOOT, "default", *common,
+                               "--serve", "0", "--shards", "2", "--save",
+                               ckpt, *extra], os.path.join(tmp, log))
+        m = _mh_first_line(proc, err, r"serving on ports (\d+) (\d+)$",
+                           f"fleet CLI {log}")
+        return proc, err, f"127.0.0.1:{m.group(1)},127.0.0.1:{m.group(2)}"
+
+    def workers(connect, n, tag):
+        return [_mh_spawn(["-c", _MH_CLI_WORKER_BOOT, *common,
+                           "--connect", connect, "--reconnect-retries", "2"],
+                          os.path.join(tmp, f"fleet-{tag}{i}.err"))
+                for i in range(n)]
+
+    def finish_workers(procs, what):
+        out = []
+        for i, (p, e) in enumerate(procs):
+            r = _mh_worker_result(_mh_finish(p, e, f"{what} {i}")[0], what)
+            g = r["computed"]
+            expect_counts(f"{what} rank {r['rank']}", r["counts"],
+                          flash_fwd=4 * g, flash_bwd_dkdv=4 * g,
+                          flash_bwd_dq=4 * g, block_quantize=n_leaves * g)
+            out.append((r["rank"], g))
+        return out
+
+    srv, e, connect = server(["--replicas", "1", "--snapshot-every", "5",
+                              "--steps", str(FLEET_CLI_STEPS)],
+                             "fleet-server.err")
+    # The reader starts with the workers: it subscribes in the seconds
+    # their start and first gradients take, before the fleet's run ends.
+    rd, rerr = _mh_spawn(["-c", _CLI_BOOT, "default", *reader, "--subscribe",
+                          connect, "--infer-serve", "--steps",
+                          str(FLEET_CLI_REQUESTS), "--reconnect-retries",
+                          "2"], os.path.join(tmp, "fleet-reader.err"))
+    ws = workers(connect, 2, "worker")
+    sub = _mh_first_line(rd, rerr, _FLEET_SUBSCRIBED, "fleet CLI reader")
+    _, rtext = _mh_finish(rd, rerr, "fleet CLI reader")
+    ranks = finish_workers(ws, "fleet CLI worker")
+    _, stext = _mh_finish(srv, e, "fleet CLI server")
+    m = re.search(r"^infer done: (\d+) served, (\d+) shed, .*$", rtext,
+                  re.M)
+    if m is None or int(m.group(1)) != FLEET_CLI_REQUESTS:
+        fail(f"fleet CLI reader: {m.group(0) if m else 'no done line'}")
+    done = re.search(r"^done: (\d+) shard-updates across 2 shards .*$",
+                     stext, re.M)
+    stats = re.search(r"^fault stats: (.*)$", stext, re.M)
+    want = 2 * FLEET_CLI_STEPS
+    if (done is None or int(done.group(1)) != want or stats is None
+            or f"repl_sent={want}" not in stats.group(1)):
+        fail(f"fleet CLI server: {done and done.group(0)}, "
+             f"{stats and stats.group(1)}")
+    with open(fleet_manifest_path(ckpt), "rb") as f:
+        manifest = FleetManifest.from_json(f.read())
+    if manifest.cut != FLEET_CLI_STEPS or manifest.skewed_entries():
+        fail(f"fleet CLI: manifest at cut {manifest.cut}")
+    # --resume from the manifest: every shard at the cut, the versions go
+    # on from it.
+    srv, e, connect = server(["--resume", ckpt, "--steps",
+                              str(FLEET_CLI_RESUMED)],
+                             "fleet-server2.err")
+    ranks2 = finish_workers(workers(connect, 1, "resumed"),
+                            "fleet CLI resumed worker")
+    _, stext2 = _mh_finish(srv, e, "fleet CLI server (resumed)")
+    if f"resumed fleet shards at steps [{FLEET_CLI_STEPS}, " \
+            f"{FLEET_CLI_STEPS}]" not in stext2:
+        fail("fleet CLI: not resumed from the manifest's cut")
+    versions = []
+    for k in range(2):
+        with open(shard_checkpoint_path(ckpt, k), "rb") as f:
+            _, meta = serializer.loads(f.read(), with_meta=True)
+        versions.append((meta["step"], meta["extra"]["served_version"]))
+    if versions != [(FLEET_CLI_RESUMED, FLEET_CLI_RESUMED)] * 2:
+        fail(f"fleet CLI: after the resume the shards hold {versions}")
+    print(f"[fleet] 11c server: {done.group(0)}; {stats.group(1)}; "
+          f"workers (rank, gradients) {ranks} with 4 of each flash kernel "
+          f"and {n_leaves} block_quantize a gradient; manifest at cut "
+          f"{manifest.cut}")
+    print(f"[fleet] 11c reader: {sub.group(0)}; {m.group(0)}")
+    print(f"[fleet] 11c resumed: shards at [{FLEET_CLI_STEPS}, "
+          f"{FLEET_CLI_STEPS}] from the manifest, worker {ranks2}, final "
+          f"(step, served version) {versions}; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
+def fleet_card_vs_cpu():
+    """11d: a 2-shard fleet (quota 1 a shard) and one lockstep router
+    (sequential SGD through the fleet), the small MLP, 6 identity and 2
+    blockq updates, on the card against the same conversation on the CPU:
+    params within run 3's rtol 1e-4 / atol 1e-5, at most one element in
+    10,000 outside."""
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.async_ps import dataset_batch_fn
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_mnist
+    from pytorch_ps_mpi_tpu_torch.models import init_mlp, mlp_loss_fn
+    from pytorch_ps_mpi_tpu_torch.shard import PSFleet, ShardRouter
+
+    named = init_mlp(np.random.RandomState(0), (784, 64, 10))
+    x, y = synthetic_mnist(256, seed=1)
+    for code, updates in (("identity", 6), ("blockq", 2)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            fleet = PSFleet(list(named.items()), num_shards=2, quota=1,
+                            lr=0.05, momentum=0.9, code=code, device=device)
+            fleet.compile_step(mlp_loss_fn)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t, box = _fleet_thread(fleet, updates)
+            try:
+                router = ShardRouter(fleet.addresses, code=code,
+                                     device=device, reconnect_retries=1)
+                _lockstep_links(router)
+                router.run(mlp_loss_fn, dataset_batch_fn(x, y, 64, seed=2))
+                hist = _mh_joined(t, box, f"fleet MLP {code} {device}")
+            finally:
+                fleet.close()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            out[device] = (hist["per_shard"][0]["losses"],
+                           {n: p.cpu().numpy() for srv in fleet.servers
+                            for n, p in srv.params.items()})
+            if device == "cuda" and code == "blockq":
+                expect_counts(f"fleet MLP {code} on the card", counts,
+                              block_quantize=len(named) * updates,
+                              block_dequant_sum=2 * updates)
+        a, b = out["cuda"][1], out["cpu"][1]
+        outside = sum(int((~np.isclose(a[n], b[n], rtol=1e-4,
+                                       atol=1e-5)).sum()) for n in b)
+        total = sum(v.size for v in b.values())
+        print(f"[fleet] 11d lockstep MLP {code}, 2 shards, {updates} "
+              f"updates, card vs CPU: losses {out['cuda'][0]} vs "
+              f"{out['cpu'][0]}, max difference {_np_max_diff(a, b)}, "
+              f"{outside} of {total} elements outside rtol 1e-4 / atol "
+              f"1e-5")
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+        if outside > (0 if code == "identity" else 1e-4 * total):
+            fail(f"fleet MLP {code} card vs CPU: {outside} elements apart")
+
+
+def run_fleet_phase(run1a_ips):
+    """Phase 11: the sharded PS fleet on the card (11a-11d)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ps_fleet_")
+    try:
+        named, loss_fn, _ = _async_resnet18()
+        ips = fleet_resnet_run(
+            "ResNet-18 blockq, 2 shards, 1 router process, quota 1 (11a)",
+            named, loss_fn, tmp, run1a_ips=run1a_ips)
+        killed = fleet_resnet_run(
+            f"11a with a hot standby a shard, shard 1 killed before update "
+            f"{FLEET_KILL_AT}, staleness bound {FLEET_MAX_STALENESS} (11b)",
+            named, loss_fn, tmp, run1a_ips=run1a_ips, replicas=1,
+            kill_at=FLEET_KILL_AT, max_staleness=FLEET_MAX_STALENESS)
+        print(f"[fleet] 11b: {killed:.1f} images/s against 11a's {ips:.1f} "
+              f"(ratio {killed / ips:.3f}: replication every update and "
+              f"the promotion)")
+        del named, loss_fn
+        torch.cuda.empty_cache()
+        fleet_cli(tmp)
+        fleet_card_vs_cpu()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[fleet] phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # topk's selection on tied magnitudes: the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -3870,7 +4361,10 @@ def main() -> int:
     run_moe_phase()
     run_serve_phase()
 
-    # --- 11. results ---
+    # --- 11. the sharded fleet ---
+    run_fleet_phase(run1a_ips)
+
+    # --- 12. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({

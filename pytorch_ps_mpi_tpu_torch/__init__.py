@@ -14,7 +14,10 @@ v12 frames, `transport`, gradients streamed in buckets); the serve
 tier on a single PS (`serve`: `Subscriber`, a versioned snapshot
 subscription over SUBS/DELT with delta snapshots, and
 `InferenceFrontend`, a continuous-batching greedy decoder that hot-swaps
-the subscribed parameters);
+the subscribed parameters); the sharded PS fleet (`shard`: `PSFleet`
+with hot standbys promoted onto a dead shard's port and coordinated
+snapshots, `ShardRouter`, `ShardPlan`, and the fleet's reader
+`FleetSubscriber`);
 the reference's nonblocking collectives (`parallel.collectives`'s
 ``i*`` ops); the blockq and bf16 codecs' kernels are hand-written CUDA
 for Hopper (``csrc/codec_kernels.cu``); the ResNet/MLP models and the
@@ -27,9 +30,10 @@ caller asks for the CPU.
 
 from .async_ps import AsyncAdam, AsyncPS, AsyncSGD
 from .errors import (BufferMutatedError, ElasticResumeError,
-                     FillStarvedError, FleetDeadError, InferShedError,
+                     FillStarvedError, FleetDeadError, FleetManifestError,
+                     FleetResumeSkewError, InferShedError,
                      NativeToolchainError, NotCompiledError, PSRuntimeError,
-                     SDCDetectedError, SnapshotRewindError,
+                     SDCDetectedError, ShardDeadError, SnapshotRewindError,
                      WorkerFailedError)
 from .multihost_async import (AsyncAdamServer, AsyncPSServer,
                               AsyncPSWorker, AsyncSGDServer)
@@ -38,7 +42,10 @@ from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
 from .ops.flash_attention import flash_attention
 from .parallel.mesh import make_ps_group
 from .ps import MPI_PS, PS, SGD, Adam, AdamW
-from .serve import InferenceFrontend, InferRequest, Subscriber
+from .serve import (FleetSubscriber, InferenceFrontend, InferRequest,
+                    Subscriber)
+from .shard import (PSFleet, ShardPlan, ShardRouter, build_shard_plan,
+                    match_partition_rules)
 from .utils import checkpoint
 from .utils.checkpoint import CheckpointError
 from .utils.faults import FaultPlan, SimulatedCrash
@@ -84,4 +91,13 @@ __all__ = [
     "Subscriber",
     "InferenceFrontend",
     "InferRequest",
+    "PSFleet",
+    "ShardPlan",
+    "ShardRouter",
+    "build_shard_plan",
+    "match_partition_rules",
+    "ShardDeadError",
+    "FleetManifestError",
+    "FleetResumeSkewError",
+    "FleetSubscriber",
 ]

@@ -577,6 +577,14 @@ class AsyncPS:
         the TCP server fails loudly when its connected fleet can never
         complete the fill."""
 
+    def _at_fill_boundary(self) -> None:
+        """Deployment-specific hook at the top of every fill, before any
+        gradient of the next update is consumed, so the parameters and
+        optimizer state are exactly "N updates applied".  In-process it
+        does nothing; the TCP server writes an armed coordinated-snapshot
+        cut here (SNAP markers), the one point where a checkpoint is
+        provably at a whole-update cut."""
+
     def _fill_gradients(self, receive, drain_nowait, *, current_version,
                         base_timeout: float = 0.5, on_consumed=None):
         """Receive gradients until the fill target is met — or, with a
@@ -595,6 +603,7 @@ class AsyncPS:
         ``(codes_list, stalenesses, losses, ranks, fill_target, short)``."""
         from .transport import Deadline
 
+        self._at_fill_boundary()
         # The quorum fill budget, armed at fill start.
         fill_dl = Deadline(self._effective_deadline())
         t0 = time.perf_counter()

@@ -36,6 +36,30 @@ class FillStarvedError(FleetDeadError):
     configured to close fills short)."""
 
 
+class ShardDeadError(PSRuntimeError):
+    """A PS-fleet shard died and could not be restored (no hot standby
+    with replicated state, no checkpoint configured, or the per-shard
+    restore budget is exhausted); the original failure is chained as
+    ``__cause__``."""
+
+
+class FleetManifestError(PSRuntimeError):
+    """A fleet-checkpoint manifest (``ckpt.fleet.json``) refused a
+    resume: a shard's checkpoint file is missing, its content digest
+    disagrees with the manifest, or the manifest was written by a fleet
+    with a different shard plan.  Restoring anyway would silently stitch
+    a parameter tree from mismatched slices."""
+
+
+class FleetResumeSkewError(FleetManifestError):
+    """Per-shard checkpoints in a fleet resume were taken at different
+    update counts (version skew): restoring them together would stitch a
+    parameter tree from K different epochs.  The message names the
+    offending shards and their recorded steps; take a coordinated fleet
+    snapshot (``snapshot_every`` / `PSFleet.save_checkpoint`) to get a
+    consistent set with a manifest."""
+
+
 class BufferMutatedError(PSRuntimeError):
     """A wire buffer changed between hand-off to the transport and the
     moment its bytes were about to hit the socket, caught by the

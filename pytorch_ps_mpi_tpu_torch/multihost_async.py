@@ -29,8 +29,9 @@ Frames (layouts in the JAX module's docstring):
 * worker → PS ``HELO | flags | [prior_rank u32 if flags&1 |
   assigned_rank u32 if flags&2] | token`` → ``PSA | version | rank u32 |
   auth u8 | shard u16 | num_shards u16 | plan_digest u64 | credits u32 |
-  wire_flags u8 | codec name`` (``NOAU`` on a bad token); flag 4 books a
-  rank-less control connection;
+  wire_flags u8 | codec name`` (``NOAU`` on a bad token); flag 2 books a
+  rank minted by shard 0 of a fleet verbatim, flag 4 a rank-less control
+  connection;
 * ``PULL | have u64`` → ``DONE`` or ``PARM | version u64 | credits u32 |
   codec u8 | [params]``, empty when ``have`` is the served version; each
   version is encoded once (``_parm_cache``) and fanned out;
@@ -44,7 +45,9 @@ Frames (layouts in the JAX module's docstring):
   partial assembly is retired, counted in ``bucket_partial_timeouts``,
   when a newer seq of the rank completes or its connection closes.  Flow
   control charges one credit per gradient, not per frame;
-* ``BEAT`` (no reply); ``SPLN`` → ``SPLN`` with an empty plan;
+* ``BEAT`` (no reply); ``SPLN`` → ``SPLN | plan json``, the fleet's
+  `shard.partition.ShardPlan` (empty on an unsharded PS), which a
+  `shard.ShardRouter` adopts and checks against every shard's PSA digest;
 * a reader's HELO carries flag 32 (a rank-less subscriber, counted in
   the ``subs_active`` gauge while its connection lives), then ``SUBS |
   have u64`` → ``DONE`` or ``DELT | version u64 | read credits u32 |
@@ -63,10 +66,26 @@ off-GIL pool, and the serve loop auto-checkpoints every N updates in the
 port's on-disk format (`utils.checkpoint`) with the serving version and
 the rank allocation, so a killed PS resumes with continuous versions.
 
+The fleet's frames (`shard.fleet.PSFleet` drives them over rank-less
+control connections, HELO flag 4):
+
+* primary → standby ``REPL | step u64 | codec u8 | checkpoint blob`` →
+  ``ACKR | step u64 | credits u32``: hot-standby replication.  The blob is
+  this package's checkpoint of the shard (`utils.checkpoint`, with the
+  serving version and the rank allocation), its arrays through the
+  server's wire codec; the standby keeps it as bytes of its own and
+  decodes it at promotion.  A blob of another format (the JAX package's
+  ``PST2`` tree frame) is refused at once, and counted;
+* supervisor → shard ``SNAP | cut u64`` → ``SNAP | armed cut u64`` (0 =
+  refused): the shard checkpoints at exactly fill boundary ``cut``
+  (`_at_fill_boundary`), so K shards cut one consistent snapshot;
+* supervisor → standby ``PROM | plan digest u64`` → ``PROM | replicated
+  step u64`` (all ones: nothing replicated): the promotion fence; every
+  later REPL is refused (``repl_refused``).
+
 Not ported yet, and refused by name (a refused frame costs only its own
-connection and is counted in ``quarantined_frames``): REPL/ACKR, PROM and
-SNAP (hot standby and fleet snapshots), and AGGR and HELO flags 8/16 (the
-hierarchy).
+connection and is counted in ``quarantined_frames``): AGGR and HELO flags
+8/16 (the hierarchy).
 
 On the card:
 
@@ -109,8 +128,8 @@ from .native import serializer
 from .ops import codecs as _codecs
 from .ops.codecs import Codec
 from .parallel.mesh import resolve_device
-from .transport import (_CONTROL_RANK, TRANSPORT_ERRORS, Deadline,
-                        DeadlineExpired, FrameCRCError, Session,
+from .transport import (_CONTROL_RANK, _NO_REPLICA, TRANSPORT_ERRORS,
+                        Deadline, DeadlineExpired, FrameCRCError, Session,
                         frame_header, recv_frame, send_frame)
 from .utils.backoff import Backoff
 from .utils.bytes import bytes_of
@@ -180,12 +199,9 @@ _DECODE_DEPTH = 2
 _RECV_NBUFS = 3
 assert _DECODE_DEPTH < _RECV_NBUFS
 
-# Frames of the JAX protocol whose slices are not ported yet: each costs
-# its own connection, counted in ``quarantined_frames``.
+# Frames of the JAX protocol whose slice (the hierarchy) is not ported
+# yet: each costs its own connection, counted in ``quarantined_frames``.
 _REFUSED_FRAMES = {
-    b"REPL": "hot-standby replication",
-    b"PROM": "standby promotion",
-    b"SNAP": "coordinated fleet snapshots",
     b"AGGR": "hierarchical aggregation",
 }
 _REFUSED_HELO_FLAGS = {8: "a hierarchy aggregator",
@@ -194,9 +210,9 @@ _REFUSED_HELO_FLAGS = {8: "a hierarchy aggregator",
 
 def _not_ported(what: str) -> str:
     return (f"{what} is not ported to the PyTorch package yet (the "
-            f"single-PS multihost async PS, its bucket stream and the "
-            f"serve tier are; the fleet and standby, and the hierarchy "
-            f"follow)")
+            f"multihost async PS, its bucket stream, the serve tier and "
+            f"the sharded fleet with its hot standbys are; the hierarchy "
+            f"follows)")
 
 
 def control_connect(host: str, port: int, token: "str | None" = None,
@@ -336,7 +352,10 @@ class AsyncPSServer(AsyncPS):
                  host: str = "127.0.0.1", port: int = 0,
                  device=None,
                  token: "str | None" = None,
-                 conn_timeout: float = 60.0,
+                 conn_timeout: float = 60.0, shard_info=None,
+                 standby: bool = False, replica_addr=None,
+                 replica_every: int = 1,
+                 op_deadline: "float | None" = None,
                  read_window: int = 0, wire_codec: str = "identity",
                  delta_parm: bool = False, **kw):
         device = resolve_device("cuda" if device is None else device)
@@ -359,17 +378,61 @@ class AsyncPSServer(AsyncPS):
         self._read_tokens = self._read_window  # guarded by _read_lock
         self._read_tokens_version = -1  # guarded by _read_lock
         self._read_tokens_t = 0.0  # guarded by _read_lock
-        # An unsharded PS advertises the trivial (0, 1, digest=0) triple
-        # and serves an empty plan over SPLN.
-        self._shard_index, self._shard_count = 0, 1
-        self._plan_digest = 0
-        self._plan_json = b""
+        # The budget of this server's own client operations: the REPL
+        # round trip to its standby (workers carry their own).
+        self.op_deadline = op_deadline
+        # Hot standby: ``standby=True`` is the receiving side (REPL blobs
+        # stashed, PROM fences answered, no fills until promoted);
+        # ``replica_addr`` the sending side (every ``replica_every``-th
+        # update's checkpoint blob streamed to the standby).
+        if standby and replica_addr is not None:
+            raise ValueError("a standby cannot itself replicate onward "
+                             "(chained replication is not supported)")
+        if replica_every < 1:
+            raise ValueError(
+                f"replica_every must be >= 1, got {replica_every}")
+        self._standby = standby
+        self.replica_addr = (tuple(replica_addr)
+                             if replica_addr is not None else None)
+        self.replica_every = int(replica_every)
+        self._repl_lock = threading.Lock()
+        self._repl_step: "int | None" = None  # guarded by _repl_lock
+        self._repl_blob: "bytes | None" = None  # guarded by _repl_lock
+        # The codec byte of the newest REPL frame: promotion decodes the
+        # stashed blob's arrays with it (the primary's wire codec).
+        self._repl_codec = 0  # guarded by _repl_lock
+        self._promoted = False  # guarded by _repl_lock
+        # The sending side's state, touched by the serve loop only: the
+        # replication stream rides a credit-gated session (REPL is a data
+        # frame), so a slow standby sheds replication payloads instead of
+        # blocking the serve loop.
+        self._repl_session: "Session | None" = None
+        self._last_acked = 0
+        # Coordinated-snapshot markers: cuts armed by SNAP frames
+        # (connection threads), written at the fill boundary (the serve
+        # loop); both under _stats_lock.
+        self._snap_cuts: "set[int]" = set()
+        self._snap_path = None
+        # The fleet identity (`shard.partition.ShardInfo`, duck-typed): the
+        # slice of the plan this server owns, advertised in every PSA and
+        # served in full over SPLN.  An unsharded PS advertises the trivial
+        # (0, 1, digest=0) triple and serves an empty plan.
+        if shard_info is not None:
+            self._shard_index = int(shard_info.index)
+            self._shard_count = int(shard_info.count)
+            self._plan_digest = int(shard_info.digest)
+            self._plan_json = bytes(shard_info.plan_json)
+        else:
+            self._shard_index, self._shard_count = 0, 1
+            self._plan_digest = 0
+            self._plan_json = b""
         # A peer that stops mid-frame costs its connection after this
         # long (healthy workers heartbeat every ~2 s).
         self.conn_timeout = conn_timeout
         # Optional shared-secret admission (not encryption): every
         # message before an authenticated HELO is refused.  "" is unset.
         self.token = token or None
+        self._host = host
         self._listener = socket.create_server((host, port))
         self.address: "tuple[str, int]" = self._listener.getsockname()[:2]
         self._conn_threads: "list[threading.Thread]" = []
@@ -442,6 +505,11 @@ class AsyncPSServer(AsyncPS):
             "evictions": 0, "reconnects": 0, "crc_dropped": 0,
             "quarantined_frames": 0, "accept_errors": 0,
             "duplicate_dropped": 0, "evicted_dropped": 0,
+            # REPL frames sent (primary), applied and refused after the
+            # PROM fence (standby), the primary's unacked-lag gauge, and
+            # the SNAP-cut checkpoints written at fill boundaries.
+            "repl_sent": 0, "repl_received": 0, "repl_refused": 0,
+            "repl_lag": 0, "snapshot_barriers": 0,
             "dropped_queue_full": {},
         })
 
@@ -1115,6 +1183,42 @@ class AsyncPSServer(AsyncPS):
                         if rank is not None:
                             self._mark_alive(rank)
                         send_frame(conn, b"SPLN" + self._plan_json)
+                    elif kind == b"REPL":
+                        self._take_repl(conn, body)
+                    elif kind == b"SNAP":
+                        # Coordinated-snapshot marker: arm a checkpoint
+                        # at exactly fill boundary ``cut`` (written by
+                        # `_at_fill_boundary`).  A cut this shard has
+                        # reached already is answered 0, so the
+                        # supervisor proposes a later one.
+                        (cut,) = _U64.unpack_from(body, 0)
+                        with self._stats_lock:
+                            armable = (not self._standby
+                                       and self._snap_path is not None
+                                       and cut > self._fill_next_step)
+                            if armable:
+                                self._snap_cuts.add(cut)
+                        send_frame(conn, b"SNAP"
+                                   + _U64.pack(cut if armable else 0))
+                    elif kind == b"PROM":
+                        # The promotion fence: only a standby of the same
+                        # fleet (plan digest) is fenced; the reply is the
+                        # replicated step.  Every later REPL is refused.
+                        if not self._standby:
+                            self._bump("quarantined_frames")
+                            raise ValueError(
+                                "PROM sent to a non-standby server")
+                        (digest,) = _U64.unpack_from(body, 0)
+                        if digest != self._plan_digest:
+                            raise ValueError(
+                                f"PROM plan digest {digest:#x} does not "
+                                f"match this standby's "
+                                f"{self._plan_digest:#x} — wrong fleet")
+                        with self._repl_lock:
+                            self._promoted = True
+                            step = self._repl_step
+                        send_frame(conn, b"PROM" + _U64.pack(
+                            _NO_REPLICA if step is None else step))
                     elif kind in _REFUSED_FRAMES:
                         raise self._refuse(
                             f"{kind.decode()} frames "
@@ -1148,6 +1252,13 @@ class AsyncPSServer(AsyncPS):
                             cached=(segs.wire_crc, segs.wire_len))
                         self._bump("segments_sent", len(segs) + 2)
                     elif kind == b"SUBS":
+                        if self._standby:
+                            self._bump("quarantined_frames")
+                            raise ValueError(
+                                "SUBS sent to a standby server — "
+                                "standbys hold replicated blobs, not a "
+                                "served snapshot; subscribe to the "
+                                "primary")
                         if not self._serve_subs(conn, body):
                             return
                     elif kind == b"GRAD":
@@ -1210,6 +1321,43 @@ class AsyncPSServer(AsyncPS):
                 self._release_conn(rank)
             if is_sub:
                 self._bump("subs_active", -1)
+
+    def _take_repl(self, conn: socket.socket, body) -> None:
+        """One REPL frame at a standby: stash the newest blob as bytes of
+        its own (never a view of the receive ring) with its codec byte,
+        and answer ACKR with the credit window (REPL is a data frame).
+        The blob is a checkpoint in this package's format: a tree frame of
+        another format (the JAX package's) is refused before it is
+        stashed.  Refused too: REPL at a non-standby, and after the PROM
+        fence (a zombie primary must not write into its successor's
+        past).  Each refusal costs the connection and is counted."""
+        (step,) = _U64.unpack_from(body, 0)
+        (repl_codec,) = _U8.unpack_from(body, _U64.size)
+        blob = body[_U64.size + _U8.size:]
+        if self._standby:
+            try:
+                serializer.check_tree_frame(blob)
+            except ValueError:
+                self._bump("quarantined_frames")
+                raise
+        with self._repl_lock:
+            fenced = self._promoted
+            if not fenced and self._standby:
+                self._repl_step = step
+                self._repl_codec = repl_codec
+                self._repl_blob = bytes(blob)
+        if fenced:
+            # Checked first: a promoted successor is no longer a standby,
+            # but its zombie primary's stream is the fence refusal it is.
+            self._bump("repl_refused")
+            raise ValueError(
+                "standby already promoted — replication stream fenced off")
+        if not self._standby:
+            self._bump("quarantined_frames")
+            raise ValueError("REPL sent to a non-standby server")
+        self._bump("repl_received")
+        send_frame(conn, b"ACKR" + _U64.pack(step)
+                   + _U32.pack(self._advertised_credits()))
 
     def _serve_subs(self, conn: socket.socket, body) -> bool:
         """Answer one SUBS: conditional like a PULL (``have`` at the
@@ -1313,10 +1461,150 @@ class AsyncPSServer(AsyncPS):
         _checkpoint.save_optimizer(path, self, step=step,
                                    extra=self._resume_extra())
 
+    # -- hot-standby replication (the primary's side) -------------------------
+
+    def _replicate(self, step: int) -> None:
+        """Stream the post-update state to the standby as one REPL frame
+        (a checkpoint of this server, store-framed, its arrays through the
+        wire codec) and consume the ACKR, all under
+        ``Deadline(op_deadline)``.
+        Best-effort: a dead or fenced standby costs a growing ``repl_lag``
+        and a redial at the next cadence, never the serve loop.  The
+        stream rides a credit-gated session with one pending frame: a
+        standby that stops acking stops granting credits, and the
+        session is dropped (a parked REPL would never be acked)."""
+        from .utils import checkpoint as _checkpoint
+
+        wire_encode = None
+        if self._wire_codec_id != 0:
+            wire_encode = (lambda tree: _codecs.encode_wire_tree(
+                self._wire_codec, tree))
+        arrays, meta = _checkpoint.optimizer_payload(
+            self, step=step, extra=self._resume_extra(),
+            wire_encode=wire_encode)
+        # Store-framed like every frame of this wire (`_WIRE_LEVEL`) and
+        # sent as segments: the blob is never assembled on this side (the
+        # arrays are this call's own copies of the state).
+        meta_blob, segs = serializer.encode_segments(
+            arrays, level=_WIRE_LEVEL, meta=meta)
+        head = b"REPL" + _U64.pack(step) + _U8.pack(self._wire_codec_id)
+        dl = Deadline(self.op_deadline)
+        try:
+            if self._repl_session is None:
+                host, port = self.replica_addr
+                sock = control_connect(host, port, token=self.token,
+                                       timeout=5.0)
+                self._repl_session = Session(
+                    sock, io_timeout=5.0, max_pending=1,
+                    stall_hook=lambda: self._bump("credits_stalled"),
+                    shed_hook=lambda: self._bump("shed_data_frames"))
+            sent = self._repl_session.send_data_segments(
+                [head, meta_blob, *segs], deadline=dl,
+                cached=(segs.wire_crc, segs.wire_len))
+            if sent:
+                reply = self._repl_session.recv(dl)
+                if reply[:4] == b"ACKR":
+                    (acked,) = _U64.unpack_from(reply, 4)
+                    (credits,) = _U32.unpack_from(reply, 4 + _U64.size)
+                    self._last_acked = max(self._last_acked, acked)
+                    self._repl_session.replenish(credits)
+                self._bump("repl_sent")
+            else:
+                self._repl_session.close()
+                self._repl_session = None
+        except TRANSPORT_ERRORS + (ValueError,):
+            # A fenced standby drops the stream (this primary is a zombie
+            # past a promotion); protocol refusals too.  None of them may
+            # end the serve loop.
+            if sys.exc_info()[0] is DeadlineExpired:
+                self._bump("deadline_expired")
+            if self._repl_session is not None:
+                self._repl_session.close()
+                self._repl_session = None
+        with self._stats_lock:
+            self.fault_stats["repl_lag"] = step - self._last_acked
+
+    # -- hot-standby promotion (the standby's side, driven by the fleet) ------
+
+    def replica_step(self) -> "int | None":
+        """The newest replicated step this standby holds (None before the
+        first REPL)."""
+        with self._repl_lock:
+            return self._repl_step
+
+    def promote_from_replica(self) -> "int | None":
+        """Apply the replicated blob to this standby and fence the
+        replication stream.  Returns the step to serve on from, or None
+        when nothing was replicated.  The blob's arrays rode the
+        primary's wire codec: they are decoded back to f32 first, so the
+        successor's optimizer state is plain tensors on its device, like
+        any resumed server's.  The supervisor calls it after the wire
+        PROM fence; the fence is latched here too."""
+        with self._repl_lock:
+            self._promoted = True
+            step, blob = self._repl_step, self._repl_blob
+            repl_codec = self._repl_codec
+        if blob is None:
+            return None
+        from .utils import checkpoint as _checkpoint
+
+        arrays, meta = _checkpoint.loads_tree(
+            blob, with_meta=True, source="<replication stream>")
+        arrays = _codecs.decode_wire_tree(repl_codec, arrays)
+        info = _checkpoint.apply_optimizer(
+            self, arrays, meta, source="<replication stream>")
+        self._apply_resume_extra(info.get("extra") or {})
+        # The successor is a primary now: it serves fills, arms SNAP cuts
+        # and replicates onward; its zombie predecessor's late REPL stays
+        # refused by the fence, which outlives the role.
+        self._standby = False
+        return int(info.get("step") or 0)
+
+    def rebind(self, port: int) -> None:
+        """Move the listener to ``port``, the takeover step of a
+        promotion: reconnecting workers land on the successor without
+        being re-pointed.  Call it with the accept loop stopped."""
+        try:
+            self._listener.close()
+        except OSError:  # pragma: no cover - close best-effort
+            pass
+        self._listener = socket.create_server((self._host, port))
+        self.address = self._listener.getsockname()[:2]
+
+    def _start_accept_thread(self) -> threading.Thread:
+        """The accept loop without serve(): a standby's frame surface
+        (REPL and PROM are connection-thread work).  Promotion stops it
+        and rebinds, and serve() starts a fresh one."""
+        t = threading.Thread(target=self._accept_loop, daemon=True,
+                             name="async-ps-standby-accept")
+        t.start()
+        return t
+
+    # -- coordinated snapshots (SNAP markers) ---------------------------------
+
     def applied_updates(self) -> int:
-        """Updates applied so far (the current fill boundary)."""
+        """Updates applied so far (the current fill boundary): what the
+        fleet supervisor reads to propose a cut every shard is short of."""
         with self._stats_lock:
             return self._fill_next_step
+
+    def _at_fill_boundary(self) -> None:
+        """At the boundary before the fill of update g, an armed cut g is
+        the agreed fleet-wide cut "g updates applied": the step-tagged
+        checkpoint is written now, before any gradient moves this shard
+        past it."""
+        with self._stats_lock:
+            boundary = self._fill_next_step
+            due = boundary in self._snap_cuts
+            if due:
+                self._snap_cuts.discard(boundary)
+            path = self._snap_path
+        if due and path is not None:
+            from .utils import checkpoint as _checkpoint
+
+            self._auto_checkpoint(_checkpoint.step_path(path, boundary),
+                                  boundary)
+            self._bump("snapshot_barriers")
 
     # -- the PS loop ----------------------------------------------------------
 
@@ -1360,7 +1648,10 @@ class AsyncPSServer(AsyncPS):
         accept.start()
         poll = min(0.5, max(idle_timeout / 4.0, 0.02))
         self._idle_timeout = idle_timeout
+        # SNAP markers write their cuts as step-tagged siblings of the
+        # auto-checkpoint path (no path: markers are answered 0).
         with self._stats_lock:
+            self._snap_path = checkpoint_path
             self._fill_next_step = start_step
         idle = Deadline(idle_timeout)
         plan = self.fault_plan
@@ -1459,6 +1750,11 @@ class AsyncPSServer(AsyncPS):
                 self.timings.append(data)
                 if checkpoint_every and (gstep + 1) % checkpoint_every == 0:
                     self._auto_checkpoint(checkpoint_path, gstep + 1)
+                if (self.replica_addr is not None
+                        and (gstep + 1) % self.replica_every == 0):
+                    # At the default cadence (1) the standby is never
+                    # behind: a promotion rewinds no update.
+                    self._replicate(gstep + 1)
                 if log_every and (update + 1) % log_every == 0:
                     print(f"async update {update + 1:5d}  loss "
                           f"{mean_loss:.4f}  staleness {mean_stale:.2f}")
@@ -1466,6 +1762,9 @@ class AsyncPSServer(AsyncPS):
             self._net_stop.set()
             self._listener.close()
             accept.join(timeout=5.0)
+            if self._repl_session is not None:
+                self._repl_session.close()
+                self._repl_session = None
             with self._stats_lock:
                 drops = dict(self.fault_stats["dropped_queue_full"])
             for r in sorted(drops):
@@ -1550,6 +1849,8 @@ class AsyncPSWorker:
                  reconnect_retries: int = 3,
                  backoff_base: float = 0.1,
                  backoff_max: float = 1.0,
+                 assigned_rank: "int | None" = None,
+                 expect_shard: "int | None" = None,
                  op_deadline: "float | None" = None,
                  credit_cap: "int | None" = None,
                  bucket_bytes: "int | None" = None,
@@ -1591,6 +1892,14 @@ class AsyncPSWorker:
             # Bucket frames handed to the transport, and fused bucketed
             # grad + encode steps run.
             "buckets_sent": 0, "fused_encodes": 0}
+        # The fleet identity (`shard.ShardRouter`'s links):
+        # ``assigned_rank`` books shard 0's minted rank verbatim (HELO flag
+        # 2); ``expect_shard`` pins the fleet slot this connection must
+        # land on (a swapped endpoint is refused at connect time).  A plain
+        # worker (both None) refuses a fleet shard: it would push
+        # whole-tree gradients at a slice owner.
+        self._assigned_rank = assigned_rank
+        self._expect_shard = expect_shard
         self.shard_index = 0
         self.num_shards = 1
         self.plan_digest = 0
@@ -1633,6 +1942,18 @@ class AsyncPSWorker:
     def sock(self) -> "socket.socket | None":
         return self._session.sock if self._session is not None else None
 
+    @property
+    def link_down(self) -> bool:
+        """The session's partition latch (a `FaultPlan` black hole:
+        heartbeats stop, the socket stays)."""
+        return (self._session.link_down
+                if self._session is not None else False)
+
+    @link_down.setter
+    def link_down(self, value: bool) -> None:
+        if self._session is not None:
+            self._session.link_down = bool(value)
+
     def fault_snapshot(self) -> "dict[str, int]":
         """This worker's counters plus its session's stall/shed counts —
         one dict `utils.timing.format_fault_stats` renders."""
@@ -1659,6 +1980,10 @@ class AsyncPSWorker:
                 pass
             if prior_rank is not None:
                 flags, extra = 1, struct.pack("<I", prior_rank)
+            elif self._assigned_rank is not None:
+                # The fleet-wide rank from shard 0, booked here too (not a
+                # reconnect: the server does not count it as one).
+                flags, extra = 2, struct.pack("<I", self._assigned_rank)
             else:
                 flags, extra = 0, b""
             send_frame(sock, b"HELO" + bytes([flags]) + extra
@@ -1687,12 +2012,21 @@ class AsyncPSWorker:
                     "an open PS port (launch the server with --token)")
             shard_index, num_shards, plan_digest = struct.unpack_from(
                 "<HHQ", reply, 9)
-            if num_shards > 1:
+            if self._expect_shard is None and num_shards > 1:
                 raise ValueError(
                     f"this server is shard {shard_index} of a "
                     f"{num_shards}-shard PS fleet; a plain worker would "
-                    f"push full-tree gradients at a slice owner "
-                    f"({_not_ported('the shard router')})")
+                    f"push full-tree gradients at a slice owner — connect "
+                    f"through shard.ShardRouter (CLI: --connect with all "
+                    f"{num_shards} endpoints)")
+            if (self._expect_shard is not None
+                    and shard_index != self._expect_shard):
+                raise ValueError(
+                    f"endpoint order mismatch: expected fleet shard "
+                    f"{self._expect_shard} at {self.host}:{self.port} but "
+                    f"the server identifies as shard {shard_index} of "
+                    f"{num_shards} — list --connect endpoints in shard "
+                    f"order")
             self.shard_index, self.num_shards = shard_index, num_shards
             self.plan_digest = plan_digest
             (credits,) = _U32.unpack_from(reply, 21)
@@ -1736,6 +2070,9 @@ class AsyncPSWorker:
 
     def _send(self, payload: bytes) -> None:
         self._session.send(payload)
+
+    def _recv(self, deadline: "Deadline | None" = None, *, into=None):
+        return self._session.recv(deadline, into=into)
 
     def _push_grad(self, payload: bytes) -> None:
         """A GRAD frame through the fault plan's wire mangler (which owns

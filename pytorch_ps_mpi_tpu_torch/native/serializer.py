@@ -522,14 +522,10 @@ def encode_segments(tree, *, level: int = 0, meta: dict | None = None):
     return meta_blob, segments
 
 
-def loads(blob, *, with_meta: bool = False):
-    """Inverse of `dumps`; returns the tree with numpy leaves (or
-    ``(tree, user_meta)`` when ``with_meta``).  A tree frame written by the
-    JAX package raises `ForeignTreeFrameError`.
-
-    Leaves are zero-copy views into one decoded arena; ``np.array(leaf)``
-    the pieces you keep long-term if the tree is large.  The metadata is
-    read through the restricted unpickler."""
+def check_tree_frame(blob) -> None:
+    """Refuse, from its magic alone, a blob that is not this package's
+    tree frame: `ForeignTreeFrameError` for the JAX package's, ValueError
+    for anything else."""
     view = memoryview(blob)
     if view.nbytes < 4:
         raise ValueError(
@@ -539,6 +535,18 @@ def loads(blob, *, with_meta: bool = False):
         raise ForeignTreeFrameError(JAX_FRAME_HELP.format(magic=magic))
     if magic != _TREE_MAGIC:
         raise ValueError("bad tree frame magic")
+
+
+def loads(blob, *, with_meta: bool = False):
+    """Inverse of `dumps`; returns the tree with numpy leaves (or
+    ``(tree, user_meta)`` when ``with_meta``).  A tree frame written by the
+    JAX package raises `ForeignTreeFrameError`.
+
+    Leaves are zero-copy views into one decoded arena; ``np.array(leaf)``
+    the pieces you keep long-term if the tree is large.  The metadata is
+    read through the restricted unpickler."""
+    check_tree_frame(blob)
+    view = memoryview(blob)
     if view.nbytes < _TREE_HDR.size:
         raise ValueError(
             f"truncated tree frame: {view.nbytes} bytes < header size")

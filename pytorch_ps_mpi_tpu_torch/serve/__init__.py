@@ -1,7 +1,6 @@
-"""The serve tier on a single PS: the read path of a PS that trains.
+"""The serve tier: the read path of a PS (or a PS fleet) that trains.
 
-Counterpart of `pytorch_ps_mpi_tpu/serve`, but for its fleet reader
-(``FleetSubscriber``, which waits for the sharded fleet):
+Counterpart of `pytorch_ps_mpi_tpu/serve`:
 
 * `subscribe.Subscriber` — a versioned snapshot subscription over the
   ``SUBS``/``DELT`` frames: a full snapshot at a consistent version
@@ -11,6 +10,9 @@ Counterpart of `pytorch_ps_mpi_tpu/serve`, but for its fleet reader
   READ-class end to end (`transport.Session.send_read` and the server's
   per-version read-token budget), so a reader flood sheds reads and
   never stalls gradients;
+* `subscribe.FleetSubscriber` — the same over every shard of a fleet:
+  the plan from shard 0, the full tree assembled from the per-shard
+  slices, per-shard versions;
 * `infer.InferenceFrontend` — a continuous-batching greedy decoder on
   the port's `models.transformer.TransformerLM`: bounded admission with
   a typed `errors.InferShedError` at overload, per-request p50/p95
@@ -19,10 +21,11 @@ Counterpart of `pytorch_ps_mpi_tpu/serve`, but for its fleet reader
 """
 
 from .infer import InferenceFrontend, InferRequest
-from .subscribe import Subscriber
+from .subscribe import FleetSubscriber, Subscriber
 
 __all__ = [
     "Subscriber",
+    "FleetSubscriber",
     "InferenceFrontend",
     "InferRequest",
 ]

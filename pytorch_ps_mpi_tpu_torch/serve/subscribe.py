@@ -1,10 +1,9 @@
 """Versioned snapshot subscription — the serve tier's read client.
 
-Counterpart of `pytorch_ps_mpi_tpu/serve/subscribe.py`'s `Subscriber`
-(its fleet reader, ``FleetSubscriber``, waits for the sharded fleet).
-A `Subscriber` dials a PS as a rank-less READER (HELO flag bit 32) and
-keeps a local, versioned copy of the served parameters over the
-``SUBS``/``DELT`` round trip:
+Counterpart of `pytorch_ps_mpi_tpu/serve/subscribe.py`.  A `Subscriber`
+dials a PS (or, through `FleetSubscriber`, every shard of a fleet) as a
+rank-less READER (HELO flag bit 32) and keeps a local, versioned copy of
+the served parameters over the ``SUBS``/``DELT`` round trip:
 
 * the FIRST read is a full snapshot at a consistent version, served
   from the server's encode-once PARM cache (N subscribers cost one
@@ -38,6 +37,14 @@ with different bytes), so the first read after it is a forced full
 snapshot.  Versions are tracked across the subscription: an observed
 rewind is counted (``version_rewinds``) and the snapshot adopted, or
 raised as `SnapshotRewindError` under ``on_rewind="raise"``.
+
+A fleet's reader, `FleetSubscriber`, holds one `Subscriber` per shard
+(``expect_shard`` pins each link to its slot), fetches the plan from shard
+0 and checks its digest against every link, and assembles the full tree
+from the per-shard slices; its version is the tuple of per-shard versions
+(the fleet has no single one).  A shard's failover (a promoted standby or
+a restored shard on the same port) is a redial of that link: its next
+read is a full snapshot of the slice.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from __future__ import annotations
 import socket
 import struct
 import time
+from collections import OrderedDict
 from typing import Any, Callable
 
 import numpy as np
@@ -86,8 +94,9 @@ class Subscriber:
                 hot_swap(params)                # in-flight work finishes
                                                 # on the old tree
 
-    A sharded server (a fleet shard) is refused: a plain subscriber would
-    cache one shard's slice as the whole model.
+    ``expect_shard`` pins which fleet slot this connection must land on
+    (`FleetSubscriber` sets it); a plain subscriber refuses a sharded
+    server — it would cache one shard's slice as the whole model.
     """
 
     def __init__(self, host: str, port: int, *,
@@ -97,6 +106,7 @@ class Subscriber:
                  backoff_max: float = 1.0,
                  read_backoff: float = 0.5,
                  op_deadline: "float | None" = None,
+                 expect_shard: "int | None" = None,
                  on_rewind: str = "count",
                  nonblock_heal: bool = False):
         if on_rewind not in ("count", "raise"):
@@ -122,6 +132,10 @@ class Subscriber:
         self.read_backoff = float(read_backoff)
         self.op_deadline = op_deadline
         self.on_rewind = on_rewind
+        self._expect_shard = expect_shard
+        self.shard_index = 0
+        self.num_shards = 1
+        self.plan_digest = 0
         # The subscription state: the last decoded (version, params) and
         # the high-water version of the rewind detector.
         self.version: "int | None" = None
@@ -181,14 +195,24 @@ class Subscriber:
                     "this subscriber was given a token but the server "
                     "is not enforcing one — refusing to read from an "
                     "open PS port")
-            shard_index, num_shards = struct.unpack_from("<HH", reply, 9)
-            if num_shards > 1:
+            shard_index, num_shards, plan_digest = struct.unpack_from(
+                "<HHQ", reply, 9)
+            if self._expect_shard is None and num_shards > 1:
                 raise ValueError(
                     f"this server is shard {shard_index} of a "
-                    f"{num_shards}-shard fleet; a plain subscriber would "
-                    f"cache one slice as the whole model — the fleet's "
-                    f"reader (FleetSubscriber) is not ported to the "
-                    f"PyTorch package yet")
+                    f"{num_shards}-shard fleet; a plain subscriber "
+                    f"would cache one slice as the whole model — "
+                    f"subscribe through serve.FleetSubscriber (CLI: "
+                    f"--subscribe with all {num_shards} endpoints)")
+            if (self._expect_shard is not None
+                    and shard_index != self._expect_shard):
+                raise ValueError(
+                    f"endpoint order mismatch: expected fleet shard "
+                    f"{self._expect_shard} at {self.host}:{self.port} "
+                    f"but the server identifies as shard {shard_index} "
+                    f"of {num_shards} — list endpoints in shard order")
+            self.shard_index, self.num_shards = shard_index, num_shards
+            self.plan_digest = plan_digest
         except BaseException:
             sock.close()
             raise
@@ -235,23 +259,23 @@ class Subscriber:
         return self._session.recv(deadline, into=self._recv_arena)
 
     def _fetch_plan(self):
-        """The server's shard plan over the SPLN round trip.  A plain PS
-        serves an empty plan, refused as in the JAX package; a fleet's
-        plan waits for the fleet slice."""
+        """The fleet's authoritative `shard.partition.ShardPlan` over the
+        SPLN round trip (`FleetSubscriber`'s agreement at HELO time, as
+        the router's).  A plain PS serves an empty plan, refused."""
+        from ..shard.partition import ShardPlan
+
         self._session.send(b"SPLN")
         reply = self._recv(Deadline(self.op_deadline))
         if bytes(reply[:4]) != b"SPLN":
             raise ValueError(
                 f"unexpected reply {bytes(reply[:4])!r} to the "
                 f"shard-plan request")
-        if not bytes(reply[4:]):
+        body = bytes(reply[4:])
+        if not body:
             raise ValueError(
                 "the server carries no shard plan — it is a plain "
                 "(unsharded) PS; use a plain Subscriber")
-        raise ValueError(
-            "the server serves a fleet's shard plan; the fleet "
-            "(ShardPlan, FleetSubscriber) is not ported to the PyTorch "
-            "package yet")
+        return ShardPlan.from_json(body)
 
     # -- the subscription round trip ------------------------------------------
 
@@ -402,6 +426,129 @@ class Subscriber:
                 updates += 1
                 if on_update is not None:
                     on_update(version, params)
+            if not self.done:
+                time.sleep(interval)
+        return updates
+
+
+class FleetSubscriber:
+    """One subscription multiplexed across a K-shard PS fleet: the read
+    side of `shard.ShardRouter` — per-shard versions, the plan fetched
+    from shard 0 and checked against every link's digest, and the full
+    tree assembled from per-shard slices (host memory each link owns).
+
+    ``poll()`` returns ``(versions, params, changed)`` where ``versions``
+    is the per-shard version tuple: a reader that reasons about
+    cross-shard skew has the exact tags to do it with.
+    """
+
+    def __init__(self, endpoints, *, token: "str | None" = None, **kw):
+        endpoints = [(h, int(p)) for h, p in endpoints]
+        if not endpoints:
+            raise ValueError("FleetSubscriber needs at least one endpoint")
+        self.endpoints = endpoints
+        self.links: "list[Subscriber]" = []
+        try:
+            h0, p0 = endpoints[0]
+            first = Subscriber(h0, p0, token=token, expect_shard=0, **kw)
+            self.links.append(first)
+            for k, (h, p) in enumerate(endpoints[1:], start=1):
+                self.links.append(Subscriber(h, p, token=token,
+                                             expect_shard=k, **kw))
+            if first.num_shards != len(endpoints):
+                raise ValueError(
+                    f"the fleet has {first.num_shards} shards but "
+                    f"{len(endpoints)} endpoints were given — list "
+                    f"every shard exactly once")
+            self.plan = first._fetch_plan()
+            digest = self.plan.digest()
+            for k, link in enumerate(self.links):
+                if link.plan_digest != digest:
+                    raise ValueError(
+                        f"shard-plan digest mismatch on shard {k}: the "
+                        f"fleet's plan hashes to {digest:#x} but "
+                        f"{endpoints[k][0]}:{endpoints[k][1]} "
+                        f"advertises {link.plan_digest:#x} — the "
+                        f"endpoints mix different fleets")
+        except BaseException:
+            self.close()
+            raise
+        self.num_shards = len(self.links)
+        self._names = list(self.plan.assignment)
+        self._leaves: "dict[str, Any]" = {}
+        self.versions: "list[int | None]" = [None] * self.num_shards
+        self.params: "Any | None" = None
+
+    @property
+    def done(self) -> bool:
+        return all(link.done for link in self.links)
+
+    @property
+    def version(self):
+        """The per-shard version tuple (the fleet has no single version)."""
+        return tuple(self.versions)
+
+    def close(self) -> None:
+        for link in self.links:
+            link.close()
+
+    def fault_snapshot(self) -> "dict[str, int]":
+        snap: "dict[str, int]" = {}
+        for link in self.links:
+            for k, v in link.fault_snapshot().items():
+                snap[k] = snap.get(k, 0) + v
+        return snap
+
+    def poll(self, force: bool = False):
+        """One conditional read per shard; ``changed`` is True when any
+        shard served a fresh slice and the full tree is assembled (a new
+        tree object, the hot-swap trigger)."""
+        changed_any = False
+        for k, link in enumerate(self.links):
+            version, slice_params, changed = link.poll(force=force)
+            if changed and slice_params is not None:
+                self._leaves.update(slice_params)
+                self.versions[k] = version
+                changed_any = True
+        if changed_any and all(n in self._leaves for n in self._names):
+            self.params = OrderedDict(
+                (n, self._leaves[n]) for n in self._names)
+        else:
+            changed_any = False
+        return tuple(self.versions), self.params, changed_any
+
+    def snapshot(self, attempts: int = 100,
+                 wait: float = 0.02) -> "tuple[tuple, Any]":
+        """Bounded-retry full read of every shard's slice."""
+        for _ in range(attempts):
+            versions, params, changed = self.poll(force=True)
+            if params is not None and changed:
+                return versions, params
+            if self.done:
+                break
+            time.sleep(wait)
+        if self.params is not None:
+            return tuple(self.versions), self.params
+        raise FleetDeadError(
+            f"no full fleet snapshot assembled within {attempts} read "
+            f"attempts ({sum(n in self._leaves for n in self._names)}"
+            f"/{len(self._names)} leaves served)")
+
+    def run(self, on_update: "Callable | None" = None, *,
+            interval: float = 0.05,
+            max_polls: "int | None" = None) -> int:
+        """Poll until every shard says DONE (or ``max_polls``), calling
+        ``on_update(versions, params)`` on every assembled advance.
+        Returns the number of updates observed."""
+        updates = 0
+        polls = 0
+        while not self.done and (max_polls is None or polls < max_polls):
+            versions, params, changed = self.poll()
+            polls += 1
+            if changed:
+                updates += 1
+                if on_update is not None:
+                    on_update(versions, params)
             if not self.done:
                 time.sleep(interval)
         return updates

@@ -12,14 +12,20 @@ threads on CUDA streams, quota'd fills, the robust reducers) on the MLP
 and the LM; the multihost roles, ``--serve PORT`` (one PS process,
 `multihost_async.AsyncPSServer`; ``serving on port N`` on stdout; the
 serve tier's ``--read-window`` and ``--delta-parm``) and ``--connect
-HOST:PORT`` (a worker process, `AsyncPSWorker`); and the reader role,
-``--subscribe HOST:PORT`` (a `serve.Subscriber`; ``subscribed at version
-N`` on stdout), with ``--infer-serve`` driving the continuous-batching
-`serve.InferenceFrontend` on the subscription.  It takes the JAX CLI's
-flags and prints its lines; the roles and flags not ported yet
-(``--sp/--tp/--pp/--ep > 1``, and on the multihost and reader roles
-``--shards``, several endpoints, ``--aggregators``, ``--fallback`` and
-the replication flags) are refused by name.  A
+HOST:PORT`` (a worker process, `AsyncPSWorker`); the sharded fleet,
+``--serve PORT --shards K`` (`shard.PSFleet`, shard k on PORT+k;
+``serving on ports ...`` on stdout; ``--partition-rules``, hot standbys
+``--replicas 1``, coordinated snapshots ``--snapshot-every N`` with the
+``ckpt.fleet.json`` manifest ``--resume`` verifies) and its workers,
+``--connect`` with every shard's endpoint (or one with ``--shards K``:
+a `shard.ShardRouter`); and the reader role, ``--subscribe HOST:PORT``
+(a `serve.Subscriber`, or a `serve.FleetSubscriber` over a fleet's
+endpoints; ``subscribed at version N`` on stdout), with ``--infer-serve``
+driving the continuous-batching `serve.InferenceFrontend` on the
+subscription.  It takes the JAX CLI's flags and prints its lines; the
+roles and flags not ported yet (``--sp/--tp/--pp/--ep > 1``, and on the
+multihost roles the hierarchy's ``--aggregators`` and ``--fallback``) are
+refused by name.  A
 ``--connect`` worker streams its gradients in buckets under
 ``--async-bucket-bytes N`` (0: auto), encoded inside backward under
 ``--fused-encode``; ``--moe-experts E`` gives the LM dense MoE MLPs on
@@ -51,6 +57,10 @@ Examples::
         --serve 0 --wire-codec bf16 --delta-parm --steps 50
     python -m pytorch_ps_mpi_tpu_torch.train --model transformer --bf16 \\
         --subscribe 127.0.0.1:PORT --infer-serve --steps 32
+    python -m pytorch_ps_mpi_tpu_torch.train --model mlp --serve 0 \\
+        --shards 2 --replicas 1 --snapshot-every 5 --save ckpt.psz
+    python -m pytorch_ps_mpi_tpu_torch.train --model mlp \\
+        --connect 127.0.0.1:P0,127.0.0.1:P1
 """
 
 from __future__ import annotations
@@ -662,21 +672,12 @@ def _unported(args) -> "str | None":
             return f"--{flag} {getattr(args, flag)}"
     if args.serve is None and not args.connect and not args.subscribe:
         return None
-    # On the multihost and reader roles: the fleet, standby and hierarchy
-    # flags.
+    # On the multihost and reader roles: the hierarchy's flags.
     for flag, given in (
-            ("--shards", args.shards > 1),
-            ("--partition-rules", args.partition_rules is not None),
-            ("--replicas", bool(args.replicas)),
-            ("--snapshot-every", bool(args.snapshot_every)),
             ("--aggregators", bool(args.aggregators)),
             ("--fallback", bool(args.fallback))):
         if given:
             return flag
-    for role, value in (("--connect", args.connect),
-                        ("--subscribe", args.subscribe)):
-        if value and "," in value:
-            return f"{role} with several endpoints (a shard fleet)"
     return None
 
 
@@ -685,10 +686,10 @@ def _dispatch(args):
     if what is not None:
         raise SystemExit(f"{what} is not ported to the PyTorch package yet "
                          f"(the sync trainer, the in-process async PS and "
-                         f"the single-PS multihost roles with the bucket "
-                         f"stream and the serve tier are, with the dense "
-                         f"MoE LM; the fleet, the hierarchy and the "
-                         f"sp/tp/pp/ep roles follow)")
+                         f"the multihost roles with the bucket stream, the "
+                         f"serve tier and the sharded fleet are, with the "
+                         f"dense MoE LM; the hierarchy and the sp/tp/pp/ep "
+                         f"roles follow)")
     # Refuse, don't drop: every flag below would be inert on the role that
     # runs (the JAX CLI's refusals and messages, in its order).
     on_async = args.async_ps or args.serve is not None or bool(args.connect)
@@ -809,35 +810,43 @@ def _dispatch(args):
                          "(one process is either the PS or a worker)")
     if args.shards < 1:
         raise SystemExit(f"--shards must be >= 1, got {args.shards}")
-    if args.shards > 1:
+    if args.shards > 1 and args.serve is None and not args.connect:
         raise SystemExit("--shards is the sharded PS FLEET degree: it "
                          "applies to the multihost roles (--serve runs K "
                          "shards, --connect routes across them); the "
                          "sync and --async-ps paths have no server to "
                          "shard")
-    if args.partition_rules is not None:
+    if args.partition_rules is not None and (args.serve is None
+                                             or args.shards < 2):
         raise SystemExit("--partition-rules is PS-side and sharded-only "
                          "(--serve --shards K with K >= 2): workers "
                          "fetch the resulting plan from shard 0 at "
                          "connect time, and a single PS has nothing to "
                          "partition — anywhere else the flag would be "
                          "silently inert, which is worse than refusing")
+    on_fleet_ps = args.serve is not None and args.shards > 1
     if args.replicas:
         if args.replicas != 1:
             raise SystemExit(f"--replicas supports 0 or 1 (one hot "
                              f"standby per shard), got {args.replicas}")
-        raise SystemExit("--replicas is the PS FLEET's hot-standby "
-                         "degree (--serve --shards K): only the "
-                         "fleet supervisor can promote a standby — "
-                         "anywhere else the flag would be silently "
-                         "inert, which is worse than refusing")
+        if not on_fleet_ps:
+            raise SystemExit("--replicas is the PS FLEET's hot-standby "
+                             "degree (--serve --shards K): only the "
+                             "fleet supervisor can promote a standby — "
+                             "anywhere else the flag would be silently "
+                             "inert, which is worse than refusing")
     if args.snapshot_every:
-        raise SystemExit("--snapshot-every is the PS FLEET's "
-                         "coordinated-snapshot cadence (--serve "
-                         "--shards K): a single PS's auto-checkpoint "
-                         "IS its consistent cut (--checkpoint-every) "
-                         "— anywhere else the flag would be silently "
-                         "inert, which is worse than refusing")
+        if not on_fleet_ps:
+            raise SystemExit("--snapshot-every is the PS FLEET's "
+                             "coordinated-snapshot cadence (--serve "
+                             "--shards K): a single PS's auto-checkpoint "
+                             "IS its consistent cut (--checkpoint-every) "
+                             "— anywhere else the flag would be silently "
+                             "inert, which is worse than refusing")
+        if not args.save:
+            raise SystemExit("--snapshot-every needs --save PATH for the "
+                             "per-shard cut checkpoints and the "
+                             "ckpt.fleet.json manifest")
     if args.aggregators:
         if args.aggregators < 1:
             raise SystemExit(
@@ -892,14 +901,23 @@ def _dispatch(args):
             raise SystemExit("--latency-weighting is PS-side: set it on "
                              "the --serve process")
     if plan is not None and on_async:
-        # Faults that name a fleet shard, a fleet worker's link or a
-        # hierarchy's aggregator would be silently dead on these roles.
-        if plan.kill_shard_at:
+        # kill_shard_at names a fleet shard, partition_links a fleet
+        # worker's link and the aggregator faults a hierarchy's
+        # aggregator: on any other role they would be silently dead; and
+        # kill_ps_at on a fleet names no shard.
+        if plan.kill_shard_at and not on_fleet_ps:
             raise SystemExit("--chaos kill_shard_at applies to the "
                              "sharded PS fleet (--serve --shards K); on "
                              "this role it would be silently inert — "
                              "use kill_ps_at for a single PS")
-        if plan.partition_links:
+        if plan.kill_ps_at is not None and on_fleet_ps:
+            raise SystemExit("--chaos kill_ps_at is ambiguous for a "
+                             "sharded fleet (which shard?) and would be "
+                             "silently dropped — use kill_shard_at="
+                             "{shard: update}")
+        on_router = bool(args.connect) and (args.shards > 1
+                                            or "," in args.connect)
+        if plan.partition_links and not on_router:
             raise SystemExit("--chaos partition_links names (worker, "
                              "shard) links of a FLEET worker (--connect "
                              "through the shard router); on this role "
@@ -964,13 +982,6 @@ def _dispatch(args):
                              "no transport ops — the flag would be "
                              "silently inert, which is worse than "
                              "refusing")
-        if args.serve is not None:
-            raise SystemExit("--op-deadline on --serve budgets the PS's "
-                             "own replication ops (--replicas), which are "
-                             "not ported to the PyTorch package yet; the "
-                             "flag would be silently inert, which is "
-                             "worse than refusing (a --connect worker "
-                             "takes it)")
     if args.async_bucket_bytes is not None:
         if args.async_bucket_bytes < 0:
             raise SystemExit(f"--async-bucket-bytes must be >= 0 "
@@ -985,6 +996,12 @@ def _dispatch(args):
                              "arrays, not frames — anywhere else the "
                              "flag would be silently inert, which is "
                              "worse than refusing")
+        if args.shards > 1 or "," in args.connect:
+            raise SystemExit("--async-bucket-bytes does not compose "
+                             "with the shard router (--connect to a "
+                             "fleet) yet — the router already splits "
+                             "every gradient per shard slice; drop one "
+                             "of the flags")
     if args.fused_encode and args.async_bucket_bytes is None:
         raise SystemExit("--fused-encode fuses the PER-BUCKET encode "
                          "into the grad program — it needs "
@@ -1609,6 +1626,8 @@ def run_multihost(args, plan=None):
         batch_fn = dataset_batch_fn(x, y, args.batch_size, seed=args.seed)
     device = _multihost_device(args)
 
+    if args.serve is not None and args.shards > 1:
+        return _run_fleet(args, params, loss_fn, plan, device)
     if args.serve is not None:
         srv = AsyncPSServer(list(params.items()), optim=args.optim,
                             code=args.codec, quota=args.quota or 1,
@@ -1624,6 +1643,7 @@ def run_multihost(args, plan=None):
                             adaptive_deadline=args.adaptive_deadline,
                             latency_weighting=args.latency_weighting,
                             credit_window=args.credit_window,
+                            op_deadline=args.op_deadline,
                             read_window=args.read_window,
                             wire_codec=args.wire_codec,
                             delta_parm=args.delta_parm,
@@ -1672,14 +1692,15 @@ def run_multihost(args, plan=None):
             srv.print_summary()
         return srv
 
-    host, _, port = args.connect.rpartition(":")
-    if not host or not port.isdigit():
-        raise SystemExit(f"--connect wants HOST:PORT (comma-separated "
-                         f"for a shard fleet), got {args.connect!r}")
+    endpoints = _endpoints(args.connect, "--connect", args.shards)
+    if len(endpoints) > 1:
+        return _run_shard_worker(args, endpoints, loss_fn, batch_fn, plan,
+                                 device)
+    (host, port), = endpoints
     # backoff_max=2.0 (the library's is 1.0): CLI workers face real PS
     # relaunches (interpreter start, CUDA init, model build), so the
     # retry budget must stretch over tens of seconds.
-    worker = AsyncPSWorker(host, int(port), code=args.codec,
+    worker = AsyncPSWorker(host, port, code=args.codec,
                            device=device, token=args.token,
                            fault_plan=plan,
                            reconnect_retries=args.reconnect_retries,
@@ -1708,26 +1729,141 @@ def run_multihost(args, plan=None):
     return worker
 
 
-def run_subscribe(args):
-    """--subscribe: the serve-tier READER role — a versioned snapshot
-    subscription against a live PS, optionally driving the
-    continuous-batching inference front-end (--infer-serve) on the card,
-    or on the CPU under ``--force-cpu-devices``."""
-    from .serve import InferenceFrontend, Subscriber
+def _endpoints(spec: str, flag: str, shards: int) -> "list[tuple[str, int]]":
+    """``HOST:PORT[,HOST:PORT...]`` as endpoints; one endpoint with
+    ``--shards K`` expands to the fleet's ports PORT..PORT+K-1."""
+    endpoints = []
+    for part in spec.split(","):
+        host, _, port = part.rpartition(":")
+        if not host or not port.isdigit():
+            raise SystemExit(f"{flag} wants HOST:PORT (comma-separated "
+                             f"for a shard fleet), got {spec!r}")
+        endpoints.append((host, int(port)))
+    if shards > 1 and len(endpoints) == 1:
+        host, port = endpoints[0]
+        endpoints = [(host, port + k) for k in range(shards)]
+    return endpoints
+
+
+def _run_fleet(args, params, loss_fn, plan, device):
+    """--serve --shards K: the sharded PS fleet (`shard.PSFleet`), K
+    `AsyncPSServer` shards on serve threads of this process, shard k on
+    port PORT+k (all ephemeral when PORT=0), supervised: a shard killed by
+    the chaos plan is promoted from its hot standby (``--replicas 1``) or
+    restored from its own auto-checkpoint.  The parameters go to the fleet
+    in the JAX package's tree order (`utils.interop.jax_tree_order`), so
+    its plan splits them as the JAX CLI's does."""
+    import json as _json
+
+    from .shard import PSFleet
+    from .utils.interop import jax_tree_order
     from .utils.timing import format_fault_stats
 
-    host, _, port = args.subscribe.rpartition(":")
-    if not host or not port.isdigit():
-        raise SystemExit(f"--subscribe wants HOST:PORT (comma-"
-                         f"separated for a shard fleet), got "
-                         f"{args.subscribe!r}")
+    rules = None
+    if args.partition_rules:
+        try:
+            rules = _json.loads(args.partition_rules)
+        except ValueError as exc:
+            raise SystemExit(
+                f"--partition-rules is not valid JSON: {exc}")
+    fleet = PSFleet(list(jax_tree_order(params).items()),
+                    num_shards=args.shards,
+                    quota=args.quota or 1, host="0.0.0.0",
+                    ports=args.serve, rules=rules,
+                    replicas=args.replicas, device=device,
+                    optim=args.optim, code=args.codec, token=args.token,
+                    staleness_weighting=args.staleness_weighting,
+                    max_staleness=args.max_staleness,
+                    skip_nonfinite=args.skip_nonfinite,
+                    aggregate=args.aggregate, trim_k=args.trim_k,
+                    quorum=args.quorum,
+                    fill_deadline=_resolve_fill_deadline(args),
+                    anomaly_z=args.anomaly_z,
+                    adaptive_deadline=args.adaptive_deadline,
+                    latency_weighting=args.latency_weighting,
+                    credit_window=args.credit_window,
+                    op_deadline=args.op_deadline,
+                    read_window=args.read_window,
+                    wire_codec=args.wire_codec,
+                    delta_parm=args.delta_parm,
+                    fault_plan=plan, **hyper_from_args(args))
+    try:
+        fleet.compile_step(loss_fn)
+        if args.resume:
+            starts = fleet.resume_from(args.resume)
+            print(f"resumed fleet shards at steps {starts}",
+                  file=sys.stderr)
+        # Machine-parseable on stdout, the fleet's "serving on port N":
+        # shard k's port at position k.
+        print("serving on ports "
+              + " ".join(str(p) for _, p in fleet.addresses), flush=True)
+        t0 = time.perf_counter()
+        hist = fleet.serve(steps=args.steps, log_every=10,
+                           checkpoint_path=args.save,
+                           checkpoint_every=args.checkpoint_every,
+                           snapshot_every=args.snapshot_every)
+        wall = time.perf_counter() - t0
+        print(f"done: {hist['updates_total']} shard-updates across "
+              f"{args.shards} shards ({hist['updates_total'] / wall:.1f} "
+              f"aggregate updates/sec), {hist['grads_consumed']} grad "
+              f"slices", file=sys.stderr)
+        rendered = format_fault_stats(hist["fault_stats"])
+        if rendered != "clean":
+            print("fault stats: " + rendered, file=sys.stderr)
+        if args.save:
+            fleet.save_checkpoint(args.save, args.steps)
+            print(f"checkpoint -> {args.save} (per-shard siblings, step "
+                  f"{args.steps})", file=sys.stderr)
+    finally:
+        fleet.close()
+    return fleet
+
+
+def _run_shard_worker(args, endpoints, loss_fn, batch_fn, plan, device):
+    """--connect with a K-shard fleet: one `shard.ShardRouter`, a single
+    fleet-wide rank, one gradient a step, per-shard GRAD slices with
+    per-shard versions."""
+    from .shard import ShardRouter
+
+    router = ShardRouter(endpoints, code=args.codec, device=device,
+                         token=args.token, fault_plan=plan,
+                         reconnect_retries=args.reconnect_retries,
+                         op_deadline=args.op_deadline,
+                         credit_cap=args.credit_window or None,
+                         backoff_max=2.0)
+    print(f"worker rank {router.rank} connected to "
+          f"{len(endpoints)}-shard fleet at {endpoints[0][0]}",
+          file=sys.stderr)
+    pushed = router.run(loss_fn, batch_fn)
+    if router.reconnects:
+        print(f"worker rank {router.rank}: {router.reconnects} "
+              f"reconnect(s) to the fleet", file=sys.stderr)
+    print(f"worker rank {router.rank} done: {pushed} gradients pushed",
+          file=sys.stderr)
+    return router
+
+
+def run_subscribe(args):
+    """--subscribe: the serve-tier READER role — a versioned snapshot
+    subscription against a live PS (or fleet), optionally driving the
+    continuous-batching inference front-end (--infer-serve) on the card,
+    or on the CPU under ``--force-cpu-devices``."""
+    from .serve import FleetSubscriber, InferenceFrontend, Subscriber
+    from .utils.timing import format_fault_stats
+
+    endpoints = _endpoints(args.subscribe, "--subscribe", args.shards)
     # The inference engine keeps its per-step latency bound while the PS
     # is down: the swap poll gets one bounded dial probe per backoff
     # window, never the full redial ladder inside the decode loop.
-    sub = Subscriber(host, int(port), token=args.token,
-                     reconnect_retries=args.reconnect_retries,
-                     op_deadline=args.op_deadline, backoff_max=2.0,
-                     nonblock_heal=args.infer_serve)
+    sub_kw = dict(token=args.token,
+                  reconnect_retries=args.reconnect_retries,
+                  op_deadline=args.op_deadline, backoff_max=2.0,
+                  nonblock_heal=args.infer_serve)
+    if len(endpoints) > 1:
+        sub = FleetSubscriber(endpoints, **sub_kw)
+    else:
+        (host, port), = endpoints
+        sub = Subscriber(host, port, **sub_kw)
     version, params = sub.snapshot()
     # Machine-parseable on stdout (like "serving on port N").
     print(f"subscribed at version {version}", flush=True)

@@ -25,6 +25,7 @@ rank calls `dump_optimizer_bytes` (or `save_optimizer` with
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import pickle
@@ -109,6 +110,18 @@ def load(path: str | os.PathLike, *, with_meta: bool = False):
         blob = f.read()
     return loads_tree(blob, with_meta=with_meta,
                       source=repr(os.fspath(path)))
+
+
+def file_digest(path: str | os.PathLike) -> str:
+    """sha256 hex digest of a file's bytes: what a fleet manifest records
+    per shard checkpoint, so a resume restores exactly the slices the
+    coordinated snapshot cut (a swapped, tampered or re-written sibling
+    fails the comparison)."""
+    h = hashlib.sha256()
+    with open(os.fspath(path), "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -202,25 +215,41 @@ def _to_numpy(tree):
                     if isinstance(leaf, torch.Tensor) else leaf, tree)
 
 
-def dump_optimizer_bytes(opt, *, step: int | None = None,
-                         extra: dict | None = None, level: int = 1,
-                         raw_shards: bool = False) -> bytes:
-    """Serialize a PS optimizer checkpoint to bytes: every array-bearing
-    entry of ``opt.state_dict()`` as payload, the rest (optim, hyper,
-    topology) with ``step`` and the user's ``extra`` as metadata.
+def optimizer_payload(opt, *, step: int | None = None,
+                      extra: dict | None = None, raw_shards: bool = False,
+                      wire_encode=None) -> "tuple[dict, dict]":
+    """``(arrays, meta)`` of a PS optimizer checkpoint: every array-bearing
+    entry of ``opt.state_dict()`` as host numpy, the rest (optim, hyper,
+    topology) with ``step`` and the user's ``extra`` as metadata — what
+    `dump_optimizer_bytes` serializes, and what the hot-standby
+    replication stream (``REPL`` frames) sends as segments.
 
     ``raw_shards=True`` keeps ZeRO state in its live ``(world, chunk)``
-    rows (readable by this package only).  Collective: every rank of the
-    optimizer's group must call it."""
+    rows (readable by this package only).  ``wire_encode`` (replication
+    only): a tree -> tree transform of the array payload, the server's
+    wire codec (`ops.codecs.encode_wire_tree`); the metadata stays exact
+    and the receiver applies `ops.codecs.decode_wire_tree` before
+    `apply_optimizer`.  Files on disk never take it.  Collective: every
+    rank of the optimizer's group must call it."""
     sd = opt.state_dict(raw_shards=True) if raw_shards else opt.state_dict()
     # Partition by content, not by a key list, so a future array-bearing
     # state_dict entry routes itself into the payload.
     arrays = {k: _to_numpy(sd.pop(k)) for k in list(sd)
               if any(_is_array(x) for x in tree_leaves(sd[k]))}
-    return serializer.dumps(arrays, level=level,
-                            meta={"format_version": FORMAT_VERSION,
-                                  "state_dict_meta": sd, "step": step,
-                                  "extra": extra})
+    if wire_encode is not None:
+        arrays = wire_encode(arrays)
+    return arrays, {"format_version": FORMAT_VERSION,
+                    "state_dict_meta": sd, "step": step, "extra": extra}
+
+
+def dump_optimizer_bytes(opt, *, step: int | None = None,
+                         extra: dict | None = None, level: int = 1,
+                         raw_shards: bool = False) -> bytes:
+    """Serialize a PS optimizer checkpoint (`optimizer_payload`) to
+    bytes."""
+    arrays, meta = optimizer_payload(opt, step=step, extra=extra,
+                                     raw_shards=raw_shards)
+    return serializer.dumps(arrays, level=level, meta=meta)
 
 
 def save_optimizer(path: str | os.PathLike, opt, *, step: int | None = None,

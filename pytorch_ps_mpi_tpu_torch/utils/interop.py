@@ -65,6 +65,29 @@ def _flax_name(torch_name: str, kind: str) -> str:
     return SEP.join([*path, flax_leaf])
 
 
+def flax_name(name: str, shape) -> str:
+    """The flax name of the port's leaf ``name`` of ``shape``: a
+    ``weight`` is a flax ``scale`` when 1-D, an ``embedding`` in a module
+    named ``*embed``, a ``kernel`` otherwise — the repo models' rule."""
+    module = name.rsplit(".", 2)[-2] if "." in name else name
+    kind = ("scale" if len(shape) == 1 else
+            "embedding" if module.endswith("embed") else "kernel")
+    return _flax_name(name, kind)
+
+
+def jax_tree_order(named) -> "OrderedDict":
+    """``named`` (the port's name -> tensor) in the order the JAX package
+    gives the same model's leaves: a flax-tree model's (``.``-separated
+    module names) sorted by flax name, as JAX flattens a flax dict; a
+    plain dict's (the MLP's) kept as it is.  A fleet's plan hashes its
+    names in this order."""
+    items = list(named.items())
+    if not items or not all("." in n for n, _ in items):
+        return OrderedDict(items)
+    return OrderedDict(sorted(
+        items, key=lambda kv: flax_name(kv[0], tuple(kv[1].shape))))
+
+
 def _to_torch_layout(name: str, a: np.ndarray) -> np.ndarray:
     if name.endswith(f"{SEP}kernel"):
         if a.ndim == 4:
@@ -194,15 +217,8 @@ def state_from_jax(sd: dict) -> dict:
 def state_to_jax(sd: dict) -> dict:
     """The port's ``MPI_PS.state_dict()`` of a flax-tree model as the JAX
     package's (the inverse of `state_from_jax`); the BatchNorm statistics
-    become flax's nested ``batch_stats`` tree.  A ``weight`` is a flax
-    ``scale`` when 1-D, an ``embedding`` in a module named ``*embed``, a
-    ``kernel`` otherwise — the repo models' rule."""
-    names = {}
-    for n, a in sd["params"].items():
-        module = n.rsplit(".", 2)[-2] if "." in n else n
-        kind = ("scale" if np.ndim(a) == 1 else
-                "embedding" if module.endswith("embed") else "kernel")
-        names[n] = _flax_name(n, kind)
+    become flax's nested ``batch_stats`` tree; names map by `flax_name`."""
+    names = {n: flax_name(n, np.shape(a)) for n, a in sd["params"].items()}
     orders = {n: jax_order(n, np.shape(a)) for n, a in sd["params"].items()}
     out = _map_state(sd, names, orders)
     aux: dict = {}

@@ -56,6 +56,21 @@ def test_import_pulls_in_no_jax():
     assert out.stdout.startswith("ok")
 
 
+def test_the_checks_cover_the_fleet_modules():
+    """The import walk and the source scan reach the sharded fleet's
+    modules (``shard/partition.py`` imports no JAX in the JAX package
+    either, but the port keeps its own copy)."""
+    import pkgutil
+
+    files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert {"shard/__init__.py", "shard/partition.py", "shard/router.py",
+            "shard/fleet.py"} <= files
+    walked = {m.name for m in pkgutil.walk_packages(port.__path__,
+                                                     port.__name__ + ".")}
+    assert {f"pytorch_ps_mpi_tpu_torch.shard.{m}"
+            for m in ("partition", "router", "fleet")} <= walked
+
+
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
@@ -101,9 +116,10 @@ def test_the_serve_modules_are_among_the_checked_sources():
             "serve/infer.py"} <= names
     from pytorch_ps_mpi_tpu_torch import serve
 
-    assert serve.__all__ == ["Subscriber", "InferenceFrontend",
-                             "InferRequest"]
-    assert not hasattr(serve, "FleetSubscriber")
+    # The fleet's reader came with the fleet.
+    assert serve.__all__ == ["Subscriber", "FleetSubscriber",
+                             "InferenceFrontend", "InferRequest"]
+    assert hasattr(serve, "FleetSubscriber")
     if not torch.cuda.is_available():
         from pytorch_ps_mpi_tpu_torch.models import TransformerLM, build_lm
 

@@ -590,11 +590,10 @@ def test_jax_framed_grad_is_quarantined_and_the_server_serves_on():
 # Frames of the slices not ported yet: refused by name
 # ---------------------------------------------------------------------------
 
+# The hierarchy's frame: the fleet's REPL, SNAP and PROM are answered
+# (tests/test_torch_failover.py).
 REFUSED = [
     ("AGGR", b"AGGR" + bytes(40), "AGGR frames (hierarchical aggregation)"),
-    ("REPL", b"REPL" + bytes(9), "REPL frames (hot-standby replication)"),
-    ("SNAP", b"SNAP" + bytes(8), "SNAP frames (coordinated fleet"),
-    ("PROM", b"PROM" + bytes(8), "PROM frames (standby promotion)"),
 ]
 
 
@@ -715,13 +714,12 @@ def test_lockstep_wire_equals_the_in_process_async_ps(code, updates):
                                       err_msg=n)
 
 
-# The JAX server's and worker's counters of slices not ported yet
-# (replication, fleet snapshots, the hierarchy): the port does not carry
-# counters that nothing of it can move.  The worker's are all ported (the
-# bucket stream's ``buckets_sent`` and ``fused_encodes`` with it).
-_UNPORTED_SERVER_KEYS = {"repl_sent", "repl_received", "repl_refused",
-                         "repl_lag", "snapshot_barriers", "agg_frames",
-                         "direct_fallbacks"}
+# The JAX server's and worker's counters of the slice not ported yet (the
+# hierarchy): the port does not carry counters that nothing of it can
+# move.  The worker's are all ported (the bucket stream's
+# ``buckets_sent`` and ``fused_encodes`` with it), and the fleet's
+# replication and snapshot counters are.
+_UNPORTED_SERVER_KEYS = {"agg_frames", "direct_fallbacks"}
 _UNPORTED_WORKER_KEYS: set = set()
 
 

@@ -154,18 +154,12 @@ def test_save_checkpoint_every_then_resume_continues_the_version(tmp_path):
     assert extra["next_rank"] >= 2  # the rank allocation carried over
 
 
+# The hierarchy's flags (the fleet's are ported:
+# tests/test_torch_shard.py and tests/test_torch_failover.py).
 STILL_UNPORTED = [
-    (["--serve", "0", "--shards", "2"], "--shards"),
-    (["--serve", "0", "--partition-rules", "[]"], "--partition-rules"),
-    (["--serve", "0", "--replicas", "1"], "--replicas"),
-    (["--serve", "0", "--snapshot-every", "2"], "--snapshot-every"),
     (["--serve", "0", "--aggregators", "2"], "--aggregators"),
     (["--connect", "h:1", "--fallback", "h:2"], "--fallback"),
-    (["--connect", "h:1,h:2"],
-     "--connect with several endpoints (a shard fleet)"),
-    (["--subscribe", "h:1,h:2"],
-     "--subscribe with several endpoints (a shard fleet)"),
-    (["--subscribe", "h:1", "--shards", "2"], "--shards"),
+    (["--subscribe", "h:1", "--fallback", "h:2"], "--fallback"),
 ]
 
 
@@ -179,13 +173,20 @@ def test_unported_multihost_flags_are_refused_by_name(argv, flag):
 
 
 def test_op_deadline_is_refused_on_serve_and_taken_on_connect():
-    """The PS spends ``--op-deadline`` only on replication, which is not
-    ported: refused, not dropped.  A worker's pulls run under it."""
-    with pytest.raises(SystemExit) as e:
-        ttrain.main(["--serve", "0", "--op-deadline", "1.0", "--steps", "1"]
-                    + CPU)
-    assert str(e.value).startswith("--op-deadline on --serve")
-    assert "silently inert" in str(e.value)
+    """The PS spends ``--op-deadline`` on its REPL round trips (replication
+    is ported): a non-positive budget is refused on ``--serve`` with the
+    JAX CLI's message, a positive one taken by the server, as a worker's
+    pulls run under it."""
+    msgs = []
+    for run in (lambda a: jtrain.main(a + ["--n-devices", "1"]),
+                lambda a: ttrain.main(a + CPU)):
+        with pytest.raises(SystemExit) as e:
+            run(["--serve", "0", "--op-deadline", "0", "--steps", "1"])
+        msgs.append(str(e.value))
+    assert msgs[1] == msgs[0] == "--op-deadline must be > 0, got 0.0"
+    srv = ttrain.main(["--serve", "0", "--op-deadline", "1.0", "--steps",
+                       "0"] + CPU)
+    assert srv.op_deadline == 1.0
     # A worker takes the flag: it gets past every refusal to the dial,
     # here at a bound port that does not listen.
     with socket.socket() as closed:

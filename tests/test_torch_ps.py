@@ -240,14 +240,9 @@ def test_exports_cover_the_jax_package():
     import pytorch_ps_mpi_tpu_torch as port
 
     waiting = {
-        "PSFleet": "the fleet", "ShardPlan": "the fleet",
-        "ShardRouter": "the fleet", "build_shard_plan": "the fleet",
-        "match_partition_rules": "the fleet",
-        "ShardDeadError": "the fleet",
         "AggregatorDeadError": "the hierarchy",
         "make_ps_mesh": "the multi-rank LM paths (meshes)",
         "TorchUnavailableError": "none: the port is the torch package",
-        "FleetSubscriber": "the fleet",
     }
     for name in jpkg.__all__:
         if name in waiting:

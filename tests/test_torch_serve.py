@@ -54,7 +54,8 @@ from pytorch_ps_mpi_tpu_torch.errors import (FleetDeadError,
 from pytorch_ps_mpi_tpu_torch.models import init_mlp, mlp_loss_fn
 from pytorch_ps_mpi_tpu_torch.native import serializer as tser
 from pytorch_ps_mpi_tpu_torch.ops import codecs as tcodecs
-from pytorch_ps_mpi_tpu_torch.serve import Subscriber
+from pytorch_ps_mpi_tpu_torch.serve import FleetSubscriber, Subscriber
+from pytorch_ps_mpi_tpu_torch.utils.faults import FaultPlan
 from pytorch_ps_mpi_tpu_torch.transport import (Deadline, frame_header,
                                                 recv_exact)
 from pytorch_ps_mpi_tpu_torch.utils.timing import format_fault_stats
@@ -195,10 +196,10 @@ def test_delt_constants_equal_jax():
     assert ttransport.READ_FRAME_KINDS == jtransport.READ_FRAME_KINDS \
         == frozenset((b"SUBS",))
     assert not ttransport.READ_FRAME_KINDS & ttransport.DATA_FRAME_KINDS
-    # The serve tier's frame and HELO flag are answered, the slices still
-    # to come stay refused.
+    # The serve tier's frame and HELO flag are answered, the slice still
+    # to come (the hierarchy) stays refused.
     assert b"SUBS" not in tma._REFUSED_FRAMES
-    assert set(tma._REFUSED_FRAMES) == {b"REPL", b"PROM", b"SNAP", b"AGGR"}
+    assert set(tma._REFUSED_FRAMES) == {b"AGGR"}
     assert set(tma._REFUSED_HELO_FLAGS) == {8, 16}
 
 
@@ -995,18 +996,24 @@ def test_cli_serve_tier_refusals_match_jax(argv):
 
 
 def test_cli_refuses_the_fleet_forms_and_inert_flash():
-    for argv, start in (
-            (["--subscribe", "h:1,h:2"],
-             "--subscribe with several endpoints (a shard fleet) is not "
-             "ported"),
-            (["--subscribe", "h:1", "--shards", "2"],
-             "--shards is not ported"),
-            (["--model", "transformer", "--subscribe", "h:1",
-              "--infer-serve", "--attn", "flash"],
-             "--attn flash on --subscribe would be silently inert")):
-        with pytest.raises(SystemExit) as e:
-            ttrain.main(argv + ["--steps", "1"] + CPU)
-        assert str(e.value).startswith(start), str(e.value)
+    """The fleet forms of ``--subscribe`` (several endpoints, or one with
+    ``--shards K``) are ported: they dial every shard (here bound ports
+    that do not listen); ``--attn flash`` on a reader stays refused."""
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(["--model", "transformer", "--subscribe", "h:1",
+                     "--infer-serve", "--attn", "flash", "--steps", "1"]
+                    + CPU)
+    assert str(e.value).startswith(
+        "--attn flash on --subscribe would be silently inert")
+    with socket.socket() as a, socket.socket() as b:
+        a.bind(("127.0.0.1", 0))
+        b.bind(("127.0.0.1", 0))
+        pa, pb = a.getsockname()[1], b.getsockname()[1]
+        for argv in (["--subscribe", f"127.0.0.1:{pa},127.0.0.1:{pb}"],
+                     ["--subscribe", f"127.0.0.1:{pa}", "--shards", "2"]):
+            with pytest.raises(ConnectionRefusedError):
+                ttrain.main(argv + ["--steps", "1", "--reconnect-retries",
+                                    "0"] + CPU)
 
 
 def test_cli_serve_connect_and_infer_reader(tmp_path):
@@ -1070,3 +1077,149 @@ def test_cli_serve_connect_and_infer_reader(tmp_path):
     assert re.search(r"^done: 12 updates", serr, re.M), serr
     assert "reads_served=" in serr
     assert "worker rank 0 done:" in werr
+
+
+# ---------------------------------------------------------------------------
+# The fleet's reader (tests/test_serve.py:372, 389, 412)
+# ---------------------------------------------------------------------------
+
+def _port_fleet(**kw):
+    from pytorch_ps_mpi_tpu_torch.shard import PSFleet
+
+    fleet = PSFleet(list(_params().items()), num_shards=2, quota=1, lr=0.05,
+                    momentum=0.5, device="cpu", **kw)
+    fleet.compile_step(mlp_loss_fn)
+    return fleet
+
+
+def test_plain_subscriber_refuses_fleet_shard():
+    fleet = _port_fleet()
+    try:
+        for srv in fleet.servers:
+            _accepting(srv)
+        with pytest.raises(ValueError, match="FleetSubscriber"):
+            Subscriber("127.0.0.1", fleet.addresses[0][1])
+        with pytest.raises(ValueError, match="endpoint order mismatch"):
+            FleetSubscriber(list(reversed(fleet.addresses)))
+        with pytest.raises(ValueError, match="every shard exactly once"):
+            FleetSubscriber(fleet.addresses[:1])
+    finally:
+        fleet.close()
+
+
+@pytest.mark.parametrize("wire_codec", CODECS)
+def test_fleet_subscriber_assembles_full_tree(wire_codec):
+    """The full tree from the two shards' slices, in the plan's order, each
+    leaf bitwise the serving shard's post-decode leaf (the same read of a
+    JAX fleet's shards gives the same leaves); a second poll is
+    all-unchanged, a version advance on one shard re-assembles."""
+    from pytorch_ps_mpi_tpu.shard import PSFleet as JFleet
+
+    fleet = _port_fleet(wire_codec=wire_codec, delta_parm=True)
+    jfleet = JFleet(list(_params().items()), num_shards=2, quota=1, lr=0.05,
+                    momentum=0.5, wire_codec=wire_codec)
+    jfleet.compile_step(jmlp_loss)
+    try:
+        for srv in fleet.servers + jfleet.servers:
+            _accepting(srv)
+        sub = FleetSubscriber(fleet.addresses)
+        versions, tree = sub.snapshot()
+        assert versions == (0, 0) and sub.version == (0, 0)
+        assert list(tree) == list(fleet.plan.assignment)
+        for k, srv in enumerate(fleet.servers):
+            want = tcodecs.decode_wire_tree(
+                srv._wire_codec_id, tcodecs.encode_wire_tree(
+                    wire_codec, dict(srv._served)))
+            for n in fleet.plan.names_for(k):
+                assert np.asarray(tree[n]).tobytes() \
+                    == np.asarray(want[n]).tobytes(), n
+        from pytorch_ps_mpi_tpu.serve import FleetSubscriber as JFleetSub
+
+        jsub = JFleetSub(jfleet.addresses)
+        _, jtree = jsub.snapshot()
+        for n in tree:
+            assert np.asarray(tree[n]).tobytes() \
+                == np.asarray(jtree[n]).tobytes(), n
+        jsub.close()
+        versions, tree2, changed = sub.poll()
+        assert not changed and tree2 is tree
+        # One shard advances: the next poll assembles a new tree.
+        srv = fleet.servers[1]
+        srv.params = {n: p + 1.0 for n, p in srv.params.items()}
+        srv._publish()
+        versions, tree3, changed = sub.poll()
+        assert changed and versions == (0, 1) and tree3 is not tree
+        for n in fleet.plan.names_for(0):
+            assert tree3[n] is tree[n]
+        sub.close()
+    finally:
+        fleet.close()
+        jfleet.close()
+
+
+def test_subscriber_survives_shard_failover_without_rewind(tmp_path):
+    """A shard dies mid-run; its standby is promoted on the same port (or,
+    here, the shard is restored from its checkpoint): the fleet reader's
+    link redials, reads resume, and no link's version ever rewinds."""
+    fleet = _port_fleet(fault_plan=FaultPlan(seed=0, kill_shard_at={1: 4}))
+    out = {}
+    ckpt = tmp_path / "ckpt.psz"
+
+    def serve():
+        try:
+            out["hist"] = fleet.serve(steps=10, idle_timeout=TIMEOUT,
+                                      checkpoint_path=str(ckpt),
+                                      checkpoint_every=1)
+        except BaseException as exc:  # noqa: BLE001 - surfaced below
+            out["error"] = exc
+
+    st = threading.Thread(target=serve, daemon=True)
+    st.start()
+    x, y = _teacher()
+    from pytorch_ps_mpi_tpu_torch.shard import ShardRouter
+
+    def worker():
+        try:
+            r = ShardRouter(fleet.addresses, device="cpu",
+                            reconnect_retries=20, backoff_max=0.5)
+            r.run(mlp_loss_fn, dataset_batch_fn(x, y, 32))
+        except BaseException as exc:  # noqa: BLE001 - surfaced below
+            out["worker_error"] = exc
+
+    try:
+        sub = FleetSubscriber(fleet.addresses, reconnect_retries=20,
+                              backoff_max=0.5)
+        wt = threading.Thread(target=worker, daemon=True)
+        wt.start()
+        seen_after_kill = 0
+        restored = False
+        seen = [0, 0]
+        end = time.monotonic() + TIMEOUT
+        while time.monotonic() < end:
+            try:
+                versions, tree, changed = sub.poll()
+            except OSError:
+                break
+            for k, v in enumerate(versions):
+                if v is not None:
+                    assert v >= seen[k], (versions, seen)
+                    seen[k] = v
+            if fleet.fault_stats.get("shard_restores", 0) >= 1:
+                restored = True
+                if changed:
+                    seen_after_kill += 1
+            if sub.done:
+                break
+            time.sleep(0.005)
+        st.join(TIMEOUT)
+        wt.join(TIMEOUT)
+        assert not st.is_alive() and not wt.is_alive()
+        assert "error" not in out and "worker_error" not in out, out
+        assert out["hist"]["fault_stats"]["shard_restores"] >= 1
+        assert restored and seen_after_kill >= 1
+        snap = sub.fault_snapshot()
+        assert snap["version_rewinds"] == 0
+        assert sub.links[1].reconnects >= 1
+        sub.close()
+    finally:
+        fleet.close()

@@ -293,18 +293,13 @@ def test_cli_transformer_lm_resumes_bitwise(tmp_path, capsys):
     assert re.search(r"^done: 3 steps, [\d,]+ tokens/sec", err, re.M)
 
 
-# (id, argv, the flag named): since the async PS and the single-PS
-# multihost roles are ported, the "--async-ps" case holds that an async
-# run joined with a role not ported yet is refused by that role's name,
-# and the "--serve" and "--connect" cases that those roles refuse the
-# flags of the multihost slices still to come by name.
+# (id, argv, the flag named): since the async PS, the multihost roles and
+# the sharded fleet are ported, the "--serve" and "--connect" cases hold
+# that those roles refuse the flags of the hierarchy, the multihost slice
+# still to come, by name.
 UNPORTED = [
-    ("--async-ps", ["--async-ps", "--subscribe", "h:1,h:2"],
-     "--subscribe with several endpoints (a shard fleet)"),
     ("--serve", ["--serve", "0", "--aggregators", "2"], "--aggregators"),
     ("--connect", ["--connect", "h:1", "--fallback", "h:2"], "--fallback"),
-    ("--subscribe", ["--subscribe", "h:1,h:2"],
-     "--subscribe with several endpoints (a shard fleet)"),
     ("--sp 2", ["--model", "transformer", "--sp", "2"], "--sp 2"),
     ("--tp 2", ["--model", "transformer", "--tp", "2"], "--tp 2"),
     ("--pp 2", ["--model", "transformer", "--pp", "2"], "--pp 2"),
