@@ -185,7 +185,24 @@ and carried on from):
     h:p0,h:p1 --infer-serve`` reader and two ``--connect h:p0,h:p1``
     workers, then ``--resume`` from the manifest (the versions go on);
     (d) a lockstep MLP through a 2-shard fleet, card against CPU.
-12. The card line, one JSON line per the kernels, and the last line
+12. The two-level hierarchy (`shard.Hierarchy`: the root and its group
+    aggregators threads of this process, the workers processes of their
+    own): (a) run 1b's ResNet-18 cell with 4 worker processes in 2 groups
+    of 2 behind 2 aggregators (group size 2, mean) and the root at quota
+    2: images/s beside run 1b's in this call, the root's AGGR bytes an
+    update beside run 1b's GRAD bytes, staleness, the groups view; 62
+    ``block_quantize`` a gradient in each worker, one
+    ``block_dequant_sum`` and 62 ``block_quantize`` a group fill and one
+    ``block_dequant_sum`` a root fill in this process, one AGGR frame from
+    each aggregator in every root fill; (b) (a) with group 0's aggregator
+    killed before its fill 10 and restarted on its port: one restart,
+    the upstream rank and the workers' local ranks kept, no duplicate at
+    the root, the launch counts going on, the gap around the restart;
+    (c) the CLI: ``--serve 0 --shards 2 --aggregators 2 --group-size 1``
+    with its LM and two ``--connect <aggregator> --group g --fallback
+    <roots>`` workers, their lines and the fleet's groups entry; (d) a
+    lockstep MLP through a one-group hierarchy, card against CPU.
+13. The card line, one JSON line per the kernels, and the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -2653,11 +2670,17 @@ def mh_worker_main(spec_json: str) -> int:
                              reconnect_retries=spec["retries"],
                              backoff_base=0.05, backoff_max=0.5)
     else:
+        # Phase 12b's workers (``retries``) redial their restarted
+        # aggregator on their local ranks.
+        ladder = (dict(reconnect_retries=spec["retries"], backoff_base=0.05,
+                       backoff_max=0.5) if "retries" in spec
+                  else dict(reconnect_retries=2))
         worker = AsyncPSWorker("127.0.0.1", spec["port"],
                                code=spec["code"], device="cuda",
-                               io_timeout=MH_TIMEOUT, reconnect_retries=2,
+                               io_timeout=MH_TIMEOUT,
                                bucket_bytes=spec.get("bucket_bytes"),
-                               fused_encode=spec.get("fused", False))
+                               fused_encode=spec.get("fused", False),
+                               **ladder)
     reset_launch_counts()
     pushed = worker.run(loss_fn, batch_fn)
     torch.cuda.synchronize()
@@ -2797,14 +2820,16 @@ def _mh_joined(t, box, what) -> dict:
 
 
 def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
-                  threads_ips, bucket_bytes=None, fused=False):
+                  threads_ips, bucket_bytes=None, fused=False, out=None):
     """Run 1: an `AsyncSGDServer` (ResNet-18, blockq, momentum 0.9) in
     this process on the card, ``workers`` worker processes on the same
     card over loopback; 4 warm-up and 40 timed updates.  The launch
     counts are read around the serve here (the PS's) and in each worker
     (its own).  ``bucket_bytes`` streams each gradient in buckets
     (phase 8; ``fused``: encoded inside backward), with the stream's
-    counters asserted.  Returns images/s over the timed window."""
+    counters asserted.  Returns images/s over the timed window; ``out``
+    (a dict) also takes the GRAD bytes a timed update (phase 12 reads
+    run 1b's)."""
     import os
 
     import numpy as np
@@ -2903,6 +2928,8 @@ def mh_resnet_run(what, named, loss_fn, tmp, *, workers, quota, lr,
     print(f"[mh] {what}: worker processes {ips:.1f} images/s against "
           f"phase 6's worker threads {threads_ips:.1f} (ratio "
           f"{ips / threads_ips:.3f})")
+    if out is not None:
+        out["grad_bytes"] = grad_bytes * grads / len(contrib)
     return ips
 
 
@@ -3089,8 +3116,8 @@ def mh_card_vs_cpu(bucket_bytes=None):
 
 def run_multihost_phase(threads_ips):
     """Phase 7: the multihost async PS over loopback TCP, worker processes
-    on the one card (runs 1-3); then phase 8, the bucket stream.  Returns
-    run 1a's images/s."""
+    on the one card (runs 1-3).  Returns run 1a's images/s and run 1b's
+    (images/s, GRAD bytes a timed update)."""
     import shutil
     import tempfile
 
@@ -3105,11 +3132,14 @@ def run_multihost_phase(threads_ips):
             "ResNet-18 blockq, 1 worker process, quota 1 (run 1a)", named,
             loss_fn, tmp, workers=1, quota=1, lr=ASYNC_LR,
             threads_ips=threads_ips["1 worker"])
-        mh_resnet_run(f"ResNet-18 blockq, {ASYNC_WORKERS} worker processes, "
-                      f"quota {ASYNC_QUOTA} (run 1b)", named, loss_fn, tmp,
-                      workers=ASYNC_WORKERS, quota=ASYNC_QUOTA,
-                      lr=ASYNC_LR / ASYNC_QUOTA,
-                      threads_ips=threads_ips[f"{ASYNC_WORKERS} workers"])
+        run1b_out: dict = {}
+        run1b = mh_resnet_run(
+            f"ResNet-18 blockq, {ASYNC_WORKERS} worker processes, quota "
+            f"{ASYNC_QUOTA} (run 1b)", named, loss_fn, tmp,
+            workers=ASYNC_WORKERS, quota=ASYNC_QUOTA,
+            lr=ASYNC_LR / ASYNC_QUOTA,
+            threads_ips=threads_ips[f"{ASYNC_WORKERS} workers"],
+            out=run1b_out)
         del named, loss_fn
         torch.cuda.empty_cache()
         mh_cli_lm(tmp)
@@ -3117,7 +3147,7 @@ def run_multihost_phase(threads_ips):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[mh] phase 7 took {time.perf_counter() - t0:.1f} s")
-    return run1a
+    return run1a, (run1b, run1b_out["grad_bytes"])
 
 
 # ---------------------------------------------------------------------------
@@ -4188,6 +4218,415 @@ def run_fleet_phase(run1a_ips):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the two-level hierarchy on the card
+# ---------------------------------------------------------------------------
+
+# 12a/12b: 4 worker processes in 2 groups of 2 behind 2 aggregators (group
+# size 2, mean), the root at quota 2: a root update sums 4 gradients, as
+# run 1b's quota 4 does, so the step per gradient is run 1b's.
+HIER_GROUPS, HIER_GROUP_SIZE = 2, 2
+# 12b: group 0's aggregator dies before its fill 10 and is restarted in
+# place; its workers redial (20 tries at 0.05-0.5 s) on their local ranks.
+HIER_KILL_AT = 10
+# 12c: the CLI's LM through 2 aggregators (group size 1) over a 2-shard
+# fleet, this many root updates.
+HIER_CLI_STEPS = 4
+_HIER_AGG_PORTS = r"aggregators on ports (\d+) (\d+)$"
+# 12c's server: the CLI with the launch counts zeroed just before, then
+# the launch counts and the fleet's groups entry on one line.
+_HIER_CLI_BOOT = (
+    "import json, sys, torch\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "from pytorch_ps_mpi_tpu_torch import train\n"
+    "from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck\n"
+    "from pytorch_ps_mpi_tpu_torch.ops import flash_attention as fa\n"
+    "ck.reset_launch_counts()\n"
+    "fa.reset_launch_counts()\n"
+    "root = train.main(sys.argv[1:])\n"
+    "torch.cuda.synchronize()\n"
+    "print('HIER_ROOT ' + json.dumps({'counts': {**ck.LAUNCHES, "
+    "**fa.LAUNCHES}, 'groups': root.fleet_fault_stats()['groups']}), "
+    "flush=True)\n")
+
+
+def _stamp_publishes(srv, box):
+    """Record the time of each of ``srv``'s publishes in ``box``."""
+    orig = srv._publish
+
+    def stamped():
+        orig()
+        box.append(time.perf_counter())
+
+    srv._publish = stamped
+
+
+def _hier_thread(hier):
+    """``hier.serve()`` on a thread of this process: (thread, box)."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["view"] = hier.serve(idle_timeout=MH_TIMEOUT)
+        except BaseException as exc:  # noqa: BLE001 - re-raised by the caller
+            box["error"] = exc
+
+    t = threading.Thread(target=run, name="hier-serve")
+    t.start()
+    return t, box
+
+
+def hier_resnet_run(what, named, loss_fn, tmp, *, run1b_ips, run1b_grad,
+                    kill_at=None):
+    """12a/12b: the root `AsyncSGDServer` (ResNet-18 blockq, momentum 0.9,
+    run 1b's lr, quota 2) and a `Hierarchy` of 2 aggregators (group size
+    2, mean) as threads of this process on the card, 4 worker processes
+    (``chip_smoke.py --mh-worker``, 2 an aggregator); 4 warm-up and 40
+    timed root updates.  The launch counts of this process (the root's
+    and the aggregators') are read around the run, each worker's in its
+    process.  With ``kill_at`` (12b) group 0's aggregator dies before that
+    fill and is restarted on its port with its upstream rank.  Returns
+    images/s over the timed window."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.multihost_async import AsyncSGDServer
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+    from pytorch_ps_mpi_tpu_torch.shard import Hierarchy
+    from pytorch_ps_mpi_tpu_torch.utils.faults import FaultPlan
+    from pytorch_ps_mpi_tpu_torch.utils.timing import format_fault_stats
+
+    updates = ASYNC_WARM + ASYNC_TIMED
+    workers = HIER_GROUPS * HIER_GROUP_SIZE
+    root = AsyncSGDServer(list(named.items()), lr=ASYNC_LR / workers,
+                          momentum=0.9, quota=HIER_GROUPS, code="blockq",
+                          device="cuda")
+    root.compile_step(loss_fn)
+    published: list = []
+    _stamp_publishes(root, published)
+    t, box = _serve_thread(root, updates, warmup_steps=ASYNC_WARM)
+    plan = (FaultPlan(kill_agg_at={0: kill_at}) if kill_at is not None
+            else None)
+    hier = Hierarchy(list(named.items()), groups=HIER_GROUPS,
+                     group_size=HIER_GROUP_SIZE,
+                     upstream=[("127.0.0.1", root.address[1])],
+                     code="blockq", device="cuda", fault_plan=plan,
+                     max_restarts=2)
+    hier.compile()
+    agg0 = hier.aggregators[0]
+    up_rank0, port0 = agg0.upstream_rank, agg0.address[1]
+    tag = "hier-kill" if kill_at is not None else "hier"
+    procs = []
+    for g, (_, port) in enumerate(hier.addresses):
+        spec = {"port": port, "code": "blockq"}
+        if kill_at is not None:
+            spec["retries"] = 20
+        procs += [(g, *_mh_spawn(
+            [os.path.abspath(__file__), "--mh-worker", json.dumps(spec)],
+            os.path.join(tmp, f"{tag}-g{g}w{i}.err")))
+            for i in range(HIER_GROUP_SIZE)]
+    sampler = _UtilSampler(os.path.join(tmp, f"{tag}-util.txt"))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    ht, hbox = _hier_thread(hier)
+    while t.is_alive() and root._served_version < ASYNC_WARM:
+        time.sleep(0.005)
+    sampler.start()
+    try:
+        try:
+            hist = _mh_joined(t, box, what)
+        finally:
+            util = sampler.stop()
+        ht.join(MH_TIMEOUT + 60)
+        if ht.is_alive():
+            fail(f"{what}: the hierarchy did not end")
+        if "error" in hbox:
+            raise hbox["error"]
+        view = hbox["view"]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        try:
+            results = [(g, _mh_worker_result(_mh_finish(p, e, what)[0],
+                                             what)) for g, p, e in procs]
+        finally:
+            hier.close()
+            root.close()
+    tier = view["fault_stats"]
+    fills = tier["agg_forwards"]  # every incarnation's, the retired too
+    fs = hist["fault_stats"]
+    agg_ranks = sorted(g["aggregator_rank"] for g in fs["groups"].values())
+    # The root's fills: 2 AGGR frames an update, each an aggregator's (a
+    # mean fill is not rank-distinct: a late frame of one group may share
+    # a fill with that group's next one).
+    if any(len(c) != HIER_GROUPS or not set(c) <= set(agg_ranks)
+           for c in hist["contributors"]) or len(agg_ranks) != HIER_GROUPS:
+        fail(f"{what}: root fills {hist['contributors']}, aggregators "
+             f"{agg_ranks}")
+    mixed = sum(len(set(c)) == HIER_GROUPS for c in hist["contributors"])
+    if fs["agg_frames"] < HIER_GROUPS * updates:
+        fail(f"{what}: agg_frames {fs['agg_frames']} for {updates} updates")
+    # This process: one grouped decode a root fill; one grouped decode and
+    # a block_quantize a leaf an aggregator fill (the re-encoded mean).
+    expect_counts(f"{what}, the root and the aggregators", counts,
+                  block_dequant_sum=(updates + fills) * ck.group_launches(
+                      "block_dequant_sum", len(named)),
+                  block_quantize=len(named) * fills)
+    for g, r in results:
+        expect_counts(f"{what}, group {g} worker rank {r['rank']}",
+                      r["counts"], block_quantize=len(named) * r["computed"])
+    check_params_finite(root, what)
+    losses = hist["losses"][ASYNC_WARM:]
+    first, last = _fifths(losses)
+    ips = ASYNC_TIMED * workers * ASYNC_BATCH / hist["steady_wall_time"]
+    stale = hist["staleness"][ASYNC_WARM:]
+    timed = root.timings[ASYNC_WARM:]
+    aggr = float(np.mean([d["msg_bytes"] for d in timed]))
+    per_fill = [sum(len(c) for c in h["contributors"])
+                / max(1, len(h["contributors"]))
+                for h in view["per_group"] if h]
+    print(f"[hier] {what}: {ASYNC_TIMED} timed root updates, {ips:.1f} "
+          f"images/s (run 1b's {run1b_ips:.1f} in this call: ratio "
+          f"{ips / run1b_ips:.3f}), loss first/last fifth {first:.4f} / "
+          f"{last:.4f}, root staleness mean {sum(stale) / len(stale):.3f} "
+          f"max {max(stale):.3f}; the root's AGGR bytes an update "
+          f"{HIER_GROUPS * aggr / 1e6:.3f} MB ({HIER_GROUPS} frames of "
+          f"{aggr / 1e6:.3f} MB) against run 1b's GRAD "
+          f"{run1b_grad / 1e6:.3f} MB an update")
+    print(f"[hier] {what}: agg_frames {fs['agg_frames']} for {updates} "
+          f"root updates ({mixed} of them a frame from each aggregator, "
+          f"the rest two of one); {fills} group fills "
+          f"({tier['agg_paced']} paced), "
+          f"contributors a fill {per_fill}; launches here {counts}; "
+          f"workers (group, rank, gradients, block_quantize) "
+          f"{[(g, r['rank'], r['computed'], r['counts']['block_quantize']) for g, r in results]}")
+    computed = sum(r["computed"] for _, r in results)
+    print(f"[hier] {what}: the workers computed {computed} gradients for "
+          f"the {workers * updates} the root's updates stand for "
+          f"({computed / (workers * updates):.2f}x); nvidia-smi "
+          f"utilization.gpu over the timed window "
+          + (f"mean {sum(util) / len(util):.1f} %, {len(util)} samples at "
+             f"100 ms" if util else "not measured"))
+    print(f"[hier] {what}: the root's groups view {fs['groups']}")
+    print(f"[hier] {what}: root fault stats {format_fault_stats(fs)}; tier "
+          f"{format_fault_stats(tier)}")
+    if not all(math.isfinite(v) for v in losses) or not last < first:
+        fail(f"{what}: losses {hist['losses']}, root staleness "
+             f"{hist['staleness']}")
+    if kill_at is None:
+        return ips
+    # 12b: one restart in place, no churn at either level.
+    live = hier.aggregators[0]._fault_stats_snapshot()
+    g0 = sorted(r["rank"] for g, r in results if g == 0)
+    redials = [r["reconnects"] for g, r in results if g == 0]
+    if (tier["agg_restarts"] != 1
+            or hier.aggregators[0].upstream_rank != up_rank0
+            or hier.addresses[0][1] != port0
+            or fs["groups"]["0"]["aggregator_rank"] != up_rank0
+            or fs["workers_seen"] != HIER_GROUPS
+            or fs["duplicate_dropped"] != 0
+            or g0 != list(range(HIER_GROUP_SIZE))
+            or live["workers_seen"] != 0
+            or min(redials) < 1):
+        fail(f"{what}: restarts {tier['agg_restarts']}, upstream rank "
+             f"{hier.aggregators[0].upstream_rank} (was {up_rank0}), root "
+             f"workers_seen {fs['workers_seen']}, duplicate_dropped "
+             f"{fs['duplicate_dropped']}, group 0's worker ranks {g0} "
+             f"(redials {redials}), the successor's workers_seen "
+             f"{live['workers_seen']}")
+    gaps = np.diff(published[ASYNC_WARM:])
+    worst = int(np.argmax(gaps))
+    usual = float(np.median(gaps))
+    print(f"[hier] {what}: restarted once on port {port0} with upstream "
+          f"rank {up_rank0}; the root booked {fs['workers_seen']} ranks "
+          f"ever, duplicate_dropped 0; group 0's workers kept local ranks "
+          f"{g0} after {redials} reconnects; the longest gap between root "
+          f"updates {1e3 * float(gaps[worst]):.1f} ms (after timed update "
+          f"{worst + 1}) against a median {1e3 * usual:.1f} ms "
+          f"({float(gaps[worst]) / usual:.1f} updates' time)")
+    return ips
+
+
+def hier_cli(tmp):
+    """12c: ``--serve 0 --shards 2 --aggregators 2 --group-size 1`` (the
+    CLI's LM, flash, blockq; the root's quota is the aggregators' count)
+    and two ``--connect <aggregator g> --group g --fallback <root
+    endpoints>`` workers, each a process with a timeout and its stderr in
+    a file.  Each worker: 4 of each flash kernel and a ``block_quantize``
+    a leaf per gradient.  The server: one ``block_dequant_sum`` a fill on
+    each shard and on each aggregator, a ``block_quantize`` a leaf an
+    aggregator fill and one a leaf at the shards' compile."""
+    import os
+
+    from pytorch_ps_mpi_tpu_torch import train
+
+    common = CLI_LM + ["--codec", "blockq"]
+    args = train.make_parser().parse_args(CLI_LM)
+    n_leaves = len(train._build_lm_async(args)[0])
+    t0 = time.perf_counter()
+    srv, e = _mh_spawn(["-c", _HIER_CLI_BOOT, *common, "--serve", "0",
+                        "--shards", "2", "--aggregators", str(HIER_GROUPS),
+                        "--group-size", "1", "--steps",
+                        str(HIER_CLI_STEPS)],
+                       os.path.join(tmp, "hier-server.err"))
+    m = _mh_first_line(srv, e, r"serving on ports (\d+) (\d+)$",
+                       "hierarchy CLI server")
+    roots = f"127.0.0.1:{m.group(1)},127.0.0.1:{m.group(2)}"
+    ports = _mh_first_line(srv, e, _HIER_AGG_PORTS, "hierarchy CLI server")
+    ws = [_mh_spawn(["-c", _MH_CLI_WORKER_BOOT, *common, "--connect",
+                     f"127.0.0.1:{ports.group(g + 1)}", "--group", str(g),
+                     "--fallback", roots, "--reconnect-retries", "2"],
+                    os.path.join(tmp, f"hier-worker{g}.err"))
+          for g in range(HIER_GROUPS)]
+    lines = []
+    for g, (p, we) in enumerate(ws):
+        out, text = _mh_finish(p, we, f"hierarchy CLI worker {g}")
+        r = _mh_worker_result(out, f"hierarchy CLI worker {g}")
+        n = r["computed"]
+        expect_counts(f"hierarchy CLI worker {g}", r["counts"],
+                      flash_fwd=4 * n, flash_bwd_dkdv=4 * n,
+                      flash_bwd_dq=4 * n, block_quantize=n_leaves * n)
+        done = re.search(r"^group worker done: (\d+) gradients pushed$",
+                         text, re.M)
+        if done is None or "agg_failovers" in text:
+            fail(f"hierarchy CLI worker {g}: {text[-2000:]}")
+        lines.append(f"group {g}: {done.group(0)} ({n} computed)")
+    out, stext = _mh_finish(srv, e, "hierarchy CLI server")
+    m = re.search(r"^HIER_ROOT (.*)$", out, re.M)
+    done = re.search(r"^done: (\d+) root updates, (\d+) group fills across "
+                     r"2 aggregators in [\d.]+s$", stext, re.M)
+    tier = re.search(r"^aggregator tier: .*\bagg_forwards=(\d+)", stext,
+                     re.M)
+    if m is None or done is None or tier is None \
+            or int(done.group(1)) != HIER_CLI_STEPS:
+        fail(f"hierarchy CLI server: {stext[-3000:]}")
+    root = json.loads(m.group(1))
+    fills = int(tier.group(1))
+    expect_counts("hierarchy CLI server", root["counts"],
+                  block_dequant_sum=2 * HIER_CLI_STEPS + fills,
+                  block_quantize=n_leaves * (fills + 1))
+    groups = root["groups"]
+    if sorted(groups) != ["0", "1"] or any(
+            v["agg_frames"] < 2 * HIER_CLI_STEPS for v in groups.values()):
+        fail(f"hierarchy CLI: the fleet's groups entry {groups}")
+    print(f"[hier] 12c server: {done.group(0)}; launches {root['counts']}")
+    print(f"[hier] 12c workers: {'; '.join(lines)}")
+    print(f"[hier] 12c the fleet's groups entry: {groups}; "
+          f"{time.perf_counter() - t0:.1f} s in all")
+
+
+def hier_card_vs_cpu():
+    """12d: a 1-group hierarchy over a single root (quota 1, group size
+    1) and one lockstep worker (each pull, the worker's and the
+    aggregator's upstream one, waits for the previous gradient's update:
+    sequential SGD), the small MLP, 6 identity and 2 blockq updates, on the
+    card against the same conversation on the CPU: params within run 3's
+    rtol 1e-4 / atol 1e-5, at most one element in 10,000 outside."""
+    import numpy as np
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.async_ps import dataset_batch_fn
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_mnist
+    from pytorch_ps_mpi_tpu_torch.models import init_mlp, mlp_loss_fn
+    from pytorch_ps_mpi_tpu_torch.multihost_async import (AsyncPSWorker,
+                                                          AsyncSGDServer)
+    from pytorch_ps_mpi_tpu_torch.shard import Hierarchy
+
+    named = init_mlp(np.random.RandomState(0), (784, 64, 10))
+    x, y = synthetic_mnist(256, seed=1)
+    for code, updates in (("identity", 6), ("blockq", 2)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            root = AsyncSGDServer(list(named.items()), lr=0.05,
+                                  momentum=0.9, quota=1, code=code,
+                                  device=device)
+            root.compile_step(mlp_loss_fn)
+            t, box = _serve_thread(root, updates)
+            hier = Hierarchy(list(named.items()), groups=1, group_size=1,
+                             upstream=[("127.0.0.1", root.address[1])],
+                             code=code, device=device)
+            try:
+                hier.compile()
+                _lockstep_links(hier.aggregators[0]._upstream)
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                ht, hbox = _hier_thread(hier)
+                worker = AsyncPSWorker("127.0.0.1", hier.addresses[0][1],
+                                       code=code, device=device,
+                                       reconnect_retries=1)
+                worker._lockstep = True
+                worker.run(mlp_loss_fn, dataset_batch_fn(x, y, 64, seed=2))
+                hist = _mh_joined(t, box, f"hierarchy MLP {code} {device}")
+                ht.join(MH_TIMEOUT)
+                if ht.is_alive() or "error" in hbox:
+                    fail(f"hierarchy MLP {code} {device}: "
+                         f"{hbox.get('error')!r}")
+            finally:
+                hier.close()
+                root.close()
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            out[device] = (hist["losses"],
+                           {n: p.cpu().numpy()
+                            for n, p in root.params.items()})
+            if device == "cuda" and code == "blockq":
+                fills = hbox["view"]["fault_stats"]["agg_forwards"]
+                expect_counts(f"hierarchy MLP {code} on the card", counts,
+                              block_quantize=len(named) * (updates + fills),
+                              block_dequant_sum=updates + fills)
+        a, b = out["cuda"][1], out["cpu"][1]
+        outside = sum(int((~np.isclose(a[n], b[n], rtol=1e-4,
+                                       atol=1e-5)).sum()) for n in b)
+        total = sum(v.size for v in b.values())
+        print(f"[hier] 12d lockstep MLP {code}, 1 group, {updates} "
+              f"updates, card vs CPU: losses {out['cuda'][0]} vs "
+              f"{out['cpu'][0]}, max difference {_np_max_diff(a, b)}, "
+              f"{outside} of {total} elements outside rtol 1e-4 / atol "
+              f"1e-5")
+        np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+        if outside > (0 if code == "identity" else 1e-4 * total):
+            fail(f"hierarchy MLP {code} card vs CPU: {outside} elements "
+                 f"apart")
+
+
+def run_hier_phase(run1b):
+    """Phase 12: the hierarchy on the card (12a-12d); ``run1b`` is phase
+    7's run 1b (images/s, GRAD bytes an update) in this call."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ps_hier_")
+    try:
+        named, loss_fn, _ = _async_resnet18()
+        ips = hier_resnet_run(
+            f"ResNet-18 blockq, {HIER_GROUPS} aggregators of "
+            f"{HIER_GROUP_SIZE} worker processes, root quota {HIER_GROUPS} "
+            f"(12a)", named, loss_fn, tmp, run1b_ips=run1b[0],
+            run1b_grad=run1b[1])
+        killed = hier_resnet_run(
+            f"12a with group 0's aggregator killed before its fill "
+            f"{HIER_KILL_AT} and restarted (12b)", named, loss_fn, tmp,
+            run1b_ips=run1b[0], run1b_grad=run1b[1], kill_at=HIER_KILL_AT)
+        print(f"[hier] 12b: {killed:.1f} images/s against 12a's {ips:.1f} "
+              f"(ratio {killed / ips:.3f}: the restart)")
+        del named, loss_fn
+        torch.cuda.empty_cache()
+        hier_cli(tmp)
+        hier_card_vs_cpu()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[hier] phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # topk's selection on tied magnitudes: the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -4354,17 +4793,18 @@ def main() -> int:
     # --- 5. the training CLI, 6. the async PS, 7. the multihost PS ---
     run_cli(images_per_s, len(named))
     threads_ips = run_async_phase()
-    run1a_ips = run_multihost_phase(threads_ips)
+    run1a_ips, run1b = run_multihost_phase(threads_ips)
 
     # --- 8. the bucket stream, 9. the MoE LM, 10. the serve tier ---
     run_bucket_phase(run1a_ips)
     run_moe_phase()
     run_serve_phase()
 
-    # --- 11. the sharded fleet ---
+    # --- 11. the sharded fleet, 12. the hierarchy ---
     run_fleet_phase(run1a_ips)
+    run_hier_phase(run1b)
 
-    # --- 12. results ---
+    # --- 13. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({

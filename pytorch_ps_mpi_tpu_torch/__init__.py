@@ -17,7 +17,9 @@ subscription over SUBS/DELT with delta snapshots, and
 the subscribed parameters); the sharded PS fleet (`shard`: `PSFleet`
 with hot standbys promoted onto a dead shard's port and coordinated
 snapshots, `ShardRouter`, `ShardPlan`, and the fleet's reader
-`FleetSubscriber`);
+`FleetSubscriber`); the two-level hierarchy (`LocalAggregator`,
+`GroupWorker`, `Hierarchy`: group-local aggregators forwarding one AGGR
+frame a fill to a single PS or a fleet);
 the reference's nonblocking collectives (`parallel.collectives`'s
 ``i*`` ops); the blockq and bf16 codecs' kernels are hand-written CUDA
 for Hopper (``csrc/codec_kernels.cu``); the ResNet/MLP models and the
@@ -29,7 +31,8 @@ caller asks for the CPU.
 """
 
 from .async_ps import AsyncAdam, AsyncPS, AsyncSGD
-from .errors import (BufferMutatedError, ElasticResumeError,
+from .errors import (AggregatorDeadError, BufferMutatedError,
+                     ElasticResumeError,
                      FillStarvedError, FleetDeadError, FleetManifestError,
                      FleetResumeSkewError, InferShedError,
                      NativeToolchainError, NotCompiledError, PSRuntimeError,
@@ -40,11 +43,13 @@ from .multihost_async import (AsyncAdamServer, AsyncPSServer,
 from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
                          QuantizeCodec, SignCodec, TopKCodec, get_codec)
 from .ops.flash_attention import flash_attention
+from .ops.robust import ReducerCodecError
 from .parallel.mesh import make_ps_group
 from .ps import MPI_PS, PS, SGD, Adam, AdamW
 from .serve import (FleetSubscriber, InferenceFrontend, InferRequest,
                     Subscriber)
-from .shard import (PSFleet, ShardPlan, ShardRouter, build_shard_plan,
+from .shard import (GroupWorker, Hierarchy, LocalAggregator, PSFleet,
+                    ShardPlan, ShardRouter, build_shard_plan,
                     match_partition_rules)
 from .utils import checkpoint
 from .utils.checkpoint import CheckpointError
@@ -100,4 +105,9 @@ __all__ = [
     "FleetManifestError",
     "FleetResumeSkewError",
     "FleetSubscriber",
+    "LocalAggregator",
+    "GroupWorker",
+    "Hierarchy",
+    "AggregatorDeadError",
+    "ReducerCodecError",
 ]

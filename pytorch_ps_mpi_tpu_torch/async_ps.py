@@ -399,9 +399,13 @@ class AsyncPS:
                 plan.byzantine_transform(plan.byzantine_rank),
                 orders=self._orders)
         # Non-linear reducers (and anomaly scoring, which needs
-        # per-contribution norms) need itemwise decodes.
-        self._itemwise = (self.aggregate != "mean"
-                          or self._scoreboard is not None)
+        # per-contribution norms) need itemwise decodes; a codec that
+        # cannot decode one contribution is refused here.
+        from .ops.robust import check_reducer_codec
+
+        self._itemwise = check_reducer_codec(
+            self.aggregate, self.code,
+            anomaly_scoring=self._scoreboard is not None)
 
     # -- the PS apply ---------------------------------------------------------
 
@@ -599,8 +603,12 @@ class AsyncPS:
         consumed but never applied (quarantined or rejected), so lockstep
         workers still see their ack.
 
-        Items are ``(codes, version, rank, loss)``.  Returns
-        ``(codes_list, stalenesses, losses, ranks, fill_target, short)``."""
+        Items are ``(codes, version, rank, loss)``, or from the
+        hierarchy's AGGR frames ``(codes, version, rank, loss, contrib)``,
+        where ``contrib`` is how many worker gradients the pre-reduced
+        frame stands for (a plain frame counts 1).  Returns
+        ``(codes_list, stalenesses, losses, ranks, contribs, fill_target,
+        short)``."""
         from .transport import Deadline
 
         self._at_fill_boundary()
@@ -611,6 +619,7 @@ class AsyncPS:
         stalenesses: list = []
         losses: list = []
         ranks: list = []
+        contribs: list = []
         short = False
         while len(codes_list) < self._fill_target():
             # Held-over surplus frames (rank-distinct fills) are this
@@ -636,7 +645,7 @@ class AsyncPS:
                 item = receive(timeout)
                 if item is None:
                     continue
-            codes, version, rank, loss = item
+            codes, version, rank, loss = item[:4]
             if (self._rank_distinct and rank is not None
                     and rank in ranks):
                 # One contribution per rank per fill (a fast Byzantine
@@ -681,11 +690,13 @@ class AsyncPS:
             stalenesses.append(staleness)
             losses.append(loss)
             ranks.append(rank)
+            contribs.append(float(item[4]) if len(item) > 4 else 1.0)
         fill_target = self._fill_target()
         if short:
             self._bump("quorum_fills")
             self._missed_ranks |= self._fleet_ranks() - set(ranks)
-        return codes_list, stalenesses, losses, ranks, fill_target, short
+        return (codes_list, stalenesses, losses, ranks, contribs,
+                fill_target, short)
 
     def _effective_deadline(self) -> float:
         """This fill's quorum deadline: ``fill_deadline``, or with
@@ -703,11 +714,16 @@ class AsyncPS:
             self._bump("deadline_adapted")
         return adapted
 
-    def _contrib_weights(self, stalenesses, ranks) -> np.ndarray:
+    def _contrib_weights(self, stalenesses, ranks,
+                         contribs=None) -> np.ndarray:
         """Per-contribution damping: staleness (1/(1+s)) composed with the
-        scoreboard's suspect down-weighting and the latency decay
-        (``latency_weighting``); applied BEFORE the robust statistic.  float32, numpy, as the JAX
-        package computes it."""
+        scoreboard's suspect down-weighting, the latency decay
+        (``latency_weighting``) and, for the hierarchy's pre-reduced AGGR
+        frames, the contributor multiplicity (a frame standing for 4
+        worker gradients weighs 4x a plain one, so a group that filled
+        short moves the root pro-rata); applied BEFORE the robust
+        statistic.  float32, numpy, the products in the JAX package's
+        order."""
         w = np.ones(len(stalenesses), np.float32)
         if self.staleness_weighting:
             w *= 1.0 / (1.0 + np.asarray(stalenesses, np.float32))
@@ -721,17 +737,22 @@ class AsyncPS:
             if slowed:
                 self._bump("latency_weighted", slowed)
                 w *= lw
+        if contribs is not None:
+            c = np.asarray(contribs, np.float32)
+            if not np.all(c == 1.0):
+                w = w * c
         return w
 
     def _apply_weighted(self, stacked, stalenesses, ranks, data,
-                        n_target: "int | None" = None):
+                        n_target: "int | None" = None, contribs=None):
         """Reduce + update on already-stacked codes — the one aggregation
         entry point of the in-process and the TCP deployments.
         ``n_target`` is the fill target the contribution count
-        renormalizes to (default: the quota)."""
+        renormalizes to (default: the quota); ``contribs`` the fill's
+        per-frame contributor multiplicities."""
         n = len(stalenesses)
         n_target = self.quota if n_target is None else n_target
-        w = self._contrib_weights(stalenesses, ranks)
+        w = self._contrib_weights(stalenesses, ranks, contribs)
         if self.staleness_weighting:
             data["mean_weight"] = float(w.mean())
         if self._itemwise:
@@ -989,8 +1010,8 @@ class AsyncPS:
                 # --- receive until quota, or until quorum + deadline
                 # close the fill short.
                 t0 = time.perf_counter()
-                (batch_codes, stalenesses, losses, ranks, fill_target,
-                 _short) = self._fill_gradients(
+                (batch_codes, stalenesses, losses, ranks, _contribs,
+                 fill_target, _short) = self._fill_gradients(
                     receive, drain_nowait,
                     current_version=lambda: published.version,
                     on_consumed=ack_consumed)

@@ -36,6 +36,15 @@ class FillStarvedError(FleetDeadError):
     configured to close fills short)."""
 
 
+class AggregatorDeadError(PSRuntimeError):
+    """Every group-local aggregator of a hierarchy failed before serving
+    a single forward (upstream unreachable, or the whole tier crashed
+    un-restorably with direct fallback impossible); the first failure is
+    chained as ``__cause__``.  A single dead aggregator is not fatal: its
+    workers fail over to direct root connections, so this fires only
+    when the tier as a whole never functioned."""
+
+
 class ShardDeadError(PSRuntimeError):
     """A PS-fleet shard died and could not be restored (no hot standby
     with replicated state, no checkpoint configured, or the per-shard

@@ -69,6 +69,14 @@ the rank allocation, so a killed PS resumes with continuous versions.
 The fleet's frames (`shard.fleet.PSFleet` drives them over rank-less
 control connections, HELO flag 4):
 
+* aggregator → root ``AGGR | group u16 | n_contrib u16 | target u16 |
+  bucket u16 | n_buckets u16 | seq u64 | version u64 | loss f64 |
+  codes`` (no reply): the hierarchy's forward, one group-reduced
+  per-contributor-mean gradient standing for ``n_contrib`` worker
+  gradients (the root weights it by that multiplicity, so a short group
+  fill moves the root pro-rata).  ``seq`` rides GRAD's per-rank dedup and
+  the bucket fields work as on GRAD; ``agg_frames`` and the ``groups``
+  view count assembled forwards, never bucket frames;
 * primary → standby ``REPL | step u64 | codec u8 | checkpoint blob`` →
   ``ACKR | step u64 | credits u32``: hot-standby replication.  The blob is
   this package's checkpoint of the shard (`utils.checkpoint`, with the
@@ -83,9 +91,12 @@ control connections, HELO flag 4):
   step u64`` (all ones: nothing replicated): the promotion fence; every
   later REPL is refused (``repl_refused``).
 
-Not ported yet, and refused by name (a refused frame costs only its own
-connection and is counted in ``quarantined_frames``): AGGR and HELO flags
-8/16 (the hierarchy).
+Two HELO flags carry the hierarchy's identity: flag 8 marks a group's
+aggregator (``group u16 | target u16`` follow the optional rank field),
+booked as a normal rank and named as group g's aggregator in the
+``groups`` view; flag 16 marks a direct-fallback worker (``group u16``),
+a worker whose aggregator died for good re-admitting itself at the root
+(counted once in ``direct_fallbacks`` and listed under its group).
 
 On the card:
 
@@ -141,6 +152,8 @@ _U8 = struct.Struct("B")
 _F64 = struct.Struct("<d")
 # GRAD's bucket fields: a whole-tree gradient packs (0, 1).
 _BKT = struct.Struct("<HH")
+# AGGR's prefix: (group, contributor count, group fill target).
+_GRP = struct.Struct("<HHH")
 # Per-rank in-flight bucketed seqs remembered for dedup: older ones
 # retire as a seq completed with missing buckets would (memory bounded
 # against a flooding or seq-skipping peer).
@@ -198,22 +211,6 @@ except (AttributeError, OSError):  # pragma: no cover - non-Linux
 _DECODE_DEPTH = 2
 _RECV_NBUFS = 3
 assert _DECODE_DEPTH < _RECV_NBUFS
-
-# Frames of the JAX protocol whose slice (the hierarchy) is not ported
-# yet: each costs its own connection, counted in ``quarantined_frames``.
-_REFUSED_FRAMES = {
-    b"AGGR": "hierarchical aggregation",
-}
-_REFUSED_HELO_FLAGS = {8: "a hierarchy aggregator",
-                       16: "a hierarchy direct-fallback worker"}
-
-
-def _not_ported(what: str) -> str:
-    return (f"{what} is not ported to the PyTorch package yet (the "
-            f"multihost async PS, its bucket stream, the serve tier and "
-            f"the sharded fleet with its hot standbys are; the hierarchy "
-            f"follows)")
-
 
 def control_connect(host: str, port: int, token: "str | None" = None,
                     timeout: float = 10.0) -> socket.socket:
@@ -499,6 +496,11 @@ class AsyncPSServer(AsyncPS):
         # in-flight bucketed seq (at most `_BUCKET_SEQ_WINDOW`);
         # `_last_seq` advances when a bucketed seq completes.
         self._bucket_seen: "dict[int, dict[int, set]]" = {}
+        # The hierarchy's groups view (guarded by _rank_lock): per group,
+        # its aggregator's rank (HELO flag 8), the group fill target, the
+        # AGGR forwards admitted, the last forward's contributor count,
+        # and the ranks that re-admitted themselves direct (flag 16).
+        self._groups: "dict[int, dict]" = {}
         # Transport counters on top of the admission counters `AsyncPS`
         # installs (connection threads bump them: `_bump` takes a lock).
         self.fault_stats.update({
@@ -510,6 +512,10 @@ class AsyncPSServer(AsyncPS):
             # the SNAP-cut checkpoints written at fill boundaries.
             "repl_sent": 0, "repl_received": 0, "repl_refused": 0,
             "repl_lag": 0, "snapshot_barriers": 0,
+            # AGGR forwards admitted (one an assembled forward), and
+            # workers booked as direct fallbacks after their aggregator
+            # died.
+            "agg_frames": 0, "direct_fallbacks": 0,
             "dropped_queue_full": {},
         })
 
@@ -654,6 +660,41 @@ class AsyncPSServer(AsyncPS):
         with self._stats_lock:
             self.fault_stats[key] += n
 
+    # -- the hierarchy's groups view -----------------------------------------
+
+    def _group_entry(self, group: int) -> dict:
+        """Group ``group``'s entry of the view (holds ``_rank_lock``)."""
+        return self._groups.setdefault(int(group), {
+            "aggregator_rank": None, "group_target": 0, "agg_frames": 0,
+            "last_contributors": 0, "fallback_ranks": []})
+
+    def _note_aggregator(self, group: int, rank: int,
+                         target: int) -> None:
+        """Book a HELO flag-8 connection: ``rank`` is group ``group``'s
+        aggregator (a restarted aggregator re-presenting its rank
+        re-claims the entry: no churn in the view)."""
+        with self._rank_lock:
+            entry = self._group_entry(group)
+            entry["aggregator_rank"] = rank
+            entry["group_target"] = int(target)
+
+    def _note_fallback(self, group: int, rank: int) -> None:
+        """Book a HELO flag-16 connection: ``rank`` is a worker of group
+        ``group`` re-admitting itself direct after its aggregator died."""
+        with self._rank_lock:
+            entry = self._group_entry(group)
+            if rank not in entry["fallback_ranks"]:
+                entry["fallback_ranks"].append(rank)
+        self._bump("direct_fallbacks")
+
+    def _note_group_frame(self, group: int, rank: int,
+                          n_contrib: int) -> None:
+        with self._rank_lock:
+            entry = self._group_entry(group)
+            entry["aggregator_rank"] = rank
+            entry["agg_frames"] += 1
+            entry["last_contributors"] = int(n_contrib)
+
     def _evict_dead(self, eviction_timeout: float,
                     dead_conn_grace: float) -> None:
         """Evict live ranks that went silent: past ``eviction_timeout``
@@ -750,6 +791,12 @@ class AsyncPSServer(AsyncPS):
             snap["evicted_ranks"] = sorted(self._evicted)
             snap["heartbeat_ages"] = {
                 r: round(now - t, 3) for r, t in self._last_seen.items()}
+            if self._groups:
+                # The hierarchy's per-group detail, keyed by group id as a
+                # string (as "shards" is).
+                snap["groups"] = {str(g): dict(info)
+                                  for g, info in sorted(
+                                      self._groups.items())}
         return snap
 
     # -- connection handling --------------------------------------------------
@@ -976,7 +1023,7 @@ class AsyncPSServer(AsyncPS):
         so does the `_ASSEMBLY_CAP`; each retirement counts
         ``bucket_partial_timeouts``.  The gradient is absent, a straggler
         the fill already absorbs."""
-        assembler, seq, bucket, n_buckets = binfo
+        assembler, seq, bucket, n_buckets, on_complete = binfo
         key = (rank, seq)
         entry = assembler.get(key)
         if entry is None:
@@ -1007,6 +1054,10 @@ class AsyncPSServer(AsyncPS):
                 f"but this server owns {len(self.params)} — worker bucket "
                 f"plan does not match the served tree")
         self._bump("buckets_filled", entry["n"])
+        if on_complete is not None:
+            # Per-gradient bookkeeping (an AGGR forward's agg_frames and
+            # groups view) counts the assembled gradient, never a frame.
+            on_complete()
         self._enqueue_grad(
             (OrderedDict((n, flat[n]) for n in self.params),
              *entry["tail"]), rank)
@@ -1019,9 +1070,10 @@ class AsyncPSServer(AsyncPS):
         at most `_DECODE_DEPTH` deep per connection; small ones inline.
         ``frame_idx`` is the arena's receive count at dispatch, which the
         connection loop's pre-receive drain checks.  ``binfo`` marks a
-        bucket frame, ``(assembler, seq, bucket, n_buckets)``: decoded
-        like any frame (bucket b decodes while b+1 is on the wire), then
-        handed to `_assemble_bucket`."""
+        bucket frame, ``(assembler, seq, bucket, n_buckets,
+        on_complete)``: decoded like any frame (bucket b decodes while b+1
+        is on the wire), then handed to `_assemble_bucket`, which calls
+        ``on_complete`` (or None) once the gradient is assembled."""
         decode = (self._decode_codes if binfo is None
                   else self._decode_codes_bucket)
         if (self._decode_offload_min is not None
@@ -1073,12 +1125,6 @@ class AsyncPSServer(AsyncPS):
                   f"fault_stats)", file=sys.stderr)
         return False
 
-    def _refuse(self, what: str):
-        """A frame this package does not take yet: counted, and it costs
-        only its own connection."""
-        self._bump("quarantined_frames")
-        return ValueError(_not_ported(what))
-
     def _conn_loop(self, conn: socket.socket):
         """Serve one connection.  Any failure (disconnect, malformed or
         refused frame, stray bytes) is connection-local: it closes this
@@ -1125,12 +1171,11 @@ class AsyncPSServer(AsyncPS):
                     if kind == b"HELO":
                         flags = body[0] if body else 0
                         off = 1 if body else 0
-                        for bit, what in _REFUSED_HELO_FLAGS.items():
-                            if flags & bit:
-                                raise self._refuse(
-                                    f"HELO flag {bit} ({what})")
                         prior: "int | None" = None
                         assigned: "int | None" = None
+                        agg_group: "int | None" = None
+                        agg_target = 0
+                        fb_group: "int | None" = None
                         if flags & 1:
                             (prior,) = struct.unpack_from("<I", body, off)
                             off += 4
@@ -1138,6 +1183,17 @@ class AsyncPSServer(AsyncPS):
                             (assigned,) = struct.unpack_from(
                                 "<I", body, off)
                             off += 4
+                        if flags & 8:
+                            # This connection is group g's aggregator.
+                            agg_group, agg_target = struct.unpack_from(
+                                "<HH", body, off)
+                            off += 4
+                        if flags & 16:
+                            # A worker of group g whose aggregator died
+                            # for good, re-admitting itself direct.
+                            (fb_group,) = struct.unpack_from(
+                                "<H", body, off)
+                            off += 2
                         if self.token is not None:
                             if not hmac.compare_digest(
                                     bytes(body[off:]),
@@ -1159,6 +1215,14 @@ class AsyncPSServer(AsyncPS):
                             rank = None
                         else:
                             rank = self._register_conn(prior, assigned)
+                            if agg_group is not None:
+                                self._note_aggregator(agg_group, rank,
+                                                      agg_target)
+                            if fb_group is not None and prior is None:
+                                # A fallback reconnect (prior set) is the
+                                # same worker riding a blip: only the
+                                # first direct admission counts.
+                                self._note_fallback(fb_group, rank)
                         send_frame(conn, b"PSA"
                                    + bytes([PROTOCOL_VERSION])
                                    + struct.pack("<I",
@@ -1219,10 +1283,6 @@ class AsyncPSServer(AsyncPS):
                             step = self._repl_step
                         send_frame(conn, b"PROM" + _U64.pack(
                             _NO_REPLICA if step is None else step))
-                    elif kind in _REFUSED_FRAMES:
-                        raise self._refuse(
-                            f"{kind.decode()} frames "
-                            f"({_REFUSED_FRAMES[kind]})")
                     elif kind == b"PULL":
                         if rank is not None:
                             self._mark_alive(rank)
@@ -1288,13 +1348,67 @@ class AsyncPSServer(AsyncPS):
                                 rank, seq, bucket, n_buckets):
                             self._bump("duplicate_dropped")
                             continue
-                        binfo = ((assembler, seq, bucket, n_buckets)
+                        binfo = ((assembler, seq, bucket, n_buckets, None)
                                  if n_buckets > 1 else None)
                         self._dispatch_decode(
                             decodes,
                             body[_BKT.size + 2 * _U64.size + _F64.size:],
                             (version, rank, loss), rank, arena.frames,
                             binfo)
+                    elif kind == b"AGGR":
+                        # The hierarchy's forward: admitted as a GRAD is
+                        # (validation, dedup, the fill loop), its item
+                        # carrying the contributor multiplicity the root
+                        # weights it by.
+                        if rank is not None:
+                            self._mark_alive(rank)
+                        try:
+                            group, n_contrib, gtarget = _GRP.unpack_from(
+                                body, 0)
+                            bucket, n_buckets = _BKT.unpack_from(
+                                body, _GRP.size)
+                            seq = _U64.unpack_from(
+                                body, _GRP.size + _BKT.size)[0]
+                            version = _U64.unpack_from(
+                                body, _GRP.size + _BKT.size + _U64.size)[0]
+                            loss = _F64.unpack_from(
+                                body,
+                                _GRP.size + _BKT.size + 2 * _U64.size)[0]
+                            if n_buckets < 1 or bucket >= n_buckets:
+                                raise ValueError(
+                                    f"bad bucket header "
+                                    f"({bucket}/{n_buckets})")
+                        except Exception:
+                            self._bump("quarantined_frames")
+                            raise
+                        if self._shed_before_decode(rank, seq, version,
+                                                    bucket, n_buckets):
+                            continue
+                        # Header-first dedup, as GRAD.
+                        if rank is not None and not self._burn_seq(
+                                rank, seq, bucket, n_buckets):
+                            self._bump("duplicate_dropped")
+                            continue
+
+                        def aggr_done(g=group, r=rank, nc=n_contrib):
+                            if r is not None:
+                                self._note_group_frame(g, r, nc)
+                            self._bump("agg_frames")
+
+                        binfo = None
+                        if n_buckets > 1:
+                            # Counted once the forward is assembled.
+                            binfo = (assembler, seq, bucket, n_buckets,
+                                     aggr_done)
+                        else:
+                            aggr_done()
+                        self._dispatch_decode(
+                            decodes,
+                            body[_GRP.size + _BKT.size + 2 * _U64.size
+                                 + _F64.size:],
+                            (version, rank, loss,
+                             float(max(int(n_contrib), 1))), rank,
+                            arena.frames, binfo)
                     else:
                         self._bump("quarantined_frames")
                         raise ValueError(f"unknown message kind {kind!r}")
@@ -1718,8 +1832,8 @@ class AsyncPSServer(AsyncPS):
                     self._fill_next_step = gstep
                 self._evict_dead(eviction_timeout, dead_conn_grace)
                 idle.restart()
-                (batch_codes, stalenesses, losses, ranks, fill_target,
-                 _short) = self._fill_gradients(
+                (batch_codes, stalenesses, losses, ranks, contribs,
+                 fill_target, _short) = self._fill_gradients(
                     receive, drain_nowait,
                     current_version=lambda: self._served_version,
                     base_timeout=poll)
@@ -1730,7 +1844,7 @@ class AsyncPSServer(AsyncPS):
                     stacked = self._stack(batch_codes)
                     self.params, self.state = self._apply_weighted(
                         stacked, stalenesses, ranks, data,
-                        n_target=fill_target)
+                        n_target=fill_target, contribs=contribs)
                 data["optim_step_time"] = time.perf_counter() - t0
 
                 t0 = time.perf_counter()
@@ -1831,6 +1945,14 @@ class AsyncPSWorker:
     injects deterministic chaos: planned death, NaN gradients, wire
     mangling of outbound GRAD frames, overload.
 
+    The hierarchy's identities: ``agg_group`` presents this link as
+    group g's aggregator (HELO flag 8, with the group fill target
+    ``agg_target`` for the root's view; `shard.hierarchy.LocalAggregator`'s
+    upstream links, which forward with `push_agg`); ``fallback_group``
+    marks a worker re-admitting itself at the root after its aggregator
+    died (flag 16).  ``max_pending``, ``stall_hook`` and ``pace_hook``
+    reach the link's `transport.Session`.
+
     ``bucket_bytes`` streams each gradient as bucket frames (None: one
     whole-tree frame; 0: `parallel.overlap.auto_bucket_bytes`'s size): the
     plan is built at the first pull (`plan_overlap`), and the buckets go
@@ -1849,10 +1971,16 @@ class AsyncPSWorker:
                  reconnect_retries: int = 3,
                  backoff_base: float = 0.1,
                  backoff_max: float = 1.0,
+                 heartbeat_interval: float = _HEARTBEAT_S,
                  assigned_rank: "int | None" = None,
                  expect_shard: "int | None" = None,
+                 agg_group: "int | None" = None,
+                 agg_target: int = 0,
+                 fallback_group: "int | None" = None,
                  op_deadline: "float | None" = None,
                  credit_cap: "int | None" = None,
+                 max_pending: int = 4,
+                 stall_hook=None, pace_hook=None,
                  bucket_bytes: "int | None" = None,
                  fused_encode: bool = False):
         from .ops.codecs import get_codec
@@ -1878,12 +2006,16 @@ class AsyncPSWorker:
         self.reconnect_retries = reconnect_retries
         self.backoff_base = backoff_base
         self.backoff_max = backoff_max
+        self.heartbeat_interval = heartbeat_interval
         self.fault_plan = fault_plan
         self.reconnects = 0
         # Each pull round trip runs under ``Deadline(op_deadline)``; a
         # blown budget is counted and heals through the reconnect ladder.
         self.op_deadline = op_deadline
         self._credit_cap = credit_cap
+        self._max_pending = max_pending
+        self._stall_hook = stall_hook
+        self._pace_hook = pace_hook
         # Worker-side counters; the session's stall/shed counts merge in
         # via `fault_snapshot` (the JAX worker's keys).
         self.fault_stats: "dict[str, int]" = {
@@ -1900,6 +2032,9 @@ class AsyncPSWorker:
         # whole-tree gradients at a slice owner.
         self._assigned_rank = assigned_rank
         self._expect_shard = expect_shard
+        self._agg_group = agg_group
+        self._agg_target = int(agg_target)
+        self._fallback_group = fallback_group
         self.shard_index = 0
         self.num_shards = 1
         self.plan_digest = 0
@@ -1986,6 +2121,16 @@ class AsyncPSWorker:
                 flags, extra = 2, struct.pack("<I", self._assigned_rank)
             else:
                 flags, extra = 0, b""
+            if self._agg_group is not None:
+                # The aggregator identity composes with a prior or
+                # assigned rank (a restarted aggregator re-claims its rank
+                # and its group in one HELO).
+                flags |= 8
+                extra += struct.pack("<HH", self._agg_group,
+                                     self._agg_target)
+            if self._fallback_group is not None:
+                flags |= 16
+                extra += struct.pack("<H", self._fallback_group)
             send_frame(sock, b"HELO" + bytes([flags]) + extra
                        + (self.token.encode() if self.token else b""))
             reply = recv_frame(sock)
@@ -2043,8 +2188,11 @@ class AsyncPSWorker:
         if self._session is None:
             self._session = Session(
                 sock, io_timeout=self.io_timeout,
-                heartbeat_interval=_HEARTBEAT_S,
-                credit_cap=self._credit_cap)
+                heartbeat_interval=self.heartbeat_interval,
+                max_pending=self._max_pending,
+                credit_cap=self._credit_cap,
+                stall_hook=self._stall_hook,
+                pace_hook=self._pace_hook)
         else:
             self._session.adopt(sock)
         self.rank = rank
@@ -2141,8 +2289,28 @@ class AsyncPSWorker:
         copied on park."""
         seq = self._push_seq
         self._push_seq += 1
-        head = (b"GRAD" + _BKT.pack(0, 1) + _U64.pack(seq)
-                + _U64.pack(version) + _F64.pack(float(loss)))
+        self._send_tree(b"GRAD" + _BKT.pack(0, 1) + _U64.pack(seq)
+                        + _U64.pack(version) + _F64.pack(float(loss)),
+                        codes_host)
+
+    def push_agg(self, codes_host, version: int, loss: float, *,
+                 group: int, n_contrib: int, target: int) -> None:
+        """Forward one group-reduced code tree as an AGGR frame (the
+        hierarchy's forward, `shard.hierarchy.LocalAggregator`):
+        ``n_contrib`` is how many worker gradients it stands for, and the
+        seq is burned as `push` burns it."""
+        seq = self._push_seq
+        self._push_seq += 1
+        self._send_tree(b"AGGR" + _GRP.pack(int(group), int(n_contrib),
+                                            int(target))
+                        + _BKT.pack(0, 1) + _U64.pack(seq)
+                        + _U64.pack(version) + _F64.pack(float(loss)),
+                        codes_host)
+
+    def _send_tree(self, head: bytes, codes_host) -> None:
+        """One data frame ``head | tree``: segmented through the credit
+        gate, or as one blob (a wire mangler armed, or a peer without the
+        segmented wire)."""
         if self._mangler is None and self._wire_segmented:
             meta_blob, segs = serializer.encode_segments(
                 codes_host, level=_WIRE_LEVEL)
@@ -2174,6 +2342,29 @@ class AsyncPSWorker:
         segmented wire, each bucket goes out as a frame of its own."""
         seq = self._push_seq
         self._push_seq += 1
+        tail = _U64.pack(seq) + _U64.pack(version) + _F64.pack(float(loss))
+        self._stream_buckets(
+            lambda b: b"GRAD" + _BKT.pack(b, int(n_buckets)) + tail,
+            buckets)
+
+    def push_agg_buckets(self, buckets, n_buckets: int, version: int,
+                         loss: float, *, group: int, n_contrib: int,
+                         target: int) -> None:
+        """`push_buckets` for the hierarchy's forward: the aggregator
+        reduces per bucket and streams each reduced sub-tree as an
+        AGGR-bucket frame, one credit for the whole forward, so the send
+        of bucket b overlaps the reduce of bucket b+1."""
+        seq = self._push_seq
+        self._push_seq += 1
+        grp = _GRP.pack(int(group), int(n_contrib), int(target))
+        tail = _U64.pack(seq) + _U64.pack(version) + _F64.pack(float(loss))
+        self._stream_buckets(
+            lambda b: b"AGGR" + grp + _BKT.pack(b, int(n_buckets)) + tail,
+            buckets)
+
+    def _stream_buckets(self, head_of, buckets) -> None:
+        """The bucket frames of one gradient, ``head_of(b) | sub-tree``,
+        through the gate as `push_buckets` describes."""
         direct: "bool | None" = None
         parked: list = []
         b = 0
@@ -2181,9 +2372,7 @@ class AsyncPSWorker:
             group = item if isinstance(item, (list, tuple)) else [item]
             batch: list = []
             for codes_host in group:
-                head = (b"GRAD" + _BKT.pack(b, int(n_buckets))
-                        + _U64.pack(seq) + _U64.pack(version)
-                        + _F64.pack(float(loss)))
+                head = head_of(b)
                 b += 1
                 self.fault_stats["buckets_sent"] += 1
                 if self._mangler is not None or not self._wire_segmented:

@@ -72,6 +72,12 @@ class Codec:
     # encodes each gradient in the JAX package's layout); False for the
     # codecs that are elementwise end to end.
     ordered = True
+    # Whether ``decode`` recovers a single contribution's gradient.  True
+    # for every codec here; a sketch-style codec whose only decodable
+    # quantity is the cross-contributor sum sets it False, and
+    # `ops.robust.check_reducer_codec` then refuses any reducer that needs
+    # per-contribution decodes.
+    itemwise_decode = True
 
     def encode(self, grad: torch.Tensor) -> Code:
         raise NotImplementedError

@@ -41,6 +41,58 @@ import torch
 
 ROBUST_REDUCERS = ("mean", "trimmed_mean", "median", "norm_clip")
 
+# Reducers that are coordinate-wise: the statistic at each coordinate
+# depends only on that coordinate's stack of contributions, so reducing
+# bucket sub-trees independently composes to exactly the whole-tree
+# statistic (what the hierarchy's per-bucket pre-reduce relies on).
+# norm_clip is not: its clip factor is each contribution's global norm
+# across every leaf, which no single bucket can see.
+COORDINATEWISE_REDUCERS = frozenset(("mean", "trimmed_mean", "median"))
+
+
+def bucket_streamable(aggregate: str, *,
+                      anomaly_scoring: bool = False) -> bool:
+    """Whether ``aggregate`` may be applied per bucket with results that
+    compose bitwise to the whole-tree reduce: coordinate-wise reducers
+    qualify, ``norm_clip`` does not, and anomaly scoring disqualifies any
+    reducer (the scoreboard scores whole-gradient norms).  A caller (the
+    hierarchy's `LocalAggregator`) keeps the whole-tree reduce and only
+    splits the result for sending when this is False."""
+    if aggregate not in ROBUST_REDUCERS:
+        raise ValueError(
+            f"unknown aggregate {aggregate!r}; have {list(ROBUST_REDUCERS)}")
+    return aggregate in COORDINATEWISE_REDUCERS and not anomaly_scoring
+
+
+class ReducerCodecError(TypeError):
+    """A non-linear robust reducer was combined with a codec that cannot
+    decode individual contributions (``itemwise_decode = False``: its only
+    decode path is the fused ``decode_sum``).  Trimming, median and
+    clipping need each contribution separately; the linear fast path
+    would silently apply un-reduced gradients, so this is refused when the
+    step is compiled."""
+
+
+def check_reducer_codec(aggregate: str, code, *,
+                        anomaly_scoring: bool = False) -> bool:
+    """The compile-time compatibility gate.  Returns True when the
+    itemwise decode path is needed (a non-linear reducer, or anomaly
+    scoring, which needs per-contribution norms even under ``mean``);
+    raises the typed `ReducerCodecError` when that path is needed but the
+    codec cannot decode single contributions."""
+    itemwise_needed = aggregate != "mean" or anomaly_scoring
+    if itemwise_needed and not getattr(code, "itemwise_decode", True):
+        why = (f"aggregate={aggregate!r}" if aggregate != "mean"
+               else "anomaly scoring")
+        raise ReducerCodecError(
+            f"codec {code.name!r} decodes only the cross-contributor SUM "
+            f"(itemwise_decode=False, a decode_sum-only sketch-style "
+            f"codec); {why} needs each contribution decoded separately. "
+            f"Use a codec with per-contribution decode, or aggregate="
+            f"'mean' without anomaly scoring.")
+    return itemwise_needed
+
+
 def tree_contrib_norms(stacked_tree: "OrderedDict[str, torch.Tensor]"):
     """Global L2 norm of each stacked contribution across EVERY leaf of the
     tree: ``[n]`` f32 for leaves shaped ``[n, ...]`` (the whole-gradient

@@ -828,6 +828,28 @@ class PSFleet:
                     merged = agg.setdefault(key, {})
                     for rank, n in value.items():
                         merged[rank] = merged.get(rank, 0) + n
+                elif key == "groups":
+                    # The hierarchy's view: every shard books the same
+                    # fleet-wide aggregator and fallback identities, so
+                    # the fleet entry keeps those and sums the per-shard
+                    # AGGR traffic.
+                    merged = agg.setdefault(key, {})
+                    for g, info in value.items():
+                        cur = merged.get(g)
+                        if cur is None:
+                            merged[g] = dict(
+                                info, fallback_ranks=list(
+                                    info.get("fallback_ranks", [])))
+                            continue
+                        cur["agg_frames"] = (cur.get("agg_frames", 0)
+                                             + info.get("agg_frames", 0))
+                        cur["last_contributors"] = info.get(
+                            "last_contributors",
+                            cur.get("last_contributors", 0))
+                        for r in info.get("fallback_ranks", []):
+                            if r not in cur.setdefault(
+                                    "fallback_ranks", []):
+                                cur["fallback_ranks"].append(r)
         agg["repl_lag"] = max((snap.get("repl_lag", 0)
                                for _n, snap in live), default=0)
         agg["shards"] = shards

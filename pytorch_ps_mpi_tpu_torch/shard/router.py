@@ -73,20 +73,28 @@ class ShardRouter:
                  fault_plan=None, io_timeout: float = 60.0,
                  reconnect_retries: int = 3, backoff_base: float = 0.1,
                  backoff_max: float = 1.0,
+                 heartbeat_interval: float = 2.0,
                  degraded_max: int = 8,
                  degraded_deadline: "float | None" = None,
                  op_deadline: "float | None" = None,
-                 credit_cap: "int | None" = None):
+                 credit_cap: "int | None" = None,
+                 fallback_group: "int | None" = None):
         endpoints = [(h, int(p)) for h, p in endpoints]
         if not endpoints:
             raise ValueError("ShardRouter needs at least one endpoint")
         self.endpoints = endpoints
         self.fault_plan = fault_plan
+        # ``fallback_group``: this router is a direct-fallback worker of
+        # hierarchy group g (`shard.hierarchy.GroupWorker`): every shard
+        # books the HELO flag, and the fleet view sums the K bookings (one
+        # failed-over worker reads as K, as reconnects do).
         link_kw = dict(code=code, device=device, token=token,
                        fault_plan=fault_plan, io_timeout=io_timeout,
                        reconnect_retries=reconnect_retries,
                        backoff_base=backoff_base, backoff_max=backoff_max,
-                       op_deadline=op_deadline, credit_cap=credit_cap)
+                       heartbeat_interval=heartbeat_interval,
+                       op_deadline=op_deadline, credit_cap=credit_cap,
+                       fallback_group=fallback_group)
         self.links: "list[AsyncPSWorker]" = []
         try:
             # Shard 0 mints the fleet-wide rank; the other links book it.

@@ -22,10 +22,13 @@ a `shard.ShardRouter`); and the reader role, ``--subscribe HOST:PORT``
 (a `serve.Subscriber`, or a `serve.FleetSubscriber` over a fleet's
 endpoints; ``subscribed at version N`` on stdout), with ``--infer-serve``
 driving the continuous-batching `serve.InferenceFrontend` on the
-subscription.  It takes the JAX CLI's flags and prints its lines; the
-roles and flags not ported yet (``--sp/--tp/--pp/--ep > 1``, and on the
-multihost roles the hierarchy's ``--aggregators`` and ``--fallback``) are
-refused by name.  A
+subscription; and the hierarchy, ``--serve P --aggregators G
+--group-size N [--shards K]`` (a root PS or fleet and G group-local
+aggregators in one process, ``aggregators on ports ...`` on stdout) with
+``--connect AGG --group g --fallback ROOT[,...]`` workers (a
+`shard.GroupWorker`).  It takes the JAX CLI's flags and prints its lines;
+the roles not ported yet (``--sp/--tp/--pp/--ep > 1``) are refused by
+name.  A
 ``--connect`` worker streams its gradients in buckets under
 ``--async-bucket-bytes N`` (0: auto), encoded inside backward under
 ``--fused-encode``; ``--moe-experts E`` gives the LM dense MoE MLPs on
@@ -665,19 +668,11 @@ def main(argv=None):
     return _dispatch(args)
 
 
-# The roles and flags of the JAX CLI this package does not port yet.
+# The roles of the JAX CLI this package does not port yet.
 def _unported(args) -> "str | None":
     for flag in ("sp", "tp", "pp", "ep"):
         if getattr(args, flag) > 1:
             return f"--{flag} {getattr(args, flag)}"
-    if args.serve is None and not args.connect and not args.subscribe:
-        return None
-    # On the multihost and reader roles: the hierarchy's flags.
-    for flag, given in (
-            ("--aggregators", bool(args.aggregators)),
-            ("--fallback", bool(args.fallback))):
-        if given:
-            return flag
     return None
 
 
@@ -687,8 +682,8 @@ def _dispatch(args):
         raise SystemExit(f"{what} is not ported to the PyTorch package yet "
                          f"(the sync trainer, the in-process async PS and "
                          f"the multihost roles with the bucket stream, the "
-                         f"serve tier and the sharded fleet are, with the "
-                         f"dense MoE LM; the hierarchy and the sp/tp/pp/ep "
+                         f"serve tier, the sharded fleet and the hierarchy "
+                         f"are, with the dense MoE LM; the sp/tp/pp/ep "
                          f"roles follow)")
     # Refuse, don't drop: every flag below would be inert on the role that
     # runs (the JAX CLI's refusals and messages, in its order).
@@ -847,31 +842,48 @@ def _dispatch(args):
             raise SystemExit("--snapshot-every needs --save PATH for the "
                              "per-shard cut checkpoints and the "
                              "ckpt.fleet.json manifest")
+    on_hier_ps = args.serve is not None and args.aggregators > 0
     if args.aggregators:
         if args.aggregators < 1:
             raise SystemExit(
                 f"--aggregators must be >= 1, got {args.aggregators}")
-        raise SystemExit("--aggregators is the hierarchical-"
-                         "aggregation tier of the PS process "
-                         "(--serve): it spawns the group-local "
-                         "aggregators next to the root — workers "
-                         "connect to the printed aggregator ports")
-    if (args.group_aggregate != "mean" or args.group_trim_k is not None
-            or args.group_quorum is not None
-            or args.group_fill_deadline is not None
-            or args.group_anomaly_z is not None):
+        if args.serve is None:
+            raise SystemExit("--aggregators is the hierarchical-"
+                             "aggregation tier of the PS process "
+                             "(--serve): it spawns the group-local "
+                             "aggregators next to the root — workers "
+                             "connect to the printed aggregator ports")
+        if args.group_size < 1:
+            raise SystemExit("--aggregators needs --group-size N (each "
+                             "group's fill target); without it the tier "
+                             "has no quota to fill")
+    group_flags = (args.group_aggregate != "mean"
+                   or args.group_trim_k is not None
+                   or args.group_quorum is not None
+                   or args.group_fill_deadline is not None
+                   or args.group_anomaly_z is not None)
+    if group_flags and not args.aggregators:
         raise SystemExit("--group-aggregate / --group-trim-k / "
                          "--group-quorum / --group-fill-deadline / "
                          "--group-anomaly-z configure the GROUP level of "
                          "a hierarchy (--serve --aggregators G); without "
                          "one they would be silently inert, which is "
                          "worse than refusing")
-    if args.fallback:
+    if (args.group_fill_deadline is not None
+            and args.group_quorum is None):
+        raise SystemExit("--group-fill-deadline only takes effect with "
+                         "--group-quorum (a fill without one never "
+                         "closes short)")
+    if args.fallback and not args.connect:
         raise SystemExit("--fallback is the worker-side failover target "
                          "(--connect to an aggregator, falling back to "
                          "the root): on any other role it would be "
                          "silently inert")
-    if args.group is not None:
+    if args.fallback and "," in args.connect:
+        raise SystemExit("--fallback needs --connect to name ONE "
+                         "aggregator endpoint (the fallback list itself "
+                         "may be comma-separated for a sharded root)")
+    if args.group is not None and not args.fallback:
         raise SystemExit("--group tags a failover-capable hierarchy "
                          "worker's direct-fallback HELO (--connect AGG "
                          "--fallback ROOT); without --fallback it would "
@@ -885,7 +897,8 @@ def _dispatch(args):
         if args.connect:
             raise SystemExit("--adaptive-deadline is PS-side: set it on "
                              "the --serve process")
-        if args.quorum is None:
+        if args.quorum is None and not (args.aggregators
+                                        and args.group_quorum is not None):
             raise SystemExit("--adaptive-deadline adapts a QUORUM "
                              "deadline: set --quorum (root level) "
                              "and/or --group-quorum (group level), or "
@@ -923,7 +936,7 @@ def _dispatch(args):
                              "through the shard router); on this role "
                              "the partition would be silently inert — "
                              "which is worse than refusing")
-        if plan.any_agg_faults():
+        if plan.any_agg_faults() and not on_hier_ps:
             raise SystemExit("--chaos kill_agg_at / slow_agg / "
                              "byzantine_agg name GROUP AGGREGATORS of a "
                              "hierarchy (--serve --aggregators G); on "
@@ -996,6 +1009,12 @@ def _dispatch(args):
                              "arrays, not frames — anywhere else the "
                              "flag would be silently inert, which is "
                              "worse than refusing")
+        if args.fallback:
+            raise SystemExit("--async-bucket-bytes does not compose "
+                             "with the hierarchy failover worker "
+                             "(--fallback) yet — the GroupWorker's "
+                             "direct-root failover re-compiles the "
+                             "whole-tree step; drop one of the flags")
         if args.shards > 1 or "," in args.connect:
             raise SystemExit("--async-bucket-bytes does not compose "
                              "with the shard router (--connect to a "
@@ -1502,6 +1521,13 @@ def _resolve_fill_deadline(args) -> float:
     return 0.05 if args.quorum is not None else 0.0
 
 
+def _resolve_group_deadline(args) -> float:
+    """`_resolve_fill_deadline` for the hierarchy's group level."""
+    if args.group_fill_deadline is not None:
+        return args.group_fill_deadline
+    return 0.05 if args.group_quorum is not None else 0.0
+
+
 def _async_devices(args) -> "list[torch.device] | None":
     """The async PS's devices: the CPU repeated ``--force-cpu-devices N``
     times (the JAX CLI's N CPU devices), or the visible cards; the first
@@ -1626,6 +1652,8 @@ def run_multihost(args, plan=None):
         batch_fn = dataset_batch_fn(x, y, args.batch_size, seed=args.seed)
     device = _multihost_device(args)
 
+    if args.serve is not None and args.aggregators:
+        return _run_hier(args, params, loss_fn, plan, device)
     if args.serve is not None and args.shards > 1:
         return _run_fleet(args, params, loss_fn, plan, device)
     if args.serve is not None:
@@ -1693,6 +1721,9 @@ def run_multihost(args, plan=None):
         return srv
 
     endpoints = _endpoints(args.connect, "--connect", args.shards)
+    if args.fallback:
+        return _run_group_worker(args, endpoints[0], loss_fn, batch_fn,
+                                 plan, device)
     if len(endpoints) > 1:
         return _run_shard_worker(args, endpoints, loss_fn, batch_fn, plan,
                                  device)
@@ -1817,6 +1848,202 @@ def _run_fleet(args, params, loss_fn, plan, device):
     finally:
         fleet.close()
     return fleet
+
+
+def _run_hier(args, params, loss_fn, plan, device):
+    """--serve --aggregators G --group-size N: the hierarchy
+    (`shard.hierarchy`).  The root PS (or the --shards K fleet) serves on
+    a thread of this process while G group-local aggregators fill under
+    their own --group-* policy and forward one AGGR frame a fill; all of
+    them share the card.  Workers connect to the printed aggregator ports
+    (with --fallback naming the root for failover)."""
+    import json as _json
+    import threading as _threading
+
+    from .multihost_async import AsyncPSServer
+    from .shard import Hierarchy, PSFleet
+    from .utils.interop import jax_tree_order
+    from .utils.timing import format_fault_stats
+
+    root_kw = dict(optim=args.optim, code=args.codec, token=args.token,
+                   device=device,
+                   staleness_weighting=args.staleness_weighting,
+                   max_staleness=args.max_staleness,
+                   skip_nonfinite=args.skip_nonfinite,
+                   aggregate=args.aggregate, trim_k=args.trim_k,
+                   quorum=args.quorum,
+                   fill_deadline=_resolve_fill_deadline(args),
+                   anomaly_z=args.anomaly_z,
+                   adaptive_deadline=(args.adaptive_deadline
+                                      and args.quorum is not None),
+                   latency_weighting=args.latency_weighting,
+                   credit_window=args.credit_window,
+                   op_deadline=args.op_deadline,
+                   read_window=args.read_window,
+                   wire_codec=args.wire_codec,
+                   delta_parm=args.delta_parm,
+                   **hyper_from_args(args))
+    quota = args.quota or args.aggregators
+    if args.shards > 1:
+        rules = None
+        if args.partition_rules:
+            try:
+                rules = _json.loads(args.partition_rules)
+            except ValueError as exc:
+                raise SystemExit(
+                    f"--partition-rules is not valid JSON: {exc}")
+        # The JAX tree's order, so the plan splits as the JAX CLI's does.
+        root = PSFleet(list(jax_tree_order(params).items()),
+                       num_shards=args.shards, quota=quota,
+                       host="0.0.0.0", ports=args.serve, rules=rules,
+                       replicas=args.replicas, fault_plan=plan, **root_kw)
+    else:
+        root = AsyncPSServer(list(params.items()), quota=quota,
+                             host="0.0.0.0", port=args.serve,
+                             fault_plan=plan, **root_kw)
+    hier = None
+    try:
+        root.compile_step(loss_fn)
+        start = 0
+        if args.resume:
+            if args.shards > 1:
+                starts = root.resume_from(args.resume)
+                start = min(starts)
+                print(f"resumed fleet shards at steps {starts}",
+                      file=sys.stderr)
+            else:
+                start = root.resume_from(args.resume)
+                print(f"resumed from {args.resume} at step {start}",
+                      file=sys.stderr)
+        updates = max(args.steps - start, 0)
+        root_out: dict = {}
+
+        def serve_root():
+            try:
+                kw = dict(log_every=10, checkpoint_path=args.save,
+                          checkpoint_every=args.checkpoint_every)
+                if args.shards > 1:
+                    # The fleet supervisor owns the per-shard resume
+                    # points; it takes the total step target.
+                    kw.update(steps=args.steps,
+                              snapshot_every=args.snapshot_every)
+                else:
+                    kw.update(steps=updates, start_step=start)
+                root_out["hist"] = root.serve(**kw)
+            except BaseException as exc:  # re-raised once the tier ends
+                root_out["error"] = exc
+
+        root_thread = _threading.Thread(target=serve_root, daemon=True,
+                                        name="hier-root")
+        root_thread.start()
+        if args.shards > 1:
+            root_ports = [p for _, p in root.addresses]
+            print("serving on ports "
+                  + " ".join(str(p) for p in root_ports), flush=True)
+        else:
+            root_ports = [root.address[1]]
+            print(f"serving on port {root_ports[0]}", flush=True)
+        upstream = [("127.0.0.1", p) for p in root_ports]
+        hier = Hierarchy(list(params.items()), groups=args.aggregators,
+                         group_size=args.group_size, upstream=upstream,
+                         host="0.0.0.0", fault_plan=plan, device=device,
+                         code=args.codec, token=args.token,
+                         aggregate=args.group_aggregate,
+                         trim_k=args.group_trim_k,
+                         quorum=args.group_quorum,
+                         fill_deadline=_resolve_group_deadline(args),
+                         anomaly_z=args.group_anomaly_z,
+                         adaptive_deadline=(
+                             args.adaptive_deadline
+                             and args.group_quorum is not None),
+                         latency_weighting=args.latency_weighting,
+                         # Worker-level admission belongs where the raw
+                         # gradients are: a NaN or stale worker gradient
+                         # dropped here costs one gradient, where admitted
+                         # it would poison the group's forward.
+                         skip_nonfinite=args.skip_nonfinite,
+                         max_staleness=args.max_staleness,
+                         staleness_weighting=args.staleness_weighting,
+                         credit_window=args.credit_window,
+                         op_deadline=args.op_deadline)
+        hier.compile()
+        # Machine-parseable on stdout: group g's aggregator port at
+        # position g, what the group's workers' --connect names.
+        print("aggregators on ports "
+              + " ".join(str(p) for _, p in hier.addresses), flush=True)
+        t0 = time.perf_counter()
+        view = hier.serve(log_every=10)
+        root_thread.join(timeout=600)
+        if "error" in root_out:
+            raise root_out["error"]
+        hist = root_out.get("hist") or {}
+        wall = time.perf_counter() - t0
+        fs = dict(hist.get("fault_stats") or {})
+        # The root's groups view with each aggregator's own snapshot (the
+        # group-level scoreboard the containment is about).
+        tier = view["fault_stats"]
+        merged_groups = dict(fs.get("groups") or {})
+        for g, snap in tier.get("groups", {}).items():
+            entry = dict(merged_groups.get(g) or {})
+            entry["aggregator"] = snap
+            merged_groups[g] = entry
+        fs["groups"] = merged_groups
+        n_updates = len(hist.get("losses") or [])
+        print(f"done: {n_updates} root updates, {view['fills_total']} "
+              f"group fills across {args.aggregators} aggregators in "
+              f"{wall:.1f}s", file=sys.stderr)
+        rendered = format_fault_stats(fs)
+        if rendered != "clean":
+            print("fault stats: " + rendered, file=sys.stderr)
+        tier_rendered = format_fault_stats(tier)
+        if tier_rendered != "clean":
+            print("aggregator tier: " + tier_rendered, file=sys.stderr)
+        if args.save:
+            if args.shards > 1:
+                root.save_checkpoint(args.save, args.steps)
+            else:
+                root._auto_checkpoint(args.save, args.steps)
+            print(f"checkpoint -> {args.save} (step {args.steps})",
+                  file=sys.stderr)
+    finally:
+        if hier is not None:
+            hier.close()
+        root.close()
+    return root
+
+
+def _run_group_worker(args, agg_endpoint, loss_fn, batch_fn, plan, device):
+    """--connect AGG --fallback ROOT[,...]: a failover-capable hierarchy
+    worker (`shard.GroupWorker`)."""
+    from .shard import GroupWorker
+    from .utils.timing import format_fault_stats
+
+    roots = []
+    for part in args.fallback.split(","):
+        host, _, port = part.rpartition(":")
+        if not host or not port.isdigit():
+            raise SystemExit(f"--fallback wants HOST:PORT[,...], got "
+                             f"{args.fallback!r}")
+        roots.append((host, int(port)))
+    if args.shards > 1 and len(roots) == 1:
+        host, port = roots[0]
+        roots = [(host, port + k) for k in range(args.shards)]
+    (h, p) = agg_endpoint
+    group = args.group if args.group is not None else 0
+    worker = GroupWorker(h, p, root_endpoints=roots, group=group,
+                         code=args.codec, token=args.token,
+                         fault_plan=plan, device=device,
+                         reconnect_retries=args.reconnect_retries,
+                         backoff_max=2.0)
+    print(f"group {group} worker local rank {worker.rank} "
+          f"connected to aggregator {h}:{p}", file=sys.stderr)
+    pushed = worker.run(loss_fn, batch_fn)
+    rendered = format_fault_stats(worker.fault_stats)
+    if rendered != "clean":
+        print(f"worker fault stats: {rendered}", file=sys.stderr)
+    print(f"group worker done: {pushed} gradients pushed",
+          file=sys.stderr)
+    return worker
 
 
 def _run_shard_worker(args, endpoints, loss_fn, batch_fn, plan, device):

@@ -10,8 +10,9 @@ The in-process async PS honors ``kill_ps_at`` (`SimulatedCrash`), the
 straggler, Byzantine (``byzantine_transform``: maps on trees of tensors)
 and overload faults; the multihost server and worker honor those and
 the wire faults (`WireMangler`, on a worker's outbound GRAD frames) and
-the non-finite injection (`poison_nonfinite`, on its host codes).  The
-aggregator's map (``agg_byzantine_transform``) waits for the hierarchy.
+the non-finite injection (`poison_nonfinite`, on its host codes); the
+hierarchy honors the aggregator faults (``kill_agg_at``, ``slow_agg``,
+and ``agg_byzantine_transform`` on the group's reduced gradient).
 """
 
 from __future__ import annotations
@@ -284,14 +285,8 @@ class FaultPlan:
         return (self.any_overload_worker_faults()
                 or self.slow_consumer > 0)
 
-    def byzantine_transform(self, rank: int):
-        """The gradient-tree transform for ``rank``, or None for honest
-        ranks.  Applied to the RAW gradients before encoding (inside the
-        worker's step), so the attack survives any codec — a sign-flipped
-        gradient quantizes to a sign-flipped code.  Every mode produces
-        finite values by construction."""
-        if self.byzantine_rank is None or self.byzantine_rank != rank:
-            return None
+    def _byzantine_fn(self):
+        """The configured attack as a map on a tree of tensors."""
         mode, scale = self.byzantine_mode, self.byzantine_scale
         if mode not in ("sign_flip", "scale", "constant"):
             raise ValueError(
@@ -306,6 +301,27 @@ class FaultPlan:
                 lambda g: g * torch.tensor(scale, dtype=g.dtype,
                                            device=g.device), grads)
         return lambda grads: tree_map(torch.ones_like, grads)
+
+    def byzantine_transform(self, rank: int):
+        """The gradient-tree transform for ``rank``, or None for honest
+        ranks.  Applied to the RAW gradients before encoding (inside the
+        worker's step), so the attack survives any codec — a sign-flipped
+        gradient quantizes to a sign-flipped code.  Every mode produces
+        finite values by construction."""
+        if self.byzantine_rank is None or self.byzantine_rank != rank:
+            return None
+        return self._byzantine_fn()
+
+    def agg_byzantine_transform(self, group: int):
+        """The reduced-gradient transform for an adversarial aggregator of
+        ``group`` (None for honest groups).  Applied to the group's
+        reduced gradient before it is re-encoded, so the attack rides the
+        AGGR frame through any codec: the injector proving that group
+        containment cannot defend against the container itself (only the
+        root's robust policy and scoreboard can)."""
+        if self.byzantine_agg is None or self.byzantine_agg != group:
+            return None
+        return self._byzantine_fn()
 
     # -- sync-trainer faults ----------------------------------------------
 

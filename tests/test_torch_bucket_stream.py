@@ -648,20 +648,24 @@ def test_cli_refusal_matrix(argv):
 def test_cli_bucket_flags_reach_the_dial_on_connect():
     """A worker takes ``--async-bucket-bytes`` and ``--fused-encode``: it
     gets past every refusal to the dial, here at a port that does not
-    listen; with the hierarchy's flags it is refused by their name, and a
-    shard router (the fleet is ported) refuses the stream with the JAX
-    CLI's message."""
+    listen; with the hierarchy's failover worker (``--fallback``) and with
+    a shard router it is refused with the JAX CLI's messages."""
     with socket.socket() as closed:
         closed.bind(("127.0.0.1", 0))
         with pytest.raises(ConnectionRefusedError):
             ttrain.main(["--connect", f"127.0.0.1:{closed.getsockname()[1]}",
                          "--async-bucket-bytes", "0", "--fused-encode",
                          "--steps", "1", "--force-cpu-devices", "1"])
-    with pytest.raises(SystemExit) as e:
-        ttrain.main(["--connect", "h:1", "--async-bucket-bytes", "0",
-                     "--fallback", "h:2", "--steps", "1",
-                     "--force-cpu-devices", "1"])
-    assert str(e.value).startswith("--fallback is not ported")
+    msgs = []
+    for run, tail in ((jtrain.main, ["--n-devices", "1"]),
+                      (ttrain.main, ["--force-cpu-devices", "1"])):
+        with pytest.raises(SystemExit) as e:
+            run(["--connect", "h:1", "--async-bucket-bytes", "0",
+                 "--fallback", "h:2", "--steps", "1", *tail])
+        msgs.append(str(e.value))
+    assert msgs[1] == msgs[0]
+    assert msgs[1].startswith("--async-bucket-bytes does not compose "
+                              "with the hierarchy failover worker")
     msgs = []
     for run, tail in ((jtrain.main, ["--n-devices", "1"]),
                       (ttrain.main, ["--force-cpu-devices", "1"])):

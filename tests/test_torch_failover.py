@@ -225,7 +225,9 @@ def test_jax_repl_at_a_port_standby_is_refused_and_never_hangs():
         with pytest.raises(ConnectionError):
             recv_frame(sock)
         sock.close()
-        _wait(lambda: standby.fault_stats["quarantined_frames"] == 1)
+        # The connection thread counts the frame, then records the drop.
+        _wait(lambda: standby.fault_stats["quarantined_frames"] == 1
+              and standby._last_drop is not None)
         assert isinstance(standby._last_drop,
                           serializer.ForeignTreeFrameError)
         assert standby.replica_step() is None

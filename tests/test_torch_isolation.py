@@ -64,11 +64,42 @@ def test_the_checks_cover_the_fleet_modules():
 
     files = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert {"shard/__init__.py", "shard/partition.py", "shard/router.py",
-            "shard/fleet.py"} <= files
+            "shard/fleet.py", "shard/hierarchy.py"} <= files
     walked = {m.name for m in pkgutil.walk_packages(port.__path__,
                                                      port.__name__ + ".")}
     assert {f"pytorch_ps_mpi_tpu_torch.shard.{m}"
-            for m in ("partition", "router", "fleet")} <= walked
+            for m in ("partition", "router", "fleet", "hierarchy")} <= walked
+
+
+def test_the_hierarchy_imports_no_jax_and_defaults_to_the_card():
+    """``shard/hierarchy.py`` imports neither JAX nor the JAX package,
+    directly or through what it imports, and its entry points raise
+    without a card unless asked for the CPU."""
+    tree = ast.parse((PKG / "shard" / "hierarchy.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            imported.add(node.module or "")
+    assert imported and not any(_forbidden(n) for n in imported)
+    code = ("import sys\n"
+            "import pytorch_ps_mpi_tpu_torch.shard.hierarchy as h\n"
+            "assert h.LocalAggregator and h.GroupWorker and h.Hierarchy\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN_ROOTS!r} or m == 'pytorch_ps_mpi_tpu' or "
+            "m.startswith('pytorch_ps_mpi_tpu.'))\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if not torch.cuda.is_available():
+        from pytorch_ps_mpi_tpu_torch.shard import LocalAggregator
+
+        with pytest.raises(port.PSRuntimeError, match="no CUDA device"):
+            LocalAggregator([("w", np.zeros(2, np.float32))], group=0,
+                            upstream=[("127.0.0.1", 1)], group_size=1)
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -11,8 +11,9 @@ package's, on the CPU.
   the JAX apply runs under ``jit``, where XLA contracts multiply-adds).
 * Port worker processes train over TCP; the fault machinery (dedup, CRC
   drops, eviction, reconnect, refusals at connect, kill and resume); a
-  peer of the other package fails loudly, never hangs; the frames of the
-  slices not ported yet are refused by name.
+  peer of the other package fails loudly, never hangs; a malformed AGGR
+  head costs its connection, and the hierarchy's HELO flags are booked
+  as the JAX server books them.
 
 Every spawned process and every ``serve()`` has its own timeout of at
 most 60 s, and no subprocess pipe is left unread.
@@ -587,53 +588,75 @@ def test_jax_framed_grad_is_quarantined_and_the_server_serves_on():
 
 
 # ---------------------------------------------------------------------------
-# Frames of the slices not ported yet: refused by name
+# The hierarchy's frame and HELO flags (a malformed AGGR head costs only
+# its own connection; the fleet's REPL, SNAP and PROM are in
+# tests/test_torch_failover.py)
 # ---------------------------------------------------------------------------
 
-# The hierarchy's frame: the fleet's REPL, SNAP and PROM are answered
-# (tests/test_torch_failover.py).
+# A zero AGGR head carries n_buckets 0: the JAX server refuses it as a bad
+# bucket header, and so does the port's.
 REFUSED = [
-    ("AGGR", b"AGGR" + bytes(40), "AGGR frames (hierarchical aggregation)"),
+    ("AGGR", b"AGGR" + bytes(40), "bad bucket header (0/0)"),
 ]
 
 
 @pytest.mark.parametrize("frame,named", [r[1:] for r in REFUSED],
                          ids=[r[0] for r in REFUSED])
 def test_unported_frames_are_refused_by_name(frame, named):
-    srv = _accepting(_port_server())
-    try:
-        c = Raw(srv.address[1])
-        c.send(_helo())
-        c.recv_raw()
-        c.send(frame)
-        _wait(lambda: srv._conn_drops == 1, what="connection dropped")
-        assert srv.fault_stats["quarantined_frames"] == 1
-        assert named in str(srv._last_drop)
-        assert "not ported to the PyTorch package yet" in str(srv._last_drop)
-        c.close()
-        # The server serves on: a fresh connection is answered.
-        d = Raw(srv.address[1])
-        d.send(_helo())
-        assert d.recv_raw()[8:11] == b"PSA"
-        d.close()
-    finally:
-        srv.close()
+    """A malformed AGGR head costs its connection (counted in
+    ``quarantined_frames``), as at a JAX server, and the server serves
+    on."""
+    for srv in (_accepting(_port_server()), _accepting(_jax_server())):
+        try:
+            c = Raw(srv.address[1])
+            c.send(_helo())
+            c.recv_raw()
+            c.send(frame)
+            _wait(lambda: srv._conn_drops == 1, what="connection dropped")
+            assert srv.fault_stats["quarantined_frames"] == 1
+            assert named in str(srv._last_drop)
+            assert srv.fault_stats["agg_frames"] == 0
+            c.close()
+            # The server serves on: a fresh connection is answered.
+            d = Raw(srv.address[1])
+            d.send(_helo())
+            assert d.recv_raw()[8:11] == b"PSA"
+            d.close()
+        finally:
+            srv.close()
 
 
 @pytest.mark.parametrize("flag,named", [
     (8, "a hierarchy aggregator"), (16, "a hierarchy direct-fallback")],
     ids=["agg", "fallback"])
 def test_unported_helo_flags_are_refused_by_name(flag, named):
-    srv = _accepting(_port_server())
-    try:
-        c = Raw(srv.address[1])
-        c.send(_helo(flag, bytes(4)))
-        _wait(lambda: srv._conn_drops == 1, what="connection dropped")
-        assert f"HELO flag {flag} ({named}" in str(srv._last_drop)
-        assert srv.fault_stats["quarantined_frames"] == 1
-        c.close()
-    finally:
-        srv.close()
+    """HELO flag 8 (``group u16 | target u16``: a group's aggregator) and
+    flag 16 (``group u16``: a direct-fallback worker) book a rank; the PSA
+    reply and the ``groups`` view are the JAX server's."""
+    extra = struct.pack("<HH", 3, 2) if flag == 8 else struct.pack("<H", 3)
+    replies, views = [], []
+    for srv in (_accepting(_port_server()), _accepting(_jax_server())):
+        try:
+            c = Raw(srv.address[1])
+            c.send(_helo(flag, extra))
+            replies.append(c.recv_raw())
+            snap = srv._fault_stats_snapshot()
+            views.append((snap["groups"], snap["direct_fallbacks"],
+                          snap["workers_seen"]))
+            c.close()
+        finally:
+            srv.close()
+    assert replies[0] == replies[1], named
+    assert views[0] == views[1]
+    groups, fallbacks, seen = views[0]
+    assert seen == 1
+    if flag == 8:
+        assert groups == {"3": {"aggregator_rank": 0, "group_target": 2,
+                                "agg_frames": 0, "last_contributors": 0,
+                                "fallback_ranks": []}}
+        assert fallbacks == 0
+    else:
+        assert groups["3"]["fallback_ranks"] == [0] and fallbacks == 1
 
 
 def test_control_connection_books_no_rank_and_spln_is_empty():
@@ -714,12 +737,11 @@ def test_lockstep_wire_equals_the_in_process_async_ps(code, updates):
                                       err_msg=n)
 
 
-# The JAX server's and worker's counters of the slice not ported yet (the
-# hierarchy): the port does not carry counters that nothing of it can
-# move.  The worker's are all ported (the bucket stream's
-# ``buckets_sent`` and ``fused_encodes`` with it), and the fleet's
-# replication and snapshot counters are.
-_UNPORTED_SERVER_KEYS = {"agg_frames", "direct_fallbacks"}
+# Every counter of the JAX server and worker is ported: the hierarchy's
+# ``agg_frames`` and ``direct_fallbacks`` came with it, the bucket
+# stream's ``buckets_sent`` and ``fused_encodes`` and the fleet's
+# replication and snapshot counters before.
+_UNPORTED_SERVER_KEYS: set = set()
 _UNPORTED_WORKER_KEYS: set = set()
 
 

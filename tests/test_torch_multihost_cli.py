@@ -4,9 +4,9 @@ the CPU (``--force-cpu-devices 1``).
 A server process prints ``serving on port N`` on stdout (read from its
 first line) and worker processes connect to it; they print the JAX CLI's
 lines.  ``--save`` with ``--checkpoint-every`` and then ``--resume``
-continue the served version.  The flags of the multihost slices not
-ported yet are refused by name; the rest of the multihost refusals carry
-the JAX CLI's messages.  Every process has a timeout of at most 60 s, its
+continue the served version.  The hierarchy's flags are taken on their
+roles (the CLI run itself is in tests/test_torch_hierarchy_cli.py); the
+multihost refusals carry the JAX CLI's messages.  Every process has a timeout of at most 60 s, its
 stderr goes to a file, and its stdout is drained by ``communicate``.
 """
 
@@ -154,8 +154,11 @@ def test_save_checkpoint_every_then_resume_continues_the_version(tmp_path):
     assert extra["next_rank"] >= 2  # the rank allocation carried over
 
 
-# The hierarchy's flags (the fleet's are ported:
-# tests/test_torch_shard.py and tests/test_torch_failover.py).
+# The hierarchy's flags on the roles that once refused them by name (the
+# ids are kept): ``--aggregators`` without ``--group-size`` is refused in
+# the JAX CLI's words, and ``--fallback`` on a worker or a reader gets
+# past every refusal to the dial, here at a port that does not listen
+# (the JAX CLI's reader takes it too).
 STILL_UNPORTED = [
     (["--serve", "0", "--aggregators", "2"], "--aggregators"),
     (["--connect", "h:1", "--fallback", "h:2"], "--fallback"),
@@ -166,10 +169,23 @@ STILL_UNPORTED = [
 @pytest.mark.parametrize("argv,flag", STILL_UNPORTED,
                          ids=[" ".join(a) for a, _ in STILL_UNPORTED])
 def test_unported_multihost_flags_are_refused_by_name(argv, flag):
-    with pytest.raises(SystemExit) as e:
-        ttrain.main(argv + ["--steps", "1"] + CPU)
-    assert str(e.value).startswith(
-        f"{flag} is not ported to the PyTorch package yet")
+    if flag == "--aggregators":
+        msgs = []
+        for run in (lambda a: jtrain.main(a + ["--n-devices", "1"]),
+                    lambda a: ttrain.main(a + CPU)):
+            with pytest.raises(SystemExit) as e:
+                run(argv + ["--steps", "1"])
+            msgs.append(str(e.value))
+        assert msgs[1] == msgs[0]
+        assert msgs[1].startswith("--aggregators needs --group-size N")
+        return
+    with socket.socket() as closed:
+        closed.bind(("127.0.0.1", 0))
+        port = closed.getsockname()[1]
+        local = [a.replace("h:", "127.0.0.1:").replace(
+            "127.0.0.1:1", f"127.0.0.1:{port}") for a in argv]
+        with pytest.raises(ConnectionRefusedError):
+            ttrain.main(local + ["--steps", "1"] + CPU)
 
 
 def test_op_deadline_is_refused_on_serve_and_taken_on_connect():

@@ -240,7 +240,6 @@ def test_exports_cover_the_jax_package():
     import pytorch_ps_mpi_tpu_torch as port
 
     waiting = {
-        "AggregatorDeadError": "the hierarchy",
         "make_ps_mesh": "the multi-rank LM paths (meshes)",
         "TorchUnavailableError": "none: the port is the torch package",
     }
@@ -250,6 +249,15 @@ def test_exports_cover_the_jax_package():
             continue
         assert name in port.__all__, name
         assert hasattr(port, name), name
+    # The hierarchy's names, which the JAX package exports from ``shard``
+    # (its top level carries the error only).
+    import pytorch_ps_mpi_tpu.shard as jshard
+
+    for name in ("LocalAggregator", "GroupWorker", "Hierarchy"):
+        assert name in jshard.__all__ and name in port.shard.__all__
+        assert name in port.__all__
+    assert "AggregatorDeadError" in port.__all__
+    assert port.ReducerCodecError.__name__ == "ReducerCodecError"
     assert port.PS.__mro__[1] is port.MPI_PS
     assert port.checkpoint.save_optimizer is not None
 

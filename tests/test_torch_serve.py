@@ -196,11 +196,12 @@ def test_delt_constants_equal_jax():
     assert ttransport.READ_FRAME_KINDS == jtransport.READ_FRAME_KINDS \
         == frozenset((b"SUBS",))
     assert not ttransport.READ_FRAME_KINDS & ttransport.DATA_FRAME_KINDS
-    # The serve tier's frame and HELO flag are answered, the slice still
-    # to come (the hierarchy) stays refused.
-    assert b"SUBS" not in tma._REFUSED_FRAMES
-    assert set(tma._REFUSED_FRAMES) == {b"AGGR"}
-    assert set(tma._REFUSED_HELO_FLAGS) == {8, 16}
+    # Every frame and HELO flag of the protocol is answered now: the
+    # refusal tables went with the hierarchy's slice, whose AGGR prefix
+    # is the JAX module's.
+    assert not hasattr(tma, "_REFUSED_FRAMES")
+    assert not hasattr(tma, "_REFUSED_HELO_FLAGS")
+    assert tma._GRP.format == jma._GRP.format == "<HHH"
 
 
 def _gate_separate(mod, a, b):

@@ -293,13 +293,16 @@ def test_cli_transformer_lm_resumes_bitwise(tmp_path, capsys):
     assert re.search(r"^done: 3 steps, [\d,]+ tokens/sec", err, re.M)
 
 
-# (id, argv, the flag named): since the async PS, the multihost roles and
-# the sharded fleet are ported, the "--serve" and "--connect" cases hold
-# that those roles refuse the flags of the hierarchy, the multihost slice
-# still to come, by name.
+# (id, argv, what the refusal starts with): the sp/tp/pp/ep roles are
+# refused by name.  Since the hierarchy is ported, the "--serve" and
+# "--connect" cases hold that a misplaced hierarchy flag on those roles
+# is refused in the JAX CLI's words (``--aggregators`` without a group
+# size; ``--fallback`` with two aggregator endpoints).
 UNPORTED = [
-    ("--serve", ["--serve", "0", "--aggregators", "2"], "--aggregators"),
-    ("--connect", ["--connect", "h:1", "--fallback", "h:2"], "--fallback"),
+    ("--serve", ["--serve", "0", "--aggregators", "2"],
+     "--aggregators needs --group-size N"),
+    ("--connect", ["--connect", "h:1,h:3", "--fallback", "h:2"],
+     "--fallback needs --connect to name ONE aggregator endpoint"),
     ("--sp 2", ["--model", "transformer", "--sp", "2"], "--sp 2"),
     ("--tp 2", ["--model", "transformer", "--tp", "2"], "--tp 2"),
     ("--pp 2", ["--model", "transformer", "--pp", "2"], "--pp 2"),
@@ -316,6 +319,12 @@ UNPORTED = [
 def test_cli_refuses_unported_roles_by_name(argv, flag):
     with pytest.raises(SystemExit) as e:
         port_cli(argv + ["--steps", "1"])
+    if flag.startswith("--aggregators") or flag.startswith("--fallback"):
+        with pytest.raises(SystemExit) as j:
+            jax_cli(argv + ["--steps", "1"])
+        assert str(e.value) == str(j.value)
+        assert str(e.value).startswith(flag)
+        return
     assert str(e.value).startswith(
         f"{flag} is not ported to the PyTorch package yet")
 
