@@ -202,7 +202,23 @@ and carried on from):
     with its LM and two ``--connect <aggregator> --group g --fallback
     <roots>`` workers, their lines and the fleet's groups entry; (d) a
     lockstep MLP through a one-group hierarchy, card against CPU.
-13. The card line, one JSON line per the kernels, and the last line
+13. The multi-rank LM paths over a named mesh, each on the one card with
+    every axis of size 1 (NCCL groups of one rank: NCCL takes no two ranks
+    of one communicator on one device, so degrees 2 and 4 are held by the
+    CPU tests' gloo worlds), through the public API at full width, blockq,
+    ``SGD(lr=0.01, momentum=0.9)``, 2 warm-up and 3 timed steps each,
+    beside a plain blockq step of the bench LM without a mesh and phase
+    4's identity step: (a) tp, the bench LM with ``tp_axis="tp"`` on
+    ``make_dp_tp_mesh(1, 1)``; (b) sp, Ulysses over the flash kernels
+    with ``batch_spec=("ps", "sp")``; (c) sp, the ring (no flash kernel);
+    (d) pp, `make_pipelined_lm_loss` with 4 microbatches (48 launches of
+    each flash kernel a step); (e) ep, the CLI's MoE LM (8 experts) over
+    ``axis=("ps", "ep")`` — each with its launch counts read around the
+    run, finite and falling losses, the first step's loss against the
+    dense model's on the same weights and batch, ms/step, tokens/s and
+    peak memory; (f) a small f32 LM at each configuration, card against
+    CPU (gloo groups).
+14. The card line, one JSON line per the kernels, and the last line
     ``{"ok": true, "device": {...}}``.
 """
 
@@ -1878,6 +1894,7 @@ def run_lm(group, cpu_group):
         fail(f"LM byte metrics {metrics}")
     check_params_finite(opt, "LM identity")
     ms = seconds / LM_TIMED * 1e3
+    PHASE4["ms"] = ms
     tokens = LM_BATCH * LM_SEQ
     print(f"[lm] bench LM bf16 batch {LM_BATCH} x seq {LM_SEQ}: {ms:.3f} "
           f"ms/step, {tokens * LM_TIMED / seconds:.1f} tokens/s per GPU "
@@ -4627,6 +4644,271 @@ def run_hier_phase(run1b):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the multi-rank LM paths over a named mesh
+# ---------------------------------------------------------------------------
+
+# Phase 4's bench LM step in this call (run_lm), for phase 13's ratios.
+PHASE4 = {}
+# Steps of each phase-13 run: warm-up (blocking) and timed (queued).
+MESH_WARM, MESH_TIMED = 2, 3
+# The CLI's MoE LM (phase 9's configuration).
+MESH_MOE = dict(vocab_size=32768, d_model=256, n_heads=8, n_layers=4,
+                d_ff=1024, max_len=2048, moe_experts=8, moe_capacity=1.25)
+MOE_LEAVES = 58
+# The first step's loss against the dense model's on the same weights and
+# batch (bf16 throughout): relative tolerance.
+MESH_LOSS_RTOL = 1e-2
+
+
+def _mesh_run(what, mesh, named, loss_fn, batch, *, flash, tokens, dense,
+              leaves, profile=False, **kwargs):
+    """``MESH_WARM`` blocking and ``MESH_TIMED`` queued steps of
+    ``SGD(lr=0.01, momentum=0.9)`` with blockq over ``mesh`` (NCCL groups
+    of one rank), the launch counts zeroed just before and read just
+    after; asserts ``flash`` launches of each flash kernel a step, one
+    ``block_quantize`` a leaf and the grouped decode a step, finite and
+    falling losses, and the first step's loss against ``dense`` (the dense
+    model's on the same weights and batch); with ``profile``, then the
+    device time of two more steps by kernel category.  Returns ms/step."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import SGD
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = SGD(list(named.items()), lr=0.01, momentum=0.9, code="blockq",
+              mesh=mesh, **kwargs)
+    opt.compile_step(loss_fn)
+    reset_launch_counts()
+    losses = []
+    for _ in range(MESH_WARM):
+        losses.append(opt.step(batch)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED):
+        losses.append(opt.step(batch, block=False)[0])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    steps = MESH_WARM + MESH_TIMED
+    expect_counts(what, counts, flash_fwd=flash * steps,
+                  flash_bwd_dkdv=flash * steps, flash_bwd_dq=flash * steps,
+                  block_quantize=leaves * steps,
+                  block_dequant_sum=ck.group_launches(
+                      "block_dequant_sum", leaves) * steps)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"{what}: losses must be finite and fall: {losses}")
+    check_params_finite(opt, what)
+    gap = abs(losses[0] - dense)
+    if gap > MESH_LOSS_RTOL * abs(dense):
+        fail(f"{what}: first loss {losses[0]} against the dense model's "
+             f"{dense}: {gap} apart (tolerance {MESH_LOSS_RTOL} relative)")
+    ms = seconds / MESH_TIMED * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[mesh] {what}: {ms:.3f} ms/step, {tokens * MESH_TIMED / seconds:.1f}"
+          f" tokens/s ({MESH_TIMED} queued steps after {MESH_WARM} warm-up, "
+          f"host clock to synchronize); peak memory {peak:.2f} GiB; losses "
+          f"{losses}; first loss vs the dense model's {dense}: {gap:.6f} "
+          f"(tolerance {MESH_LOSS_RTOL} relative); launches {counts}")
+    if profile:
+        profile_steps(opt, batch, what)
+    del opt
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _dense_loss(model, named, batch):
+    """The dense model's loss on ``named`` and ``batch``, no gradient."""
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch.models import make_lm_loss
+
+    params = {n: p.cuda() for n, p in named.items()}
+    with torch.no_grad():
+        loss = float(make_lm_loss(model)(params, batch))
+    del params
+    return loss
+
+
+def _mesh_small_card_vs_cpu():
+    """13f: a small f32 LM (phase 4's small check: d_model 64, 4 heads, 2
+    layers, S=160) at each of 13a-13e's configurations, 3 identity steps
+    on the card (flash kernels, NCCL groups) and on the CPU (plain
+    versions, gloo groups), from the same weights and tokens; phase 4's
+    tolerance, rtol=1e-4 and atol=1e-5."""
+    import functools
+
+    from pytorch_ps_mpi_tpu_torch import SGD, flash_attention
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
+    from pytorch_ps_mpi_tpu_torch.models import (TransformerLM, build_lm,
+                                                 lm_batch, make_lm_loss)
+    from pytorch_ps_mpi_tpu_torch.models.pipelined import (
+        make_pipelined_lm_loss)
+    from pytorch_ps_mpi_tpu_torch.parallel import mesh as M
+    from pytorch_ps_mpi_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+    from pytorch_ps_mpi_tpu_torch.parallel.ulysses import ulysses_attention
+
+    cfg = dict(vocab_size=97, d_model=64, n_heads=4, n_layers=2, d_ff=128,
+               max_len=256)
+    flash = functools.partial(flash_attention, causal=True)
+    batch = lm_batch(synthetic_lm(4, seq_len=160, vocab=97, seed=4))
+    configs = {
+        "tp": ("make_dp_tp_mesh", dict(attn=flash, tp_axis="tp"), {}, None),
+        "sp ulysses": ("make_dp_sp_mesh", dict(attn=functools.partial(
+            ulysses_attention, axis="sp", causal=True,
+            inner=flash_attention)), dict(batch_spec=("ps", "sp")), None),
+        "sp ring": ("make_dp_sp_mesh", dict(attn=functools.partial(
+            ring_attention, axis="sp", causal=True)),
+            dict(batch_spec=("ps", "sp")), None),
+        "pp": ("make_dp_pp_mesh", dict(attn=flash), {}, 2),
+        "ep": ("make_dp_ep_mesh", dict(attn=flash, moe_experts=4,
+                                       ep_axis="ep"),
+               dict(axis=("ps", "ep"), batch_spec=(("ps", "ep"),)), None),
+    }
+    for what, (make, model_kw, kw, micro) in configs.items():
+        model = TransformerLM(**cfg, **model_kw)
+        named = build_lm(model, seed=3)
+        out = {}
+        for device in ("cuda", "cpu"):
+            mesh = getattr(M, make)(1, 1, device=device)
+            opt = SGD(list(named.items()), lr=0.05, momentum=0.9,
+                      mesh=mesh, **kw)
+            opt.compile_step(make_pipelined_lm_loss(model, n_micro=micro)
+                             if micro else make_lm_loss(model))
+            out[device] = ([opt.step(batch)[0] for _ in range(3)],
+                           {n: p.cpu().numpy()
+                            for n, p in opt.params.items()})
+        _assert_close_runs(f"13f small LM {what} (mesh 1 x 1)", out, 1e-4,
+                           1e-5)
+
+
+def run_mesh_phase(group):
+    """Phase 13: the bench LM over each multi-rank path on meshes of one
+    rank an axis (13a tp, 13b sp with Ulysses over the flash kernels, 13c
+    sp with the ring, 13d pp with 4 microbatches), the CLI's MoE LM at ep
+    (13e), a plain blockq step of the bench LM for reference, and the
+    small f32 LM card against CPU at each configuration (13f)."""
+    import functools
+
+    import torch
+
+    from pytorch_ps_mpi_tpu_torch import SGD, flash_attention
+    from pytorch_ps_mpi_tpu_torch.data.datasets import synthetic_lm
+    from pytorch_ps_mpi_tpu_torch.models import (TransformerLM, build_lm,
+                                                 lm_batch, make_lm_loss)
+    from pytorch_ps_mpi_tpu_torch.models.pipelined import (
+        make_pipelined_lm_loss)
+    from pytorch_ps_mpi_tpu_torch.ops import codec_kernels as ck
+    from pytorch_ps_mpi_tpu_torch.parallel import mesh as M
+    from pytorch_ps_mpi_tpu_torch.parallel.ring_attention import (
+        ring_attention)
+    from pytorch_ps_mpi_tpu_torch.parallel.ulysses import ulysses_attention
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    flash = functools.partial(flash_attention, causal=True)
+    dense = TransformerLM(**LM, dtype=torch.bfloat16, attn=flash)
+    named = build_lm(dense, seed=0)
+    toks = synthetic_lm(LM_BATCH, seq_len=LM_SEQ, vocab=LM["vocab_size"],
+                        seed=0)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in lm_batch(toks).items()}
+    tokens = LM_BATCH * LM_SEQ
+    layers = LM["n_layers"]
+    dense_loss = _dense_loss(dense, named, batch)
+
+    # The plain step, blockq, without a mesh (the group of phase 3).
+    torch.cuda.reset_peak_memory_stats()
+    opt = SGD(list(named.items()), lr=0.01, momentum=0.9, code="blockq",
+              device="cuda", group=group)
+    opt.compile_step(make_lm_loss(dense))
+    reset_launch_counts()
+    for _ in range(MESH_WARM):
+        opt.step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED):
+        opt.step(batch, block=False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) / MESH_TIMED * 1e3
+    counts = launch_counts()
+    expect_counts("13 plain blockq", counts,
+                  flash_fwd=layers * (MESH_WARM + MESH_TIMED),
+                  flash_bwd_dkdv=layers * (MESH_WARM + MESH_TIMED),
+                  flash_bwd_dq=layers * (MESH_WARM + MESH_TIMED),
+                  block_quantize=LM_TENSORS * (MESH_WARM + MESH_TIMED),
+                  block_dequant_sum=ck.group_launches(
+                      "block_dequant_sum", LM_TENSORS)
+                  * (MESH_WARM + MESH_TIMED))
+    del opt
+    phase4 = PHASE4.get("ms")
+    print(f"[mesh] 13 plain bench LM step, blockq, no mesh: {plain_ms:.3f} "
+          f"ms/step, {tokens * MESH_TIMED / (plain_ms * MESH_TIMED / 1e3):.1f}"
+          f" tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; phase 4's "
+          f"identity step in this call: "
+          + (f"{phase4:.3f} ms/step" if phase4 else "not run"))
+    results = {}
+
+    def report(key, ms):
+        results[key] = ms
+        print(f"[mesh] {key}: {ms:.3f} ms/step against the plain blockq "
+              f"step's {plain_ms:.3f} (ratio {ms / plain_ms:.3f})"
+              + (f" and phase 4's identity step {phase4:.3f} (ratio "
+                 f"{ms / phase4:.3f})" if phase4 else ""))
+
+    common = dict(tokens=tokens, dense=dense_loss, leaves=LM_TENSORS)
+    report("13a tp", _mesh_run(
+        "13a tp (bench LM, mesh ps=1 x tp=1)", M.make_dp_tp_mesh(1, 1),
+        named, make_lm_loss(dense.copy(tp_axis="tp")), batch, flash=layers,
+        profile=True, **common))
+    report("13b sp ulysses", _mesh_run(
+        "13b sp, Ulysses over the flash kernels (bench LM, mesh ps=1 x "
+        "sp=1)", M.make_dp_sp_mesh(1, 1), named,
+        make_lm_loss(dense.copy(attn=functools.partial(
+            ulysses_attention, axis="sp", causal=True,
+            inner=flash_attention))), batch, flash=layers,
+        batch_spec=("ps", "sp"), **common))
+    # The ring keeps its [B, H, S, S] f32 scores for each layer's backward:
+    # a peak of 41.56 GiB at batch 16 on an NVIDIA H100 80GB HBM3 (700 W),
+    # so the batch is not cut.
+    report("13c sp ring", _mesh_run(
+        "13c sp, ring (bench LM, mesh ps=1 x sp=1)",
+        M.make_dp_sp_mesh(1, 1), named,
+        make_lm_loss(dense.copy(attn=functools.partial(
+            ring_attention, axis="sp", causal=True))), batch, flash=0,
+        batch_spec=("ps", "sp"), profile=True, **common))
+    report("13d pp", _mesh_run(
+        "13d pp, 4 microbatches (bench LM, mesh ps=1 x pp=1)",
+        M.make_dp_pp_mesh(1, 1), named,
+        make_pipelined_lm_loss(dense, n_micro=4), batch, flash=4 * layers,
+        profile=True, **common))
+    del named
+    torch.cuda.empty_cache()
+
+    moe = TransformerLM(**MESH_MOE, dtype=torch.bfloat16, attn=flash)
+    moe_named = build_lm(moe, seed=0)
+    if len(moe_named) != MOE_LEAVES:
+        fail(f"the MoE LM has {len(moe_named)} leaves, expected "
+             f"{MOE_LEAVES}")
+    moe_ms = _mesh_run(
+        "13e ep (the CLI's MoE LM, 8 experts, mesh ps=1 x ep=1)",
+        M.make_dp_ep_mesh(1, 1), moe_named,
+        make_lm_loss(moe.copy(ep_axis="ep")), batch, flash=4,
+        axis=("ps", "ep"), batch_spec=(("ps", "ep"),), tokens=tokens,
+        dense=_dense_loss(moe, moe_named, batch), leaves=MOE_LEAVES)
+    print(f"[mesh] 13e ep: {moe_ms:.3f} ms/step (the MoE LM: no plain "
+          f"bench LM step to compare)")
+    del moe_named
+    torch.cuda.empty_cache()
+    _mesh_small_card_vs_cpu()
+    print(f"[mesh] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # topk's selection on tied magnitudes: the card against the CPU
 # ---------------------------------------------------------------------------
 
@@ -4804,7 +5086,10 @@ def main() -> int:
     run_fleet_phase(run1a_ips)
     run_hier_phase(run1b)
 
-    # --- 13. results ---
+    # --- 13. the multi-rank LM paths over a named mesh ---
+    run_mesh_phase(group)
+
+    # --- 14. results ---
     kernels = []
     for k, replaces in {**REPLACES, **FLASH_REPLACES}.items():
         kernels.append({

@@ -21,7 +21,10 @@ snapshots, `ShardRouter`, `ShardPlan`, and the fleet's reader
 `GroupWorker`, `Hierarchy`: group-local aggregators forwarding one AGGR
 frame a fill to a single PS or a fleet);
 the reference's nonblocking collectives (`parallel.collectives`'s
-``i*`` ops); the blockq and bf16 codecs' kernels are hand-written CUDA
+``i*`` ops); the multi-rank LM paths over a named mesh (`make_ps_mesh`
+and the other mesh constructors of `parallel.mesh`, `MPI_PS(mesh=, axis=,
+batch_spec=)`, the differentiable in-step collectives, ring and Ulysses
+attention, tensor, pipeline and expert parallelism); the blockq and bf16 codecs' kernels are hand-written CUDA
 for Hopper (``csrc/codec_kernels.cu``); the ResNet/MLP models and the
 transformer LM (dense, or with dense MoE MLPs: `models.moe`), whose flash
 attention forward and backward are hand-written CUDA too
@@ -44,7 +47,7 @@ from .ops.codecs import (BlockQuantizeCodec, CastCodec, Codec, IdentityCodec,
                          QuantizeCodec, SignCodec, TopKCodec, get_codec)
 from .ops.flash_attention import flash_attention
 from .ops.robust import ReducerCodecError
-from .parallel.mesh import make_ps_group
+from .parallel.mesh import make_ps_group, make_ps_mesh
 from .ps import MPI_PS, PS, SGD, Adam, AdamW
 from .serve import (FleetSubscriber, InferenceFrontend, InferRequest,
                     Subscriber)
@@ -69,6 +72,7 @@ __all__ = [
     "AsyncAdamServer",
     "AsyncPSWorker",
     "make_ps_group",
+    "make_ps_mesh",
     "Codec",
     "IdentityCodec",
     "CastCodec",

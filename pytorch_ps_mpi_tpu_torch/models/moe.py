@@ -1,8 +1,8 @@
-"""Mixture-of-experts MLP (Switch-style top-1), dense: every expert local.
+"""Mixture-of-experts MLP (Switch-style top-1), with expert parallelism.
 
-Counterpart of `pytorch_ps_mpi_tpu/models/moe.py` without its expert
-parallelism (``ep_axis``, the tokens' all-to-all over an ``ep`` group),
-which waits for the multi-rank LM slice and raises here.
+Counterpart of `pytorch_ps_mpi_tpu/models/moe.py`.  With ``ep_axis=None``
+every expert runs locally (the dense MoE); with a mesh axis the experts
+shard over it (below).
 
 Static-shape dispatch, as the JAX layer does it:
 
@@ -24,6 +24,17 @@ decides a kept value.  The Switch load-balance loss (``E * sum_e
 frac_tokens_e * frac_probs_e``) is returned beside the output, for the
 trainer to add (`models.transformer.make_lm_loss`).
 
+Expert parallelism (``ep_axis``): ``ep`` is a **data** axis (tokens
+shard over it; it belongs in `MPI_PS`'s ``axis`` tuple).  The capacity
+``C`` comes from the rank's **local** token count, as in JAX.  The
+dispatch buffer ``[E, C, d]`` is reshaped to ``[n, e_loc, C, d]`` and goes
+through the differentiable all-to-all (untiled: chunk ``j`` goes to rank
+``j``, the owner of experts ``[j*e_loc, (j+1)*e_loc)``); each rank runs
+its ``e_loc`` experts on its slice of ``w1/b1/w2/b2`` over every rank's
+tokens, and the inverse all-to-all brings the outputs back.  An expert
+slice's gradient lives on its owner only; the PS step's sum over the data
+axes assembles it.
+
 The parameters keep flax's expert-major layout and names (``router``
 ``(d, E)``, ``w1`` ``(E, d, d_ff)``, ``b1``, ``w2`` ``(E, d_ff, d)``,
 ``b2``), so `utils.interop.params_from_jax` carries them across as they
@@ -38,6 +49,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_to_all
+from ..parallel.mesh import axis_index, axis_size
 from .resnet import _lecun_std, _trunc_normal_
 
 
@@ -49,15 +62,9 @@ class MoEMLP(nn.Module):
                  capacity_factor: float = 1.25, dtype=torch.float32,
                  ep_axis: "str | None" = None):
         super().__init__()
-        if ep_axis is not None:
-            raise NotImplementedError(
-                "ep_axis= (experts sharded over an ep group) is not ported "
-                "to the PyTorch package yet (the multi-rank LM paths, "
-                "tp/sp/ep/pp, follow); ep_axis=None runs every expert "
-                "locally")
         E = n_experts
         self.n_experts, self.capacity_factor = E, capacity_factor
-        self.dtype = dtype
+        self.dtype, self.ep_axis = dtype, ep_axis
         self.router = nn.Parameter(torch.empty(d_model, E))
         self.w1 = nn.Parameter(torch.empty(E, d_model, d_ff))
         self.b1 = nn.Parameter(torch.empty(E, d_ff))
@@ -106,17 +113,39 @@ class MoEMLP(nn.Module):
         C = self.capacity(b * s)
         dispatch = toks.new_zeros((E * C + 1, d)).index_put(
             (slot,), (toks * keep[:, None]).to(toks.dtype), accumulate=True)
-        y = self._ffn(dispatch[:E * C].reshape(E, C, d))
+        dispatch = dispatch[:E * C].reshape(E, C, d)
+        params = (self.w1, self.b1, self.w2, self.b2)
+        if self.ep_axis is None:
+            y = self._ffn(dispatch, *params)                 # [E, C, d]
+        else:
+            n = axis_size(self.ep_axis)
+            if E % n:
+                raise ValueError(f"n_experts {E} not divisible by ep={n}")
+            e_loc = E // n
+            r = axis_index(self.ep_axis)
+            # Send: chunk j of the dispatch buffer goes to rank j (owner of
+            # experts [j*e_loc, (j+1)*e_loc)).  Receive: this rank's
+            # experts' tokens from every rank, [n, e_loc, C, d].
+            inbound = all_to_all(dispatch.reshape(n, e_loc, C, d),
+                                 self.ep_axis, 0, 0, tiled=False)
+            inbound = inbound.permute(1, 0, 2, 3).reshape(e_loc, n * C, d)
+            mine = [w[r * e_loc:(r + 1) * e_loc] for w in params]
+            y = self._ffn(inbound, *mine)                    # [e_loc, n*C, d]
+            # Return: the inverse shuffle back to the tokens' ranks.
+            y = y.reshape(e_loc, n, C, d).permute(1, 0, 2, 3)
+            y = all_to_all(y, self.ep_axis, 0, 0, tiled=False)
+            y = y.reshape(E, C, d)
         y = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
         out = y[slot] * (gate * keep)[:, None].to(y.dtype)
         return out.reshape(b, s, d).to(x.dtype), aux_loss
 
-    def _ffn(self, xs):
-        """Every expert's two-layer MLP on its ``[E, C, d]`` slots: one
-        batched product pair, in ``dtype``."""
+    def _ffn(self, xs, w1, b1, w2, b2):
+        """Each expert's two-layer MLP on its ``[E', T, d]`` slots, with
+        expert-major parameters: one batched product pair, in
+        ``dtype``."""
         dt = self.dtype
-        h = (torch.einsum("etd,edf->etf", xs.to(dt), self.w1.to(dt))
-             + self.b1[:, None].to(dt))
+        h = (torch.einsum("etd,edf->etf", xs.to(dt), w1.to(dt))
+             + b1[:, None].to(dt))
         h = F.gelu(h, approximate="tanh")
-        return (torch.einsum("etf,efd->etd", h, self.w2.to(dt))
-                + self.b2[:, None].to(dt))
+        return (torch.einsum("etf,efd->etd", h, w2.to(dt))
+                + b2[:, None].to(dt))

@@ -6,10 +6,23 @@ f32 and matmuls in ``dtype`` (bf16 on the card).  The attention is
 pluggable (``attn=``): causal `dense_attention` by default, or
 ``functools.partial(flash_attention, causal=True)`` on the kernels.
 
-``moe_experts=E`` replaces each block's MLP with a dense mixture of
-experts (`models.moe.MoEMLP`, every expert local), whose Switch
-load-balance losses `make_lm_loss` adds.  Tensor parallelism (``tp_axis``)
-and expert parallelism (``ep_axis``) are not ported yet and raise.
+``moe_experts=E`` replaces each block's MLP with a mixture of experts
+(`models.moe.MoEMLP`), whose Switch load-balance losses `make_lm_loss`
+adds; with ``ep_axis`` the experts shard over that mesh axis.
+
+**Tensor parallelism** (``tp_axis=``) shards the *compute*
+Megatron-style over a mesh axis: the fused QKV projection is
+column-parallel with whole heads (its columns are ``[q|k|v]`` per head,
+so a contiguous block of columns is a block of heads), the output
+projection and ``fc2`` are row-parallel, closing with the differentiable
+psum (`parallel.collectives.psum`), and ``fc1`` is column-parallel.
+Parameter *storage* stays replicated, with the same names and shapes at
+every tp degree; each rank slices its block out of the replicated
+weights.  Every rank differentiates its own copy of the replicated loss,
+and the transpose of the row-parallel psum is a psum, so each rank's
+gradients come out ×tp on every path through the tp region; the PS
+step's mean over the non-data mesh axes cancels that factor.  A
+``tp_axis`` that names no axis of the current mesh raises.
 
 What carries over, so that the same weights give the same function:
 
@@ -41,6 +54,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from ..parallel.collectives import psum
+from ..parallel.mesh import axis_index, axis_size
 from ..parallel.ring_attention import dense_attention
 from .moe import MoEMLP
 from .resnet import _lecun_std, _trunc_normal_
@@ -49,8 +64,14 @@ LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
 
 class PDense(nn.Module):
-    """flax ``PDense`` without tensor parallelism: ``x @ kernel + bias``
-    with the product in ``dtype``; ``weight`` is ``(out, in)`` f32."""
+    """flax ``PDense``: ``x @ kernel + bias`` with the product in
+    ``dtype``; ``weight`` is ``(out, in)`` f32.
+
+    ``mode=None``: the plain layer.  ``mode="column"``: only this tp
+    rank's block of output features.  ``mode="row"``: consumes this
+    rank's block of input features, psums the partial products across
+    ``tp_axis`` and adds the (unsharded) bias once, after the sum.  The
+    parameters are the same in every mode."""
 
     def __init__(self, in_features: int, features: int,
                  dtype=torch.float32):
@@ -58,6 +79,7 @@ class PDense(nn.Module):
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.empty(features))
         self.dtype = dtype
+        self.features = features
 
     def reset_parameters(self, generator) -> None:
         _trunc_normal_(self.weight, _lecun_std(self.weight.shape[1]),
@@ -65,9 +87,32 @@ class PDense(nn.Module):
         with torch.no_grad():
             self.bias.zero_()
 
-    def forward(self, x):
-        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        return y + self.bias.to(self.dtype)
+    def forward(self, x, *, tp_axis: "str | None" = None,
+                mode: "str | None" = None):
+        weight = self.weight.to(self.dtype)
+        x = x.to(self.dtype)
+        if tp_axis is None or mode is None:
+            return F.linear(x, weight) + self.bias.to(self.dtype)
+        t = axis_index(tp_axis)
+        n = axis_size(tp_axis)
+        if mode == "column":
+            if self.features % n:
+                raise ValueError(
+                    f"features {self.features} not divisible by tp={n}")
+            blk = self.features // n
+            y = F.linear(x, weight[t * blk:(t + 1) * blk])
+            return y + self.bias[t * blk:(t + 1) * blk].to(self.dtype)
+        if mode == "row":
+            d_in = weight.shape[1]
+            if d_in % n:
+                raise ValueError(f"in_features {d_in} not divisible by "
+                                 f"tp={n}")
+            blk = d_in // n
+            y = psum(F.linear(x, weight[:, t * blk:(t + 1) * blk]), tp_axis)
+            # The bias is added once, after the psum (outside the tp
+            # region).
+            return y + self.bias.to(self.dtype)
+        raise ValueError(f"unknown tp mode {mode!r}")
 
 
 class Embed(nn.Module):
@@ -118,20 +163,21 @@ class Block(nn.Module):
     (None for the dense MLP)."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dtype,
-                 attn: Callable, moe_experts: int = 0,
-                 moe_capacity: float = 1.25):
+                 attn: Callable, *, tp_axis: "str | None" = None,
+                 moe_experts: int = 0, moe_capacity: float = 1.25,
+                 ep_axis: "str | None" = None):
         super().__init__()
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} not divisible by n_heads "
                              f"{n_heads}")
-        self.n_heads, self.attn = n_heads, attn
+        self.n_heads, self.attn, self.tp_axis = n_heads, attn, tp_axis
         self.LayerNorm_0 = LayerNorm(d_model, dtype)
         self.qkv = PDense(d_model, 3 * d_model, dtype)
         self.out = PDense(d_model, d_model, dtype)
         self.LayerNorm_1 = LayerNorm(d_model, dtype)
         if moe_experts:
             self.moe = MoEMLP(d_model, d_ff, moe_experts, moe_capacity,
-                              dtype)
+                              dtype, ep_axis)
         else:
             self.fc1 = PDense(d_model, d_ff, dtype)
             self.fc2 = PDense(d_ff, d_model, dtype)
@@ -139,15 +185,25 @@ class Block(nn.Module):
     def forward(self, x):
         b, s, d = x.shape
         h = self.n_heads
-        qkv = self.qkv(self.LayerNorm_0(x)).view(b, s, h, 3, d // h)
+        tp = self.tp_axis
+        n = axis_size(tp) if tp else 1
+        if h % n:
+            raise ValueError(f"n_heads {h} not divisible by tp={n}")
+        h_local = h // n
+        col = dict(tp_axis=tp, mode="column") if tp else {}
+        row = dict(tp_axis=tp, mode="row") if tp else {}
+        # Column-parallel QKV takes a contiguous block of whole heads.
+        qkv = self.qkv(self.LayerNorm_0(x), **col).view(
+            b, s, h_local, 3, d // h)
         q, k, v = qkv.unbind(3)
-        y = self.attn(q, k, v).reshape(b, s, d)
-        x = x + self.out(y)
+        y = self.attn(q, k, v).reshape(b, s, h_local * (d // h))
+        x = x + self.out(y, **row)
         y = self.LayerNorm_1(x)
         if hasattr(self, "moe"):
             y, aux = self.moe(y)
             return x + y, aux
-        return x + self.fc2(F.gelu(self.fc1(y), approximate="tanh")), None
+        y = F.gelu(self.fc1(y, **col), approximate="tanh")
+        return x + self.fc2(y, **row), None
 
 
 def _causal_dense(q, k, v):
@@ -168,20 +224,24 @@ class TransformerLM(nn.Module):
                  tp_axis: str | None = None, moe_experts: int = 0,
                  moe_capacity: float = 1.25, ep_axis: str | None = None):
         super().__init__()
-        if tp_axis is not None or ep_axis is not None:
-            raise NotImplementedError(
-                "tp_axis= and ep_axis= are not ported to the PyTorch "
-                "package yet (the multi-rank LM paths, tp/sp/ep/pp, "
-                "follow)")
+        # The constructor's arguments, for `copy`.
+        self.config = dict(
+            vocab_size=vocab_size, d_model=d_model, n_heads=n_heads,
+            n_layers=n_layers, d_ff=d_ff, max_len=max_len, dtype=dtype,
+            attn=attn, tp_axis=tp_axis, moe_experts=moe_experts,
+            moe_capacity=moe_capacity, ep_axis=ep_axis)
         attn = _causal_dense if attn is None else attn
+        self.attn = attn
         self.tok_embed = Embed(vocab_size, d_model, dtype)
         self.pos_embed = Embed(max_len, d_model, dtype)
         for i in range(n_layers):
             self.add_module(f"block_{i}", Block(
-                d_model, n_heads, d_ff, dtype, attn, moe_experts,
-                moe_capacity))
+                d_model, n_heads, d_ff, dtype, attn, tp_axis=tp_axis,
+                moe_experts=moe_experts, moe_capacity=moe_capacity,
+                ep_axis=ep_axis))
         self.n_layers = n_layers
-        self.moe_experts = moe_experts
+        self.d_model, self.dtype = d_model, dtype
+        self.tp_axis, self.moe_experts = tp_axis, moe_experts
         self.LayerNorm_0 = LayerNorm(d_model, torch.float32)
         self.lm_head = PDense(d_model, vocab_size, torch.float32)
 
@@ -189,6 +249,12 @@ class TransformerLM(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(generator)
+
+    def copy(self, **overrides) -> "TransformerLM":
+        """A new LM of this configuration with ``overrides`` (flax's
+        ``Module.copy``): its parameters have the same names and shapes,
+        so one set of named parameters serves both."""
+        return TransformerLM(**{**self.config, **overrides})
 
     def forward(self, tokens, positions=None, return_aux: bool = False):
         if positions is None:

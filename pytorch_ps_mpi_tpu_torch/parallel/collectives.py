@@ -31,7 +31,9 @@ import torch
 import torch.distributed as dist
 
 from ..utils.bytes import bytes_of
-from ..utils.flatten import tree_flatten, tree_map, tree_unflatten
+from ..utils.flatten import (tree_flatten, tree_leaves, tree_map,
+                             tree_unflatten)
+from .mesh import PS_AXIS, axis_group
 
 Tree = Any
 
@@ -250,8 +252,14 @@ def pmean_tree(tree: Tree, group=None, *,
                bucket_bytes: "int | None" = DEFAULT_BUCKET_BYTES) -> Tree:
     """Mean of every leaf across ranks (``psum / world``, as ``lax.pmean``
     computes it), bucketed like `psum_tree_bucketed`; the input tree is
-    left as it is."""
+    left as it is.  ``group`` is a process group (None: the default) or
+    an axis name or tuple of the current mesh.  A tree with a leaf that
+    requires grad goes through the differentiable `psum_tree` (whose
+    transpose is a psum), leaf by leaf."""
+    group = axis_group(group)
     world = dist.get_world_size(group)
+    if any(x.requires_grad for x in tree_leaves(tree)):
+        return tree_map(lambda x: _PSum.apply(x, group) / world, tree)
     summed = psum_tree_bucketed(tree_map(torch.clone, tree), group,
                                 bucket_bytes=bucket_bytes)
     return tree_map(lambda x: x / world, summed)
@@ -435,3 +443,258 @@ def ireduce(tree: Tree, group=None) -> PendingTree:
         return out
 
     return _post("ireduce", tree, leaf)
+
+
+# ---------------------------------------------------------------------------
+# In-step collectives over mesh axes, with JAX's transposes
+# ---------------------------------------------------------------------------
+#
+# The JAX package's in-step tier (``psum_tree``, ``ppermute_tree``, ...)
+# names a mesh axis inside ``shard_map`` and differentiates through
+# ``lax.psum``, ``lax.ppermute`` and ``lax.all_to_all`` by their
+# transposes.  Here ``axis`` is resolved against the current mesh
+# (`parallel.mesh.axis_group`; a process group also passes), and each
+# collective a loss differentiates through is a `torch.autograd.Function`
+# whose backward is the JAX transpose: a psum's is a psum of the
+# cotangent (not the identity: the ×tp and ×pp factors it gives are what
+# the PS step's mean over the extra axes cancels), a ppermute's the
+# inverse permutation, an all-to-all's the inverse all-to-all.
+# ``torch.distributed``'s own collectives have no gradient.  Every rank of
+# a group runs the same graph, so the backward collectives run in the
+# same order on each.
+
+
+def _axis(axis):
+    """``(group, index, size)`` of an axis name, tuple or process group."""
+    group = axis_group(axis)
+    return group, dist.get_rank(group), dist.get_world_size(group)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def psum(x: torch.Tensor, axis=PS_AXIS) -> torch.Tensor:
+    """``lax.psum`` of one tensor: the sum over ``axis``, differentiable
+    (the cotangent is summed too).  Bool and sub-word integers sum as
+    int32, as ``lax.psum`` promotes them."""
+    group = axis_group(axis)
+    if x.dtype in (torch.bool, torch.int8, torch.uint8, torch.int16):
+        return _PSum.apply(x.to(torch.int32), group)
+    return _PSum.apply(x, group)
+
+
+def _perm_pairs(perm, size: int):
+    pairs = [(int(s), int(d)) for s, d in perm]
+    for s, d in pairs:
+        if not (0 <= s < size and 0 <= d < size):
+            raise ValueError(f"ppermute pair {(s, d)} out of range for an "
+                             f"axis of size {size}")
+    if (len({s for s, _ in pairs}) != len(pairs)
+            or len({d for _, d in pairs}) != len(pairs)):
+        raise ValueError(f"ppermute needs a permutation: sources and "
+                         f"destinations each distinct, got {pairs}")
+    return pairs
+
+
+def _ppermute_raw(x: torch.Tensor, group, me: int, pairs) -> torch.Tensor:
+    """Send ``x`` along each ``(src, dst)`` pair of group ranks; a rank
+    no pair sends to gets zeros.  A pair ``(i, i)`` is a local copy: no
+    collective library gets a send to self."""
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    for src, dst in pairs:
+        if src == dst == me:
+            out.copy_(x)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, x,
+                                  dist.get_global_rank(group, dst), group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out,
+                                  dist.get_global_rank(group, src), group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, me, pairs):
+        ctx.group, ctx.me, ctx.pairs = group, me, pairs
+        return _ppermute_raw(x, group, me, pairs)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.pairs]
+        return _ppermute_raw(g, ctx.group, ctx.me, inverse), None, None, None
+
+
+def ppermute(x: torch.Tensor, axis, perm) -> torch.Tensor:
+    """``lax.ppermute``: rank ``src`` of ``axis`` sends ``x`` to rank
+    ``dst`` for each pair of ``perm``; ranks that receive nothing get
+    zeros.  The backward sends the cotangents along the inverse pairs."""
+    group, me, size = _axis(axis)
+    return _PPermute.apply(x, group, me, _perm_pairs(perm, size))
+
+
+def _all_to_all_raw(x: torch.Tensor, group, size: int, split_axis: int,
+                    concat_axis: int, tiled: bool) -> torch.Tensor:
+    """``lax.all_to_all``: chunk ``j`` of ``x`` along ``split_axis`` goes to
+    rank ``j``; the chunks received are concatenated along
+    ``concat_axis`` in rank order (``tiled``), or stacked into a new axis
+    there (``tiled=False``, where ``split_axis`` has size ``size`` and is
+    removed)."""
+    if tiled:
+        if x.shape[split_axis] % size:
+            raise ValueError(f"all_to_all: dimension {split_axis} of size "
+                             f"{x.shape[split_axis]} does not split into "
+                             f"{size}")
+        chunks = x.chunk(size, dim=split_axis)
+    else:
+        if x.shape[split_axis] != size:
+            raise ValueError(f"all_to_all (untiled): dimension {split_axis}"
+                             f" has size {x.shape[split_axis]}, not the "
+                             f"axis size {size}")
+        chunks = x.unbind(split_axis)
+    send = torch.stack(chunks).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    parts = recv.unbind(0)
+    if tiled:
+        return torch.cat(parts, dim=concat_axis)
+    return torch.stack(parts, dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, split_axis, concat_axis, tiled):
+        ctx.args = (group, size, split_axis, concat_axis, tiled)
+        return _all_to_all_raw(x, group, size, split_axis, concat_axis,
+                               tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, size, split_axis, concat_axis, tiled = ctx.args
+        # The inverse all-to-all: split where the forward concatenated,
+        # concatenate where it split.
+        return (_all_to_all_raw(g, group, size, concat_axis, split_axis,
+                                tiled), None, None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis, split_axis: int, concat_axis: int,
+               *, tiled: bool = False) -> torch.Tensor:
+    """``lax.all_to_all`` over ``axis``, differentiable (the backward is
+    the inverse all-to-all)."""
+    group, _, size = _axis(axis)
+    nd = x.dim()
+    split_axis %= nd
+    concat_axis %= (nd if tiled else nd - 1)
+    return _AllToAll.apply(x, group, size, split_axis, concat_axis, tiled)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, me, size):
+        ctx.group, ctx.me = group, me
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The transpose of a gather is a reduce-scatter: the sum over
+        # ranks of the cotangent's row of this rank.
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g[ctx.me], None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, me, size):
+        ctx.group, ctx.me, ctx.size = group, me, size
+        if x.shape[0] % size:
+            raise ValueError(f"psum_scatter: dimension 0 of size "
+                             f"{x.shape[0]} does not split into {size}")
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y.chunk(size)[me].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [torch.empty_like(g, memory_format=torch.contiguous_format)
+                 for _ in range(ctx.size)]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        return torch.cat(parts), None, None, None
+
+
+def psum_tree(tree: Tree, axis=PS_AXIS) -> Tree:
+    """Sum every leaf across ``axis`` — the reference's ``d_p =
+    sum(grads)``, a **sum, not a mean** — differentiable."""
+    return tree_map(lambda x: psum(x, axis), tree)
+
+
+def allgather_tree(tree: Tree, axis=PS_AXIS, *, tiled: bool = False) -> Tree:
+    """All-gather every leaf across ``axis``: a new leading dim of the
+    axis size, or (``tiled``) the rows concatenated along dim 0."""
+    group, me, size = _axis(axis)
+
+    def one(x):
+        y = _AllGather.apply(x, group, me, size)
+        return y.reshape((-1,) + tuple(x.shape[1:])) if tiled else y
+    return tree_map(one, tree)
+
+
+def bcast_tree(tree: Tree, axis=PS_AXIS, *, root: int = 0) -> Tree:
+    """Every rank of ``axis`` receives ``root``'s value, as a masked
+    all-reduce (every other rank contributes zeros), dtype-preserving."""
+    group, me, _ = _axis(axis)
+
+    def one(x):
+        contrib = x if me == root else torch.zeros_like(x)
+        return psum(contrib, group).to(x.dtype)
+    return tree_map(one, tree)
+
+
+def reduce_scatter_tree(tree: Tree, axis=PS_AXIS) -> Tree:
+    """Sum across ``axis``; each rank keeps its tile of dim 0."""
+    group, me, size = _axis(axis)
+    return tree_map(lambda x: _ReduceScatter.apply(x, group, me, size), tree)
+
+
+def alltoall_tree(tree: Tree, axis=PS_AXIS) -> Tree:
+    """Transpose rank and leading dim: tile ``j`` of dim 0 goes to rank
+    ``j`` (the reference's ``Ialltoallv`` with static shapes)."""
+    return tree_map(lambda x: all_to_all(x, axis, 0, 0, tiled=True), tree)
+
+
+def ppermute_tree(tree: Tree, axis, perm) -> Tree:
+    """Point-to-point permutation of every leaf over ``axis``."""
+    return tree_map(lambda x: ppermute(x, axis, perm), tree)
+
+
+def ring_shift_tree(tree: Tree, axis=PS_AXIS, *, shift: int = 1,
+                    size: "int | None" = None) -> Tree:
+    """Shift every leaf ``shift`` hops around the ring of ``axis``."""
+    n = size if size is not None else _axis(axis)[2]
+    perm = [(i, (i + shift) % n) for i in range(n)]
+    return ppermute_tree(tree, axis, perm)
+
+
+def rank(axis=PS_AXIS) -> int:
+    """``comm.Get_rank()``: this rank's index along ``axis``."""
+    return _axis(axis)[1]

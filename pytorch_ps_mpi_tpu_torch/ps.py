@@ -20,8 +20,8 @@ exchange through bucketed ``torch.distributed`` collectives
 parameter.  BatchNorm statistics (``aux``) and the loss are averaged
 across ranks, as the JAX step's ``pmean`` does.
 
-Ported: every option of the JAX constructor but the mesh options
-(``mesh``, ``axis``, ``batch_spec``) — the ``post``, ``bucketed`` and
+Ported: every option of the JAX constructor — the mesh options
+(``mesh``, ``axis``, ``batch_spec``: below), the ``post``, ``bucketed`` and
 ``overlap`` sync modes (the overlap engine, `parallel.overlap`, issues
 each bucket's exchange inside backward; ``fused_encode`` quantizes a
 blockq bucket as one tensor), every codec, ``decompose_allreduce``,
@@ -35,6 +35,24 @@ A codec whose wire depends on element order encodes each gradient in the
 JAX package's layout (`utils.interop.jax_order`: conv kernels HWIO, Dense
 kernels ``(in, out)``), so its codes equal the JAX package's; the decoded
 sum comes back as the inverse-permuted view.
+
+Over a mesh (``mesh=``, a `parallel.mesh.Mesh`): ``axis`` names the data
+axes (a name or a tuple), and gradients are **summed** over them and
+**averaged** over every other ("extra") axis of the mesh — an sp, tp or
+pp rank holds the gradient of its own copy of the loss, and the rank's
+true gradient is their mean.  ``world_size`` is the product of the data
+axes.  The loss and ``aux`` are averaged over the whole mesh, and the
+``skip_nonfinite`` vote and the consensus guard run over it; ZeRO and
+error feedback shard over the data axes only.  In ``post`` and
+``bucketed`` mode the mean over the extra axes comes before the
+exchange; in ``overlap`` mode the sum runs inside backward and the mean
+after it, as in the JAX step (the two round differently).
+``batch_spec`` shards the global batch as the JAX ``PartitionSpec``
+does: entry ``i`` names the axis (or tuple of axes, ranked row-major)
+that dim ``i`` splits over, None leaves it whole; the default splits dim
+0 over the data axes.  The mesh is current (``with mesh:``) while the
+loss and its backward run, so the model's collectives resolve their
+axis names against it.
 """
 
 from __future__ import annotations
@@ -42,6 +60,7 @@ from __future__ import annotations
 import sys
 import time
 from collections import OrderedDict
+from contextlib import nullcontext
 from typing import Callable
 
 import numpy as np
@@ -55,7 +74,8 @@ from .optim.rules import RULES
 from .optim.schedules import (hyper_for_checkpoint, hyper_from_checkpoint,
                               resolve_hyper)
 from .parallel import collectives, overlap
-from .parallel.mesh import make_ps_group, rank, resolve_device, world_size
+from .parallel.mesh import (PS_AXIS, as_axes, describe_mesh, make_ps_group,
+                            make_ps_mesh, rank, resolve_device, world_size)
 from .utils.bytes import bytes_of, host_numpy
 from .utils.flatten import (tree_flatten, tree_leaves, tree_map,
                             tree_unflatten)
@@ -78,10 +98,6 @@ _HYPER_DEFAULTS = {
     "adamw": dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-2,
                   amsgrad=False),
 }
-
-# Options of the JAX MPI_PS that this package does not port yet, with the
-# defaults under which they are inert.
-_NOT_PORTED = {"mesh": None, "axis": "ps", "batch_spec": None}
 
 
 def init_ps_core(named_params, optim: str, hyper: dict, place):
@@ -186,7 +202,9 @@ class MPI_PS:
     """
 
     def __init__(self, named_params, *, optim: str = "sgd",
-                 code: Codec | str | None = None, device="cuda", group=None,
+                 code: Codec | str | None = None, device=None, group=None,
+                 mesh=None, axis: "str | tuple" = PS_AXIS,
+                 batch_spec=None,
                  profile: bool = False, zero: bool = False,
                  skip_nonfinite: bool = False,
                  clip_norm: float | None = None,
@@ -205,12 +223,39 @@ class MPI_PS:
         # Accepted for API parity with the reference's constructor; the
         # device is ``device``'s, whatever ``cuda`` says.
         del names, use_mpi, cuda
-        for key, default in _NOT_PORTED.items():
-            if key in kwargs and kwargs.pop(key) != default:
-                raise NotImplementedError(
-                    f"{key}= is not ported to the PyTorch package yet "
-                    f"(only its default {default!r} is accepted)")
-        self.device = resolve_device(device)
+        if mesh is not None and group is not None:
+            raise ValueError("pass mesh= or group=, not both")
+        if mesh is not None and device is None:
+            device = mesh.device
+        self.device = resolve_device("cuda" if device is None else device)
+        self.axes = as_axes(axis)
+        if mesh is None and (batch_spec is not None
+                             or self.axes != (PS_AXIS,)):
+            if group is not None:
+                raise ValueError("axis= and batch_spec= name axes of a "
+                                 "mesh: pass mesh=, not group=")
+            # Axes name a mesh: the JAX default, one over the world.
+            mesh = make_ps_mesh(device=self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            for a in self.axes:
+                if a not in mesh.axis_names:
+                    raise ValueError(
+                        f"axis {a!r} not in mesh axes {mesh.axis_names}")
+            # Every axis that is not a data axis is averaged over.
+            self.extra_axes = tuple(a for a in mesh.axis_names
+                                    if a not in self.axes)
+            self.batch_spec = (tuple(batch_spec) if batch_spec is not None
+                               else (self.axes,))
+            for entry in self.batch_spec:
+                for a in (() if entry is None else as_axes(entry)):
+                    if a not in mesh.axis_names:
+                        raise ValueError(
+                            f"batch_spec {self.batch_spec} names axis "
+                            f"{a!r}, not in mesh axes {mesh.axis_names}")
+        else:
+            self.extra_axes = ()
+            self.batch_spec = None
         self.optim = optim
         self.code = get_codec(code)
         self.profile = profile
@@ -294,8 +339,21 @@ class MPI_PS:
 
         self.params, self.state, self.hyper, self._update_fn = init_ps_core(
             named_params, optim, kwargs, place)
-        self.group = group if group is not None else make_ps_group(
-            self.device)
+        if mesh is not None:
+            # The data axes' group carries the exchange, ZeRO and the EF
+            # residual; the extra axes' group the mean; the whole mesh's
+            # group the loss, aux, the finiteness vote and the guard.
+            self.group = mesh.group(self.axes)
+            self._extra_group = (mesh.group(self.extra_axes)
+                                 if self.extra_axes else None)
+            self.mesh_group = mesh.group(mesh.axis_names)
+            self.mesh_rank = mesh.axis_index(mesh.axis_names)
+        else:
+            self.group = group if group is not None else make_ps_group(
+                self.device)
+            self._extra_group = None
+            self.mesh_group = self.group
+            self.mesh_rank = rank(self.group)
         self.world_size = world_size(self.group)
         self.rank = rank(self.group)
         # The codec's element order per leaf (only where it differs from
@@ -503,25 +561,39 @@ class MPI_PS:
         """Loss and aux averaged across ranks, and the gradients: each
         rank's own (the cross-rank sum happens later, explicitly), or under
         ``sync_mode="overlap"`` already summed — each bucket's exchange
-        issued inside backward, waited for and decoded after it."""
-        leaves = OrderedDict((n, p.detach().requires_grad_())
-                             for n, p in self.params.items())
-        if self._accum > 1:
-            loss, grads, new_aux = self._accumulated(leaves, batch)
-        else:
-            hooks = (overlap.BucketHooks(leaves, self.overlap_plan,
-                                         self._bucket_sync)
-                     if self._bucket_sync is not None else None)
-            loss, new_aux = self._call_loss(leaves, self.aux, batch)
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        allow_unused=True,
-                                        materialize_grads=hooks is None)
-            with torch.no_grad():
-                grads = (hooks.finish() if hooks is not None
-                         else OrderedDict(zip(leaves, grads)))
+        issued inside backward, waited for and decoded after it.  Over a
+        mesh, the gradients and the loss are averaged over the extra axes
+        here (after the in-backward sum under overlap, before the exchange
+        otherwise), with the mesh current around the loss and its
+        backward.  A parameter the loss never reaches (a layer of another
+        pipeline stage) gets a zero gradient, as in JAX."""
+        with self.mesh if self.mesh is not None else nullcontext():
+            leaves = OrderedDict((n, p.detach().requires_grad_())
+                                 for n, p in self.params.items())
+            if self._accum > 1:
+                loss, grads, new_aux = self._accumulated(leaves, batch)
+            else:
+                hooks = (overlap.BucketHooks(leaves, self.overlap_plan,
+                                             self._bucket_sync)
+                         if self._bucket_sync is not None else None)
+                loss, new_aux = self._call_loss(leaves, self.aux, batch)
+                grads = torch.autograd.grad(loss, list(leaves.values()),
+                                            allow_unused=True,
+                                            materialize_grads=hooks is None)
+                with torch.no_grad():
+                    grads = (hooks.finish() if hooks is not None
+                             else OrderedDict(zip(leaves, grads)))
         with torch.no_grad():
+            loss = loss.detach()
+            if self._extra_group is not None:
+                # Collapse the extra axes first: every sp/tp/pp rank then
+                # holds its data rank's gradient.
+                synced = collectives.pmean_tree(
+                    {"grads": grads, "loss": loss}, self._extra_group,
+                    bucket_bytes=self.bucket_bytes)
+                grads, loss = synced["grads"], synced["loss"]
             synced = collectives.pmean_tree(
-                {"aux": new_aux, "loss": loss.detach()}, self.group,
+                {"aux": new_aux, "loss": loss}, self.mesh_group,
                 bucket_bytes=self.bucket_bytes)
         return synced["loss"], grads, synced["aux"]
 
@@ -625,7 +697,7 @@ class MPI_PS:
         (a cross-rank sum of the non-finite counts)."""
         bad = torch.stack([torch.isfinite(g).logical_not().sum()
                            for g in grads.values()]).sum().to(torch.float32)
-        dist.all_reduce(bad, op=dist.ReduceOp.SUM, group=self.group)
+        dist.all_reduce(bad, op=dist.ReduceOp.SUM, group=self.mesh_group)
         return bad == 0
 
     def _clip_tree(self, d_ps, *, across_ranks: bool = False):
@@ -721,17 +793,35 @@ class MPI_PS:
     # -- the step ------------------------------------------------------------
 
     def _shard_batch(self, batch):
-        """This rank's contiguous slice of the global batch's leading dim
-        (the JAX step's ``P('ps')`` sharding), on this rank's device."""
-        world, me = self.world_size, self.rank
+        """This rank's shard of the global batch, on this rank's device:
+        the contiguous slice of the leading dim (the JAX step's
+        ``P('ps')``), or over a mesh the slices ``batch_spec`` names, dim
+        by dim (an entry naming a tuple of axes splits over their
+        row-major index)."""
+        if self.mesh is None:
+            spec = [(self.world_size, self.rank)]
+        else:
+            spec = [None if e is None else
+                    (self.mesh.axis_size(e), self.mesh.axis_index(e))
+                    for e in self.batch_spec]
 
         def shard(x):
             x = torch.as_tensor(x)
-            if x.shape[0] % world:
-                raise ValueError(f"batch leading dim {x.shape[0]} is not "
-                                 f"divisible by world size {world}")
-            per = x.shape[0] // world
-            return x[me * per:(me + 1) * per].to(self.device)
+            for dim, split in enumerate(spec):
+                if split is None:
+                    continue
+                n, me = split
+                if x.shape[dim] % n:
+                    if dim == 0:
+                        raise ValueError(
+                            f"batch leading dim {x.shape[0]} is not "
+                            f"divisible by world size {n}")
+                    raise ValueError(f"batch dim {dim} of size "
+                                     f"{x.shape[dim]} is not divisible by "
+                                     f"its {n} shards")
+                per = x.shape[dim] // n
+                x = x.narrow(dim, me * per, per)
+            return x.to(self.device)
 
         return tree_map(shard, batch)
 
@@ -878,8 +968,8 @@ class MPI_PS:
         names = list(self.params)
         fp = param_fingerprints(self.params)
         hi, lo = fp.clone(), fp.clone()
-        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=self.group)
-        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=self.group)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=self.mesh_group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=self.mesh_group)
         same = (hi == lo).cpu().numpy()
         leaf_ok = same[:len(names)] & same[len(names):]
         self.fault_stats["sdc_checks"] += 1
@@ -907,15 +997,15 @@ class MPI_PS:
         return {"ok": False, "mismatched": bad, "first_leaf": first}
 
     def _rebroadcast(self) -> None:
-        """Restore consensus from rank 0: each leaf becomes the cross-rank
-        sum of ``where(rank == 0, p, 0)`` (the JAX guard's masked sum, not
-        a broadcast: the sum turns rank 0's -0.0 into +0.0, as JAX's
-        does), bucketed."""
+        """Restore consensus from rank 0 of the mesh: each leaf becomes
+        the sum over the whole mesh of ``where(rank == 0, p, 0)`` (the JAX
+        guard's masked sum, not a broadcast: the sum turns rank 0's -0.0
+        into +0.0, as JAX's does), bucketed."""
         masked = OrderedDict(
-            (n, p.clone() if self.rank == 0 else torch.zeros_like(p))
+            (n, p.clone() if self.mesh_rank == 0 else torch.zeros_like(p))
             for n, p in self.params.items())
         summed = collectives.psum_tree_bucketed(
-            masked, self.group, bucket_bytes=self.bucket_bytes)
+            masked, self.mesh_group, bucket_bytes=self.bucket_bytes)
         self.params = OrderedDict((n, summed[n].to(p.dtype))
                                   for n, p in self.params.items())
 
@@ -931,12 +1021,16 @@ class MPI_PS:
         """The source-topology record every checkpoint carries: what
         elastic N→M resume verifies (and de-chunks raw ZeRO shards
         against) at load."""
-        return {"world_size": self.world_size, "axes": ["ps"],
-                "mesh": {"axis_names": ["ps"],
-                         "shape": {"ps": self.world_size},
-                         "n_devices": self.world_size,
-                         "platform": self.device.type},
-                "zero": self.zero, "error_feedback": self.error_feedback}
+        if self.mesh is not None:
+            mesh = describe_mesh(self.mesh)
+        else:
+            mesh = {"axis_names": ["ps"], "shape": {"ps": self.world_size},
+                    "n_devices": self.world_size,
+                    "platform": ("gpu" if self.device.type == "cuda"
+                                 else "cpu")}
+        return {"world_size": self.world_size, "axes": list(self.axes),
+                "mesh": mesh, "zero": self.zero,
+                "error_feedback": self.error_feedback}
 
     def state_dict(self, *, raw_shards: bool = False) -> dict:
         """Torch-style snapshot: params, per-param optimizer state, aux

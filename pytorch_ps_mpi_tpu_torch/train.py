@@ -26,9 +26,11 @@ subscription; and the hierarchy, ``--serve P --aggregators G
 --group-size N [--shards K]`` (a root PS or fleet and G group-local
 aggregators in one process, ``aggregators on ports ...`` on stdout) with
 ``--connect AGG --group g --fallback ROOT[,...]`` workers (a
-`shard.GroupWorker`).  It takes the JAX CLI's flags and prints its lines;
-the roles not ported yet (``--sp/--tp/--pp/--ep > 1``) are refused by
-name.  A
+`shard.GroupWorker`); and the multi-rank LM paths, ``--sp`` (ring or
+``--sp-attn ulysses``), ``--tp``, ``--pp`` (``--pp-microbatches``) and
+``--ep`` with ``--moe-experts``, over a named mesh of the world
+(`parallel.mesh`), with the JAX CLI's compositions and refusals.  It
+takes the JAX CLI's flags and prints its lines.  A
 ``--connect`` worker streams its gradients in buckets under
 ``--async-bucket-bytes N`` (0: auto), encoded inside backward under
 ``--fused-encode``; ``--moe-experts E`` gives the LM dense MoE MLPs on
@@ -52,6 +54,8 @@ Examples::
         --model mlp --steps 5
     torchrun --nproc-per-node 4 -m pytorch_ps_mpi_tpu_torch.train \\
         --model resnet18 --dataset cifar10 --codec blockq
+    torchrun --nproc-per-node 4 -m pytorch_ps_mpi_tpu_torch.train \\
+        --model transformer --bf16 --attn flash --tp 2 --pp 2
     python -m pytorch_ps_mpi_tpu_torch.train --model lenet --save ckpt.psz
     python -m pytorch_ps_mpi_tpu_torch.train --model lenet --resume ckpt.psz
     python -m pytorch_ps_mpi_tpu_torch.train --async-ps \\
@@ -84,6 +88,14 @@ import torch.distributed as dist
 # checkpoint was written — a supervisor should relaunch with --resume.
 # Distinct from 130 (a second signal while the first was being handled).
 PREEMPTED_EXIT_CODE = 75
+
+
+def _lead(opt) -> int:
+    """The rank that prints and writes checkpoints: 0 on rank 0 of a sync
+    step's whole mesh (every data, sp, tp, pp and ep rank counted); an
+    async PS is one process."""
+    return getattr(opt, "mesh_rank", opt.rank)
+
 
 def _log(rank: int, msg: str) -> None:
     """Print ``msg`` to stderr on rank 0 only."""
@@ -129,11 +141,11 @@ def _agreed_preemption(preempt, opt) -> "int | None":
     signal this rank saw, or SIGTERM when only another rank saw one.  At a
     world of more than one rank a small all-reduce makes every rank enter
     the (collective) checkpoint together; at world 1 it is the flag."""
-    if opt.world_size == 1:
+    if dist.get_world_size(opt.mesh_group) == 1:
         return preempt.flagged
     flag = torch.tensor([0 if preempt.flagged is None else 1],
                         dtype=torch.int32, device=opt.device)
-    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=opt.group)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=opt.mesh_group)
     if not int(flag.item()):
         return None
     return preempt.flagged if preempt.flagged is not None \
@@ -668,28 +680,14 @@ def main(argv=None):
     return _dispatch(args)
 
 
-# The roles of the JAX CLI this package does not port yet.
-def _unported(args) -> "str | None":
-    for flag in ("sp", "tp", "pp", "ep"):
-        if getattr(args, flag) > 1:
-            return f"--{flag} {getattr(args, flag)}"
-    return None
-
-
 def _dispatch(args):
-    what = _unported(args)
-    if what is not None:
-        raise SystemExit(f"{what} is not ported to the PyTorch package yet "
-                         f"(the sync trainer, the in-process async PS and "
-                         f"the multihost roles with the bucket stream, the "
-                         f"serve tier, the sharded fleet and the hierarchy "
-                         f"are, with the dense MoE LM; the sp/tp/pp/ep "
-                         f"roles follow)")
     # Refuse, don't drop: every flag below would be inert on the role that
     # runs (the JAX CLI's refusals and messages, in its order).
     on_async = args.async_ps or args.serve is not None or bool(args.connect)
     if args.pp_microbatches is not None and args.pp <= 1:
         raise SystemExit("--pp-microbatches needs --pp > 1")
+    if args.pp > 1 and args.model != "transformer":
+        raise SystemExit("--pp applies to --model transformer only")
     if args.sp_attn != "ring" and args.sp <= 1:
         raise SystemExit(f"--sp-attn {args.sp_attn} needs --sp > 1")
     if args.eval_every and (args.model == "transformer" or on_async):
@@ -796,6 +794,14 @@ def _dispatch(args):
             raise SystemExit(
                 f"--model transformer trains on the 'lm' dataset, "
                 f"not {args.dataset!r}")
+        if on_async and (args.sp > 1 or args.tp > 1 or args.pp > 1
+                         or args.ep > 1):
+            raise SystemExit("async transformer runs dense per worker "
+                             "(no --sp/--tp/--pp/--ep: each async "
+                             "worker is a single device; "
+                             "--moe-experts runs all experts locally "
+                             "— the sparse per-expert gradients ride "
+                             "the codecs and the PS/aggregator tier)")
     elif args.dataset == "lm":
         raise SystemExit("--dataset lm requires --model transformer")
     elif args.dataset is None:
@@ -1141,7 +1147,7 @@ def run_sync(args, device, group):
                 loss, data = opt.step(b)
                 step += 1
                 if step % 10 == 0 or step == 1:
-                    _log(opt.rank, f"step {step:5d}  loss {loss:.4f}  "
+                    _log(_lead(opt), f"step {step:5d}  loss {loss:.4f}  "
                          f"comm_wait {data['comm_wait']*1e3:.2f}ms")
                 signum = _agreed_preemption(preempt, opt)
                 if signum is not None:
@@ -1176,14 +1182,14 @@ def run_sync(args, device, group):
         _eval_and_log(args, opt, model, x, y, step, final=True)
     steps_run = step - start
     imgs = args.batch_size * steps_run
-    _log(opt.rank, f"done: {steps_run} steps, {imgs/wall:.1f} images/sec "
+    _log(_lead(opt), f"done: {steps_run} steps, {imgs/wall:.1f} images/sec "
          f"({imgs/wall/world:.1f}/device)")
     _maybe_save(args, opt, step, final=True, extra=_loop_extra(loader, opt))
     from .utils.timing import format_fault_stats
     rendered = format_fault_stats(opt.fault_stats)
     if rendered != "clean":
-        _log(opt.rank, "fault stats: " + rendered)
-    if args.summary and opt.rank == 0:
+        _log(_lead(opt), "fault stats: " + rendered)
+    if args.summary and _lead(opt) == 0:
         opt.print_summary()
     return opt
 
@@ -1209,7 +1215,7 @@ def _eval_and_log(args, opt, model, x, y, step, *, final=False) -> float:
                         for i in range(0, n, bs))
         acc = eval_accuracy(model, params, opt.aux, batches_iter)
     tag = "final " if final else ""
-    _log(opt.rank,
+    _log(_lead(opt),
          f"{tag}eval @ step {step}: top-1 {acc:.4f} ({which}, n={n})")
     return acc
 
@@ -1228,10 +1234,10 @@ def _restore(args, opt) -> "tuple[int, dict | None]":
                          f"(also looked for step-tagged siblings)")
     info = checkpoint.load_optimizer(path, opt,
                                      min_step=args.resume_min_step)
-    if opt.rank == 0:
+    if _lead(opt) == 0:
         checkpoint.clear_resumable(path)
     start = int(info.get("step") or 0)
-    _log(opt.rank, f"resumed from {path} at step {start}")
+    _log(_lead(opt), f"resumed from {path} at step {start}")
     return start, info.get("extra")
 
 
@@ -1250,15 +1256,16 @@ def _save(opt, path, *, step, extra, **kwargs) -> None:
     file before it goes on (a rollback may read it next)."""
     from .utils import checkpoint
     checkpoint.save_optimizer(path, opt, step=step, extra=extra,
-                              write=opt.rank == 0, **kwargs)
-    if opt.world_size > 1:
-        dist.barrier(group=opt.group)
+                              write=_lead(opt) == 0, **kwargs)
+    group = getattr(opt, "mesh_group", None)
+    if group is not None and dist.get_world_size(group) > 1:
+        dist.barrier(group=group)
 
 
 def _interrupted_exit(args, opt, step: int, loader=None):
     """A second signal, or Ctrl-C outside the latch: save best-effort
     (with --save) and exit 130."""
-    _log(opt.rank, f"interrupted at step {step}")
+    _log(_lead(opt), f"interrupted at step {step}")
     _maybe_save(args, opt, step, final=True,
                 extra=_loop_extra(loader, opt) if loader is not None
                 else None)
@@ -1272,21 +1279,21 @@ def _preempt_exit(args, opt, step: int, signum: int, loader=None):
     `PREEMPTED_EXIT_CODE`."""
     from .utils import checkpoint
     name = signal.Signals(signum).name
-    _log(opt.rank, f"{name} received: finished in-flight step {step}")
+    _log(_lead(opt), f"{name} received: finished in-flight step {step}")
     if args.save:
         path = (checkpoint.step_path(args.save, step) if args.save_every
                 else args.save)
         extra = _loop_extra(loader, opt) if loader is not None else None
         _save(opt, path, step=step, extra=extra, raw_shards=True)
-        if opt.rank == 0:
+        if _lead(opt) == 0:
             checkpoint.mark_resumable(path, {"step": step, "signal": name,
                                              "unix_time": time.time()})
             if args.save_every:
                 checkpoint.gc_step_checkpoints(
                     args.save, keep_last=args.keep_checkpoints)
-        _log(opt.rank, f"checkpoint -> {path} (step {step}, RESUMABLE)")
+        _log(_lead(opt), f"checkpoint -> {path} (step {step}, RESUMABLE)")
     else:
-        _log(opt.rank, "preempted with no --save: progress is lost")
+        _log(_lead(opt), "preempted with no --save: progress is lost")
     raise SystemExit(PREEMPTED_EXIT_CODE)
 
 
@@ -1297,7 +1304,7 @@ def _maybe_save(args, opt, step: int, *, final: bool = False,
     from .utils import checkpoint
     if final:
         _save(opt, args.save, step=step, extra=extra)
-        _log(opt.rank, f"checkpoint -> {args.save} (step {step})")
+        _log(_lead(opt), f"checkpoint -> {args.save} (step {step})")
     elif args.save_every and step % args.save_every == 0:
         # Periodic saves are step-tagged and keep-last-K collected.  The
         # sync loop skips this call on a non-finite loss, so rollback's
@@ -1306,8 +1313,8 @@ def _maybe_save(args, opt, step: int, *, final: bool = False,
         _save(opt, path, step=step, extra=extra)
         gone = (checkpoint.gc_step_checkpoints(
             args.save, keep_last=args.keep_checkpoints)
-            if opt.rank == 0 else [])
-        _log(opt.rank, f"checkpoint -> {path} (step {step}"
+            if _lead(opt) == 0 else [])
+        _log(_lead(opt), f"checkpoint -> {path} (step {step}"
              + (f", gc'd {len(gone)} old" if gone else "") + ")")
 
 
@@ -1337,13 +1344,13 @@ def _chaos_before_step(opt, plan, fired: set, step: int) -> None:
         return
     if plan.should_preempt(step) and "preempt" not in fired:
         fired.add("preempt")
-        _log(opt.rank, f"chaos: raising SIGTERM before step {step + 1}")
+        _log(_lead(opt), f"chaos: raising SIGTERM before step {step + 1}")
         os.kill(os.getpid(), signal.SIGTERM)
     if plan.should_corrupt_replica(step) and "sdc" not in fired:
         fired.add("sdc")
         from .utils import faults
         leaf = faults.corrupt_replica(opt, plan.sdc_rank, plan.sdc_param)
-        _log(opt.rank, f"chaos: corrupted replica {plan.sdc_rank} of "
+        _log(_lead(opt), f"chaos: corrupted replica {plan.sdc_rank} of "
              f"{leaf!r} before step {step + 1}")
 
 
@@ -1381,7 +1388,7 @@ def _maybe_rollback(args, opt, guard, loss, step: int, loader):
     events = opt.fault_stats["rollbacks"]
     last = checkpoint.latest_checkpoint(args.save)
     if last is None:
-        _log(opt.rank, f"divergence guard: {why} at step {step}, but no "
+        _log(_lead(opt), f"divergence guard: {why} at step {step}, but no "
              f"checkpoint exists yet — continuing without rollback")
         events.append({"step": step, "reason": why, "restored_step": None,
                        "skipped": "no checkpoint yet"})
@@ -1411,14 +1418,14 @@ def _maybe_rollback(args, opt, guard, loss, step: int, loader):
                    "checkpoint": last,
                    "lr_scale": args.rollback_lr_scale,
                    "loss": float(loss)})
-    _log(opt.rank, f"divergence guard: {why} at step {step} — rolled back "
+    _log(_lead(opt), f"divergence guard: {why} at step {step} — rolled back "
          f"to checkpoint step {restored}"
          + (f", lr x{args.rollback_lr_scale:g}"
             if args.rollback_lr_scale != 1.0 else ""))
     if len([e for e in events if e.get("restored_step") is not None]) \
             >= args.max_rollbacks:
         guard.disabled = True
-        _log(opt.rank, f"divergence guard: {args.max_rollbacks} rollbacks "
+        _log(_lead(opt), f"divergence guard: {args.max_rollbacks} rollbacks "
              f"reached — guard disabled for the rest of the run")
     return restored
 
@@ -1443,31 +1450,134 @@ def transformer_model(args):
 
 
 def run_transformer(args, device, group):
-    """The dense transformer LM (data parallel only)."""
+    """Transformer LM training with composable parallelism, as the JAX
+    CLI's: ``--sp`` shards the sequence (ring or Ulysses attention),
+    ``--tp`` the heads and the MLP, ``--pp`` the depth, ``--ep`` the
+    experts; the batch shards over the remaining dp axis.  The mesh is
+    laid over the joined world (``--force-cpu-devices N`` or the group
+    ``torchrun`` launched)."""
+    import functools
+
     from .models.transformer import build_lm
+    from .parallel import mesh as M
+    from .parallel.ring_attention import ring_attention
     from .ps import MPI_PS
 
-    model = transformer_model(args)
-    params = build_lm(model, seed=args.seed)
-    opt = MPI_PS(list(params.items()), optim=args.optim, code=args.codec,
-                 device=device, group=group, **ps_kwargs_from_args(args),
-                 **hyper_from_args(args))
-    return _run_transformer_loop(args, opt, model)
+    del group  # the mesh's groups are made over the joined world
+    if args.seq_len % args.sp:
+        raise SystemExit(
+            f"--seq-len {args.seq_len} must divide by --sp {args.sp}")
+    if args.ep > 1:
+        if not args.moe_experts:
+            raise SystemExit("--ep needs --moe-experts")
+        if args.moe_experts % args.ep:
+            raise SystemExit(f"--moe-experts {args.moe_experts} must "
+                             f"divide by --ep {args.ep}")
+        if args.sp > 1 or args.tp > 1:
+            raise SystemExit("--ep composes with dp only (not --sp/--tp) "
+                             "in this CLI")
+    if args.pp > 1 and (args.sp > 1 or args.ep > 1 or args.moe_experts):
+        raise SystemExit("--pp composes with dp and --tp only (not --sp/"
+                         "--ep/MoE) in this CLI")
+    shard = args.sp * args.tp * args.pp
+    if args.n_devices and args.n_devices % (shard * args.ep):
+        raise SystemExit(f"--n-devices {args.n_devices} must divide by "
+                         f"--sp*--tp*--pp*--ep")
+
+    dense = transformer_model(args)
+    params = build_lm(dense, seed=args.seed)
+
+    tp_axis = "tp" if args.tp > 1 else None
+    if args.attn == "flash" and args.sp > 1 and args.sp_attn == "ring":
+        raise SystemExit("--attn flash composes with dp/tp/ep or with "
+                         "--sp-attn ulysses; --sp-attn ring uses its own "
+                         "streaming softmax")
+    flash = None
+    if args.attn == "flash":
+        from .ops.flash_attention import flash_attention
+        flash = functools.partial(flash_attention, causal=True)
+    if args.sp > 1 and args.sp_attn == "ulysses":
+        from .parallel.ulysses import ulysses_attention
+        inner = None
+        if flash is not None:
+            from .ops.flash_attention import flash_attention
+            inner = flash_attention
+        attn = functools.partial(ulysses_attention, axis="sp", causal=True,
+                                 inner=inner)
+    elif args.sp > 1:
+        attn = functools.partial(ring_attention, axis="sp", causal=True)
+    else:
+        attn = flash
+    n_dev = args.n_devices
+    world = dist.get_world_size()
+    dp = n_dev // shard if n_dev else None
+    common = dict(optim=args.optim, code=args.codec,
+                  **ps_kwargs_from_args(args), **hyper_from_args(args))
+
+    def mesh_of(build, *a):
+        return build(*a, device=device)
+
+    if args.ep > 1:
+        mesh = mesh_of(M.make_dp_ep_mesh,
+                       n_dev // args.ep if n_dev else None, args.ep)
+        model = dense.copy(ep_axis="ep", attn=attn)
+        opt = MPI_PS(list(params.items()), mesh=mesh, axis=("ps", "ep"),
+                     batch_spec=(("ps", "ep"),), **common)
+        return _run_transformer_loop(args, opt, mesh, model)
+    if args.pp > 1:
+        from .models.pipelined import make_pipelined_lm_loss
+
+        if dense.n_layers % args.pp:
+            raise SystemExit(f"{dense.n_layers} layers do not split into "
+                             f"--pp {args.pp} stages")
+        if args.tp > 1:
+            mesh = mesh_of(M.make_dp_pp_tp_mesh, dp or world // shard,
+                           args.pp, args.tp)
+        else:
+            mesh = mesh_of(M.make_dp_pp_mesh, dp, args.pp)
+        model = dense.copy(attn=attn, tp_axis=tp_axis)
+        opt = MPI_PS(list(params.items()), mesh=mesh, batch_spec=("ps",),
+                     **common)
+        loss_fn = make_pipelined_lm_loss(model,
+                                         n_micro=args.pp_microbatches)
+        return _run_transformer_loop(args, opt, mesh, model,
+                                     loss_fn=loss_fn)
+    if args.sp > 1 and args.tp > 1:
+        mesh = mesh_of(M.make_dp_sp_tp_mesh, dp or world // shard, args.sp,
+                       args.tp)
+        batch_spec = ("ps", "sp")
+    elif args.sp > 1:
+        mesh = mesh_of(M.make_dp_sp_mesh, dp, args.sp)
+        batch_spec = ("ps", "sp")
+    elif args.tp > 1:
+        mesh = mesh_of(M.make_dp_tp_mesh, dp, args.tp)
+        batch_spec = ("ps",)
+    else:
+        mesh = mesh_of(M.make_ps_mesh, n_dev)
+        batch_spec = None
+    model = dense.copy(tp_axis=tp_axis, attn=attn)
+    opt = MPI_PS(list(params.items()), mesh=mesh, batch_spec=batch_spec,
+                 **common)
+    return _run_transformer_loop(args, opt, mesh, model)
 
 
-def _run_transformer_loop(args, opt, model):
+def _run_transformer_loop(args, opt, mesh, model, loss_fn=None):
     from .data.datasets import synthetic_lm
     from .models.transformer import lm_batch, make_lm_loss
 
-    dp = opt.world_size
-    if args.batch_size % dp:
+    dp = mesh.shape["ps"]
+    data_shards = dp * mesh.shape.get("ep", 1)
+    if args.batch_size % data_shards:
         raise SystemExit(
-            f"--batch-size {args.batch_size} must divide by {dp} "
+            f"--batch-size {args.batch_size} must divide by {data_shards} "
             f"data shards")
-    _log(opt.rank, f"mesh: dp={dp} sp=1 tp=1 pp=1 ep=1 x {opt.device.type}")
+    _log(_lead(opt),
+         f"mesh: dp={dp} sp={mesh.shape.get('sp', 1)} "
+         f"tp={mesh.shape.get('tp', 1)} pp={mesh.shape.get('pp', 1)} "
+         f"ep={mesh.shape.get('ep', 1)} x {opt.device.type}")
 
-    opt.compile_step(make_lm_loss(model), accum_steps=args.accum_steps,
-                     remat=args.remat)
+    opt.compile_step(loss_fn if loss_fn is not None else make_lm_loss(model),
+                     accum_steps=args.accum_steps, remat=args.remat)
 
     toks = synthetic_lm(max(args.n_examples, args.batch_size),
                         seq_len=args.seq_len, vocab=args.vocab,
@@ -1490,7 +1600,7 @@ def _run_transformer_loop(args, opt, model):
                 loss, data = opt.step(lm_batch(toks[take]))
                 step += 1
                 if step % 10 == 0 or step == 1:
-                    _log(opt.rank, f"step {step:5d}  loss {loss:.4f}  "
+                    _log(_lead(opt), f"step {step:5d}  loss {loss:.4f}  "
                          f"comm_wait {data['comm_wait']*1e3:.2f}ms")
                 signum = _agreed_preemption(preempt, opt)
                 if signum is not None:
@@ -1504,10 +1614,10 @@ def _run_transformer_loop(args, opt, model):
     wall = time.perf_counter() - t0
     steps_run = step - start
     tok_s = args.batch_size * args.seq_len * steps_run / wall
-    _log(opt.rank, f"done: {steps_run} steps, {tok_s:,.0f} tokens/sec "
-         f"({tok_s / dp:,.0f}/device)")
+    _log(_lead(opt), f"done: {steps_run} steps, {tok_s:,.0f} "
+         f"tokens/sec ({tok_s / mesh.size:,.0f}/device)")
     _maybe_save(args, opt, step, final=True)
-    if args.summary and opt.rank == 0:
+    if args.summary and _lead(opt) == 0:
         opt.print_summary()
     return opt
 

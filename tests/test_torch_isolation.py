@@ -173,14 +173,16 @@ def test_cuda_device_raises_without_a_card():
 
 def test_unported_codec_raises():
     """Every codec name of the JAX package resolves in the port; a name
-    neither package has raises, and a mesh option (the sp/tp slice's)
-    is refused as not ported."""
+    neither package has raises.  The mesh options are ported: without a
+    mesh the step's default one (``("ps",)`` over the world) is used, and
+    a ``batch_spec`` naming an axis it lacks is refused, not run
+    dense."""
     for name in ("identity", "bf16", "topk", "topk_approx", "quantize",
                  "sign", "blockq"):
         assert isinstance(port.get_codec(name), port.Codec)
     with pytest.raises(ValueError, match="unknown codec"):
         port.get_codec("nope")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="'sp', not in mesh axes"):
         port.SGD([("w", np.zeros(3, np.float32))], device="cpu",
                  batch_spec=("ps", "sp"))
 

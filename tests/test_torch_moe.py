@@ -110,10 +110,22 @@ def test_moe_mlp_matches_jax(jdt, tdt):
 
 
 def test_ep_axis_is_refused_naming_the_multi_rank_slice():
-    with pytest.raises(NotImplementedError, match="multi-rank LM paths"):
-        tmoe.MoEMLP(8, 16, 4, ep_axis="ep")
-    with pytest.raises(NotImplementedError, match="multi-rank LM paths"):
-        tt.TransformerLM(vocab_size=8, moe_experts=4, ep_axis="ep")
+    """Expert parallelism is ported (`tests/test_torch_model_parallel.py`
+    holds it against JAX); an ``ep_axis`` that no current mesh binds is
+    refused as JAX refuses it outside ``shard_map`` — never run as the
+    dense MoE."""
+    x = np.random.RandomState(0).randn(1, 4, 8).astype(np.float32)
+    layer = tmoe.MoEMLP(8, 16, 4, ep_axis="ep")
+    layer.reset_parameters(torch.Generator().manual_seed(0))
+    with pytest.raises(NameError, match="unbound axis name: ep"):
+        layer(torch.from_numpy(x))
+    with pytest.raises(NameError, match="unbound axis name: ep"):
+        jmoe.MoEMLP(8, 16, 4, ep_axis="ep").init(jax.random.PRNGKey(0),
+                                                 jnp.asarray(x))
+    lm = tt.TransformerLM(vocab_size=8, d_model=8, n_heads=2, moe_experts=4,
+                          ep_axis="ep")
+    with pytest.raises(NameError, match="unbound axis name: ep"):
+        lm(torch.zeros((1, 4), dtype=torch.int64))
 
 
 def _lm_pair(cfg, seed=2):

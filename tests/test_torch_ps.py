@@ -228,8 +228,19 @@ def test_unported_options_raise(kwargs):
     assert runs[0][0] == runs[1][0]
     for n, p in runs[1][1].items():
         assert torch.equal(runs[0][1][n], p), n
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SGD(_named(), device="cpu", mesh=object())
+    # An axis missing from the mesh is refused in the JAX package's words.
+    from pytorch_ps_mpi_tpu import SGD as JSGD
+    from pytorch_ps_mpi_tpu.parallel.mesh import make_ps_mesh as jmesh
+
+    from pytorch_ps_mpi_tpu_torch import make_ps_mesh
+
+    with pytest.raises(ValueError) as e:
+        SGD(_named(), device="cpu", mesh=make_ps_mesh(1, device="cpu"),
+            axis=("ps", "tp"))
+    with pytest.raises(ValueError) as j:
+        JSGD(_named(), mesh=jmesh(1), axis=("ps", "tp"))
+    assert str(e.value) == str(j.value) == (
+        "axis 'tp' not in mesh axes ('ps',)")
 
 
 def test_exports_cover_the_jax_package():
@@ -240,7 +251,6 @@ def test_exports_cover_the_jax_package():
     import pytorch_ps_mpi_tpu_torch as port
 
     waiting = {
-        "make_ps_mesh": "the multi-rank LM paths (meshes)",
         "TorchUnavailableError": "none: the port is the torch package",
     }
     for name in jpkg.__all__:

@@ -293,24 +293,31 @@ def test_cli_transformer_lm_resumes_bitwise(tmp_path, capsys):
     assert re.search(r"^done: 3 steps, [\d,]+ tokens/sec", err, re.M)
 
 
-# (id, argv, what the refusal starts with): the sp/tp/pp/ep roles are
-# refused by name.  Since the hierarchy is ported, the "--serve" and
-# "--connect" cases hold that a misplaced hierarchy flag on those roles
-# is refused in the JAX CLI's words (``--aggregators`` without a group
-# size; ``--fallback`` with two aggregator endpoints).
+# (id, argv, what the refusal starts with).  Every role of the JAX CLI is
+# ported: each case holds a misplaced flag refused in the JAX CLI's
+# words.  Since the hierarchy is ported, the "--serve" and "--connect"
+# cases hold the hierarchy's (``--aggregators`` without a group size;
+# ``--fallback`` with two aggregator endpoints); since the multi-rank LM
+# paths are, the sp/tp/pp/ep cases hold their compositions' (``--attn
+# flash`` with the ring, a sequence that does not split over ``--sp``,
+# ``--pp`` with MoE blocks, ``--ep`` without experts, experts that do not
+# split over ``--ep``).  The JAX CLI runs on 2 devices: on 1 it refuses
+# ``--sp 2`` for its device count first.
 UNPORTED = [
     ("--serve", ["--serve", "0", "--aggregators", "2"],
      "--aggregators needs --group-size N"),
     ("--connect", ["--connect", "h:1,h:3", "--fallback", "h:2"],
      "--fallback needs --connect to name ONE aggregator endpoint"),
-    ("--sp 2", ["--model", "transformer", "--sp", "2"], "--sp 2"),
-    ("--tp 2", ["--model", "transformer", "--tp", "2"], "--tp 2"),
-    ("--pp 2", ["--model", "transformer", "--pp", "2"], "--pp 2"),
-    ("--ep 2", ["--model", "transformer", "--ep", "2"], "--ep 2"),
-    # The dense MoE is ported; its expert parallelism waits for the
-    # multi-rank LM slice.
+    ("--sp 2", ["--model", "transformer", "--sp", "2", "--attn", "flash"],
+     "--attn flash composes with dp/tp/ep or with --sp-attn ulysses"),
+    ("--tp 2", ["--model", "transformer", "--tp", "2", "--sp", "3",
+                "--seq-len", "32"], "--seq-len 32 must divide by --sp 3"),
+    ("--pp 2", ["--model", "transformer", "--pp", "2", "--moe-experts",
+                "4"], "--pp composes with dp and --tp only"),
+    ("--ep 2", ["--model", "transformer", "--ep", "2"],
+     "--ep needs --moe-experts"),
     ("--moe-experts", ["--model", "transformer", "--moe-experts", "4",
-                       "--ep", "2"], "--ep 2"),
+                       "--ep", "3"], "--moe-experts 4 must divide by --ep 3"),
 ]
 
 
@@ -319,14 +326,10 @@ UNPORTED = [
 def test_cli_refuses_unported_roles_by_name(argv, flag):
     with pytest.raises(SystemExit) as e:
         port_cli(argv + ["--steps", "1"])
-    if flag.startswith("--aggregators") or flag.startswith("--fallback"):
-        with pytest.raises(SystemExit) as j:
-            jax_cli(argv + ["--steps", "1"])
-        assert str(e.value) == str(j.value)
-        assert str(e.value).startswith(flag)
-        return
-    assert str(e.value).startswith(
-        f"{flag} is not ported to the PyTorch package yet")
+    with pytest.raises(SystemExit) as j:
+        jax_cli(argv + ["--steps", "1"], world=2)
+    assert str(e.value) == str(j.value)
+    assert str(e.value).startswith(flag)
 
 
 SYNC_REFUSALS = [
@@ -554,6 +557,11 @@ ASYNC_REFUSALS = [
     ["--dataset", "lm"],
     ["--pp-microbatches", "2"],
     ["--sp-attn", "ulysses"],
+    # The async roles run the LM dense per worker.
+    ["--model", "transformer", "--tp", "2"],
+    ["--model", "transformer", "--sp", "2"],
+    ["--model", "transformer", "--pp", "2"],
+    ["--model", "transformer", "--moe-experts", "4", "--ep", "2"],
     ["--chaos", json.dumps({"kill_shard_at": {"0": 1}})],
     ["--chaos", json.dumps({"partition_links": [[0, 0, 0, 1]]})],
     ["--chaos", json.dumps({"byzantine_agg": 0})],

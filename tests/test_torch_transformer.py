@@ -237,13 +237,19 @@ def test_build_lm_initialises_like_flax():
 
 
 def test_unported_options_raise():
-    """Tensor and expert parallelism wait for the multi-rank LM slice; the
-    dense MoE (``moe_experts`` alone) is ported
-    (`tests/test_torch_moe.py`)."""
-    for kw in (dict(tp_axis="tp"), dict(ep_axis="ep"),
-               dict(moe_experts=4, ep_axis="ep")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tt.TransformerLM(vocab_size=8, **kw)
+    """Tensor and expert parallelism are ported
+    (`tests/test_torch_model_parallel.py`); a ``tp_axis`` or ``ep_axis``
+    that no current mesh binds raises at the forward, as JAX's unbound
+    axis does, and never runs dense."""
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    for kw, axis in ((dict(tp_axis="tp"), "tp"),
+                     (dict(moe_experts=4, ep_axis="ep"), "ep")):
+        lm = tt.TransformerLM(vocab_size=8, d_model=8, n_heads=2, **kw)
+        with pytest.raises(NameError, match=f"unbound axis name: {axis}"):
+            lm(tokens)
+        jm = jt.TransformerLM(vocab_size=8, d_model=8, n_heads=2, **kw)
+        with pytest.raises(NameError, match=f"unbound axis name: {axis}"):
+            jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 4), jnp.int32))
     assert tt.TransformerLM(vocab_size=8, moe_experts=4).moe_experts == 4
 
 

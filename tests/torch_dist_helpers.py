@@ -26,8 +26,15 @@ def _entry(rank, fn_name, world, init_file, out_dir, args):
 
     torch.set_num_threads(1)
     make_ps_group("cpu", rank=rank, world_size=world, init_file=init_file)
+    if ":" in fn_name:  # "module:function", a module of tests/
+        import importlib
+
+        module, name = fn_name.split(":")
+        fn = getattr(importlib.import_module(module), name)
+    else:
+        fn = globals()[fn_name]
     try:
-        result = globals()[fn_name](rank, world, *args)
+        result = fn(rank, world, *args)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -37,7 +44,9 @@ def _entry(rank, fn_name, world, init_file, out_dir, args):
 def run_world(fn_name: str, world: int, tmp_path, *args,
               timeout: float = 120.0):
     """Run ``fn_name(rank, world, *args)`` on ``world`` spawned ranks and
-    return the list of their results (rank order)."""
+    return the list of their results (rank order).  ``fn_name`` names a
+    function of this module, or ``"module:function"`` one of another
+    module of ``tests/`` (which must import no JAX)."""
     out_dir = str(tmp_path)
     init_file = os.path.join(out_dir, "store")
     ctx = mp.start_processes(_entry, nprocs=world, join=False,
