@@ -24,6 +24,7 @@ the default group when None) in place of a mesh axis.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any
 
@@ -106,9 +107,26 @@ def _solo_default(bucket_bytes: int, solo_bytes: "int | None") -> int:
 # One flat collective
 # ---------------------------------------------------------------------------
 
+# Flat collectives issued by each thread (each bucket's, each solo
+# leaf's), read before and after a phase (`flat_calls`): per thread, so no
+# other thread's collectives fall inside the phase and no increment is
+# lost to a race.
+_issued = threading.local()
+
+
+def _count(n: int = 1) -> None:
+    _issued.n = getattr(_issued, "n", 0) + n
+
+
+def flat_calls() -> int:
+    """How many flat collectives the bucketed tree collectives have
+    issued from this thread so far."""
+    return getattr(_issued, "n", 0)
+
 
 def _all_reduce_flat(flat: torch.Tensor, group) -> torch.Tensor:
     """Sum a contiguous 1-D tensor across ranks, in place."""
+    _count()
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     return flat
 
@@ -121,6 +139,7 @@ def _all_gather_flat(flat: torch.Tensor, group, works=None) -> torch.Tensor:
     a ``works`` list the gather is issued asynchronously and ``(work,
     input)`` is appended to it; the result holds the gathered bytes once
     the work has been waited for."""
+    _count()
     world = dist.get_world_size(group)
     raw = flat.view(torch.int8)
     out = torch.empty((world * raw.numel(),), dtype=torch.int8,
@@ -153,6 +172,7 @@ def _allreduce_rs_ag(x: torch.Tensor, group, world: int, *,
     order.  NCCL runs a group's collectives in issue order on one stream,
     so there the gather is queued behind the scatter at once; gloo runs
     them on several threads, so there the scatter is waited for first."""
+    _count(2)
     n = x.numel()
     pad = (-n) % world
     if pad:
@@ -276,6 +296,7 @@ def reduce_scatter_flats_bucketed(
     them all — the same elementwise sums as the per-leaf lowering.  The
     JAX package's plan: same-dtype buckets, large leaves solo."""
     def per_leaf(x):
+        _count()
         mine = x.new_empty((x.numel() // world,))
         _reduce_scatter_into(mine, x.contiguous(), op=dist.ReduceOp.SUM,
                              group=group)

@@ -80,7 +80,7 @@ from .utils.bytes import bytes_of, host_numpy
 from .utils.flatten import (tree_flatten, tree_leaves, tree_map,
                             tree_unflatten)
 from .utils.interop import from_jax_order, jax_order, to_jax_order
-from .utils.timing import (STEP_METRIC_KEYS, print_summary,
+from .utils.timing import (STEP_METRIC_KEYS, annotate, print_summary,
                            record_overlap_schedule)
 
 # Hyperparameters accepted per optimizer — the analogue of the reference's
@@ -427,6 +427,7 @@ class MPI_PS:
         self._remat = False
         self._loss_fn = None
         self._warm = False
+        self._byte_metrics = None
         # A skip_nonfinite step's consensus on its way to the host: the
         # rules' step counters (host tensors) are settled from it before
         # they are next read (`_settle_step_counters`).
@@ -515,6 +516,7 @@ class MPI_PS:
         self._accum = int(accum_steps)
         self._remat = bool(remat)
         self._warm = False
+        self._byte_metrics = None
         if aux is not None:
             self.aux = tree_map(
                 lambda x: torch.as_tensor(x).detach().to(self.device,
@@ -826,10 +828,16 @@ class MPI_PS:
         return tree_map(shard, batch)
 
     def _static_byte_metrics(self) -> dict[str, float]:
-        msg = sum(bytes_of(p) for p in self.params.values())
-        packaged = sum(self.code.wire_bytes(p.shape, p.dtype)
-                       for p in self.params.values())
-        return {"msg_bytes": float(msg), "packaged_bytes": float(packaged)}
+        """``msg_bytes`` and ``packaged_bytes``: the parameters' shapes
+        and the codec are fixed once the step is compiled, so they are
+        counted once, on the first step after `compile_step`."""
+        if self._byte_metrics is None:
+            msg = sum(bytes_of(p) for p in self.params.values())
+            packaged = sum(self.code.wire_bytes(p.shape, p.dtype)
+                           for p in self.params.values())
+            self._byte_metrics = {"msg_bytes": float(msg),
+                                  "packaged_bytes": float(packaged)}
+        return self._byte_metrics
 
     def step(self, batch=None, closure=None, loss_fn: Callable | None = None,
              block: bool = True):
@@ -843,7 +851,13 @@ class MPI_PS:
         its loss discarded, as the JAX step does.  With ``profile=True``
         each phase runs to a device synchronize and is timed on its own
         (`_profiled_step`).  On the ``consensus_every`` cadence the
-        replica-consensus guard runs after the step (`check_consensus`)."""
+        replica-consensus guard runs after the step (`check_consensus`).
+        ``sync_calls`` counts the flat collectives of the sync phase.
+
+        Under ``torch.profiler`` the step is the span ``ps.step`` (its
+        ``args`` the step's index) around the spans ``ps.grad``,
+        ``ps.encode``, ``ps.sync`` and ``ps.update``
+        (`utils.timing.annotate`)."""
         if loss_fn is not None and loss_fn is not self._loss_fn:
             self.compile_step(loss_fn, has_aux=self._has_aux,
                               accum_steps=self._accum, remat=self._remat)
@@ -851,7 +865,10 @@ class MPI_PS:
             raise NotCompiledError("call compile_step(loss_fn) before step()")
         if batch is None:
             raise ValueError("step() needs a batch")
+        with annotate("ps.step", self.steps_completed):
+            return self._step(batch, closure, block)
 
+    def _step(self, batch, closure, block: bool):
         data: dict[str, float] = {k: 0.0 for k in STEP_METRIC_KEYS}
         data.update(self._static_byte_metrics())
         batch = self._shard_batch(batch)
@@ -871,13 +888,20 @@ class MPI_PS:
             return loss, data
 
         start = time.perf_counter()
-        loss, grads, new_aux = self._grads_and_aux(batch)
+        with annotate("ps.grad"):
+            loss, grads, new_aux = self._grads_and_aux(batch)
         with torch.no_grad():
             ok = self._all_finite(grads) if self.skip_nonfinite else None
             old = (dict(self.params), dict(self.state), self.aux,
                    {k: dict(v) for k, v in self.extras.items()})
-            self._phase_update(self._phase_sync(self._phase_encode(grads)))
-            self._phase_ema()
+            with annotate("ps.encode"):
+                codes = self._phase_encode(grads)
+            with annotate("ps.sync"):
+                d = self._counted_sync(codes, data)
+            del codes  # freed before the update allocates, as a temporary
+            with annotate("ps.update"):
+                self._phase_update(d)
+                self._phase_ema()
             self.aux = new_aux
             if ok is not None:
                 self._keep_unless(ok, *old)
@@ -906,6 +930,14 @@ class MPI_PS:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _counted_sync(self, codes, data):
+        """`_phase_sync`, its flat collectives counted into
+        ``data["sync_calls"]``."""
+        before = collectives.flat_calls()
+        d = self._phase_sync(codes)
+        data["sync_calls"] = float(collectives.flat_calls() - before)
+        return d
+
     def _profiled_step(self, batch, data):
         """The step as timed phases, each run to a device synchronize: grad
         (forward, backward, the loss and aux averages and, with
@@ -918,10 +950,12 @@ class MPI_PS:
         phase is empty."""
         identity = isinstance(self.code, IdentityCodec)
         t0 = time.perf_counter()
-        loss, grads, new_aux = self._grads_and_aux(batch)
-        with torch.no_grad():
-            ok = self._all_finite(grads) if self.skip_nonfinite else None
-        self._sync_device()
+        with annotate("ps.grad"):
+            loss, grads, new_aux = self._grads_and_aux(batch)
+            with torch.no_grad():
+                ok = (self._all_finite(grads) if self.skip_nonfinite
+                      else None)
+            self._sync_device()
         data["backward_time"] = time.perf_counter() - t0
         if ok is not None and not bool(ok):
             data["nonfinite_skip"] = 1.0
@@ -931,28 +965,31 @@ class MPI_PS:
 
         with torch.no_grad():
             t0 = time.perf_counter()
-            codes = self._phase_encode(grads)
-            self._sync_device()
+            with annotate("ps.encode"):
+                codes = self._phase_encode(grads)
+                self._sync_device()
             data["code_wait"] = time.perf_counter() - t0
 
-            t0 = time.perf_counter()
-            d = self._phase_sync(codes)
-            data["isend_time"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self._sync_device()
-            data["comm_wait"] = time.perf_counter() - t0
+            with annotate("ps.sync"):
+                t0 = time.perf_counter()
+                d = self._counted_sync(codes, data)
+                data["isend_time"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                self._sync_device()
+                data["comm_wait"] = time.perf_counter() - t0
             # The decode is part of the sync phase; report it there.
             data["decode_time"] = data["comm_wait"] if not identity else 0.0
 
-            t0 = time.perf_counter()
-            self._phase_update(d)
-            self._sync_device()
-            data["optim_step_time"] = time.perf_counter() - t0
-            if self.ema_decay is not None:
+            with annotate("ps.update"):
                 t0 = time.perf_counter()
-                self._phase_ema()
+                self._phase_update(d)
                 self._sync_device()
-                data["ema_time"] = time.perf_counter() - t0
+                data["optim_step_time"] = time.perf_counter() - t0
+                if self.ema_decay is not None:
+                    t0 = time.perf_counter()
+                    self._phase_ema()
+                    self._sync_device()
+                    data["ema_time"] = time.perf_counter() - t0
         return loss
 
     # -- replica-consensus SDC guard -----------------------------------------

@@ -576,7 +576,9 @@ def make_parser() -> argparse.ArgumentParser:
                         "rollbacks instead of looping forever")
     p.add_argument("--trace-dir", default=None, metavar="DIR",
                    help="write a torch.profiler Chrome trace of the run "
-                        "into DIR (view in Perfetto)")
+                        "into DIR (view in Perfetto); each sync step shows "
+                        "as the span ps.step around ps.grad, ps.encode, "
+                        "ps.sync and ps.update")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="multi-host async PS: run the parameter-server "
                         "process on PORT (0 = auto); workers connect with "

@@ -1,15 +1,24 @@
-"""Per-step metrics keys and the overlap-schedule record.
+"""Per-step metrics keys, the step's named spans and the overlap-schedule
+record.
 
 Counterpart of `pytorch_ps_mpi_tpu/utils/timing.py`: the reference's
 ``step()`` returns a per-phase wall-clock dict, and every step of the port
 returns the same keys; `print_summary` prints their mean and max over a
 run, `format_fault_stats` a trainer's, server's or worker's
-``fault_stats``, and `trace`
-records a run with ``torch.profiler``.  `RequestLatency` and
-`RankLatency` are the async PS's per-rank latency record (host code,
-copied with the JAX package's numbers).  The overlap engine
-(`parallel.overlap`) records each bucket schedule it builds here, so a
-run's chosen schedule can be read after the fact.
+``fault_stats``, and `trace` records a run with ``torch.profiler``.
+`annotate` opens a named host span in that trace (the JAX package's
+``annotate``).  The sync step (`ps.MPI_PS.step`) opens five:
+``ps.step`` around the whole step, and inside it, in order, ``ps.grad``
+(forward, loss, backward, the loss and aux means), ``ps.encode``,
+``ps.sync`` (the exchange of the codes and their decode-sum) and
+``ps.update`` (the rule, and the EMA).  They are
+``torch.profiler.record_function`` spans, on the profiler's clock, so a
+kernel is tied to the span that launched it; with no profiler recording a
+span is one flag check.  `RequestLatency` and `RankLatency` are the async
+PS's per-rank latency record (host code, copied with the JAX package's
+numbers).  The overlap engine (`parallel.overlap`) records each bucket
+schedule it builds here, so a run's chosen schedule can be read after the
+fact.
 """
 
 from __future__ import annotations
@@ -22,16 +31,19 @@ from collections import deque
 from typing import Any
 
 import numpy as np
+import torch
 
 # Canonical metric keys, matching the reference step() dict (`ps.py:193`).
+# Seconds on the host clock unless noted; the phase keys are filled only by
+# a ``profile=True`` step, which runs each phase to a device synchronize.
 STEP_METRIC_KEYS = (
-    "code_wait",              # encode phase (host wall-clock or phase-split)
-    "iallgather_prepare_time",  # trace+compile of the SPMD program (one-time)
-    "isend_time",             # collective dispatch latency
-    "comm_wait",              # block_until_ready on the synced grads
-    "decode_time",            # decode phase
-    "optim_step_time",        # parameter update phase
-    "msg_bytes",              # encoded payload bytes per rank
+    "code_wait",              # encode phase (profiled steps)
+    "iallgather_prepare_time",  # the first step's issue, with one-time set-up
+    "isend_time",             # host time to issue a step (profiled: the sync)
+    "comm_wait",              # synchronize after the issue (profiled: sync)
+    "decode_time",            # decode-sum, inside the sync (profiled steps)
+    "optim_step_time",        # parameter update phase (profiled steps)
+    "msg_bytes",              # gradient bytes per rank, before encoding
     "packaged_bytes",         # on-wire bytes (after codec packaging)
 )
 
@@ -279,7 +291,6 @@ def trace(logdir: str):
     kernels when one is visible) and write it as a Chrome trace,
     ``logdir/trace-<pid>.json`` (open it in Perfetto or
     ``chrome://tracing``).  Yields the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
@@ -290,6 +301,21 @@ def trace(logdir: str):
         yield prof
     prof.export_chrome_trace(os.path.join(logdir,
                                           f"trace-{os.getpid()}.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str, args=None):
+    """A named host span, ``torch.profiler.record_function(name, args)``
+    (``args`` as a string), while a ``torch.profiler`` session records; the
+    shared no-op context otherwise, after one check of the profiler's
+    flag.  Open one around a phase, never one per leaf or per bucket: an
+    open span costs microseconds of host time."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(
+        name, None if args is None else str(args))
 
 
 def print_summary(timings: "list[dict[str, Any]]", keys=None) -> None:
