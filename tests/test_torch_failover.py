@@ -27,7 +27,6 @@ thread is joined and every process waited for with a timeout.
 
 import json
 import os
-import subprocess
 import sys
 import threading
 import time
@@ -36,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from procs import first_line, reap, spawn
 
 import pytorch_ps_mpi_tpu.multihost_async as jma
 import pytorch_ps_mpi_tpu.shard as jshard
@@ -705,29 +705,22 @@ def test_fleet_refuses_bad_replica_config():
 # The CLI: a fleet with standbys and snapshots, two router workers, resume
 # ---------------------------------------------------------------------------
 
-def _spawn(argv, err_path):
-    err = open(err_path, "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train", *argv,
-         *CPU], stdout=subprocess.PIPE, stderr=err, text=True, env=ENV,
-        cwd=REPO)
-    return proc, err
+def _spawn(argv):
+    return spawn([sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train",
+                  *argv, *CPU], env=ENV, cwd=REPO)
 
 
-def _finish(proc, err, what):
-    try:
-        out, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, _ = proc.communicate()
-    err.close()
-    text = Path(err.name).read_text()
-    assert proc.returncode == 0, f"{what} exited {proc.returncode}:\n{text}"
-    return out, text
+def _finish(procs, whats):
+    """Reap every one of ``procs``, then hold each to exit code 0: their
+    stderr, in order."""
+    outs = reap(procs, TIMEOUT)
+    for (rc, _, text), what in zip(outs, whats):
+        assert rc == 0, f"{what} exited {rc}:\n{text}"
+    return [text for _, _, text in outs]
 
 
 def _ports(proc):
-    line = proc.stdout.readline()
+    line = first_line(proc, "serving on ports ", TIMEOUT)
     assert line.startswith("serving on ports "), line
     return [int(p) for p in line.split()[3:]]
 
@@ -736,9 +729,9 @@ def test_cli_fleet_with_standbys_snapshots_and_resume(tmp_path):
     ckpt = tmp_path / "ck.psz"
     common = ["--model", "mlp", "--quota", "1", "--batch-size", "32",
               "--n-examples", "128"]
-    srv, e = _spawn(["--serve", "0", "--shards", "2", "--replicas", "1",
-                     "--snapshot-every", "5", "--save", str(ckpt),
-                     "--steps", "12", *common], tmp_path / "srv.err")
+    srv = _spawn(["--serve", "0", "--shards", "2", "--replicas", "1",
+                  "--snapshot-every", "5", "--save", str(ckpt),
+                  "--steps", "12", *common])
     # The first worker to connect (rank 0) takes 0.3 s a step, so that
     # the second joins before the run ends.
     slow = json.dumps({"slow_rank": 0, "slow_delay_s": 0.3})
@@ -746,12 +739,10 @@ def test_cli_fleet_with_standbys_snapshots_and_resume(tmp_path):
         ports = _ports(srv)
         connect = ",".join(f"127.0.0.1:{p}" for p in ports)
         workers = [_spawn(["--connect", connect, "--reconnect-retries", "2",
-                           "--chaos", slow, *common], tmp_path / f"w{i}.err")
-                   for i in range(2)]
-        werrs = [_finish(p, we, f"worker {i}")[1]
-                 for i, (p, we) in enumerate(workers)]
+                           "--chaos", slow, *common]) for _ in range(2)]
+        werrs = _finish(workers, ["worker 0", "worker 1"])
     finally:
-        _, serr = _finish(srv, e, "fleet server")
+        serr, = _finish([srv], ["fleet server"])
     assert "done: 24 shard-updates across 2 shards" in serr
     assert "repl_sent=24" in serr and "repl_received=24" in serr
     ranks = set()
@@ -764,18 +755,15 @@ def test_cli_fleet_with_standbys_snapshots_and_resume(tmp_path):
         Path(fleet_manifest_path(ckpt)).read_bytes())
     assert manifest.cut == 12 and manifest.skewed_entries() == []
     # --resume from the manifest: the versions continue.
-    srv, e = _spawn(["--serve", "0", "--shards", "2", "--resume", str(ckpt),
-                     "--save", str(ckpt), "--steps", "15", *common],
-                    tmp_path / "srv2.err")
+    srv = _spawn(["--serve", "0", "--shards", "2", "--resume", str(ckpt),
+                  "--save", str(ckpt), "--steps", "15", *common])
     try:
         ports = _ports(srv)
-        w, we = _spawn(["--connect", ",".join(f"127.0.0.1:{p}"
-                                              for p in ports),
-                        "--reconnect-retries", "2", *common],
-                       tmp_path / "w2.err")
-        _finish(w, we, "resumed worker")
+        w = _spawn(["--connect", ",".join(f"127.0.0.1:{p}" for p in ports),
+                    "--reconnect-retries", "2", *common])
+        _finish([w], ["resumed worker"])
     finally:
-        _, serr = _finish(srv, e, "resumed fleet server")
+        serr, = _finish([srv], ["resumed fleet server"])
     assert "resumed fleet shards at steps [12, 12]" in serr
     assert "done: 6 shard-updates across 2 shards" in serr
     for k in range(2):

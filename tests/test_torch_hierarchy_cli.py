@@ -16,11 +16,10 @@ and its stdout is drained by ``communicate``.
 
 import os
 import re
-import select
-import subprocess
 import sys
 
 import pytest
+from procs import first_line, reap, spawn
 
 from pytorch_ps_mpi_tpu import train as jtrain
 from pytorch_ps_mpi_tpu_torch import train as ttrain
@@ -115,53 +114,23 @@ def test_hierarchy_flags_reach_the_multihost_roles(monkeypatch):
     assert connect.group == 1 and connect.fallback.count(",") == 1
 
 
-def _cli(argv, err_path):
-    err = open(err_path, "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train", *argv,
-         *CPU], cwd=REPO, env=ENV, stdout=subprocess.PIPE, stderr=err,
-        text=True)
-    return proc, err
-
-
-def _lines(proc, n):
-    """The server's first ``n`` stdout lines (within `TIMEOUT`)."""
-    out, budget = [], TIMEOUT
-    buf = ""
-    while len(out) < n and budget > 0:
-        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
-        budget -= 1
-        if ready:
-            buf = proc.stdout.readline()
-            if buf:
-                out.append(buf.strip())
-        elif proc.poll() is not None:
-            break
-    return out
-
-
-def _finish(proc, err):
-    try:
-        out, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, _ = proc.communicate()
-    err.close()
-    with open(err.name) as f:
-        return proc.returncode, out, f.read()
+def _cli(argv):
+    return spawn([sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train",
+                  *argv, *CPU], cwd=REPO, env=ENV)
 
 
 @pytest.mark.parametrize("shards", [1, 2])
-def test_cli_hierarchy_trains_with_group_workers(shards, tmp_path):
+def test_cli_hierarchy_trains_with_group_workers(shards):
     steps = 5
     serve = MLP + ["--serve", "0", "--aggregators", "2", "--group-size",
                    "1", "--steps", str(steps), "--codec", "blockq"]
     if shards > 1:
         serve += ["--shards", str(shards)]
-    srv, serr = _cli(serve, tmp_path / "serve.err")
+    srv = _cli(serve)
     workers = []
     try:
-        lines = _lines(srv, 2)
+        lines = [first_line(srv, "serving on port", TIMEOUT),
+                 first_line(srv, "aggregators on ports", TIMEOUT)]
         assert len(lines) == 2, lines
         m = re.match(r"serving on ports? ([\d ]+)$", lines[0])
         assert m, lines
@@ -175,11 +144,10 @@ def test_cli_hierarchy_trains_with_group_workers(shards, tmp_path):
             workers.append(_cli(
                 MLP + ["--connect", f"127.0.0.1:{port}", "--group", str(g),
                        "--fallback", fallback, "--codec", "blockq",
-                       "--reconnect-retries", "2"],
-                tmp_path / f"w{g}.err"))
+                       "--reconnect-retries", "2"]))
     finally:
-        results = [_finish(p, e) for p, e in workers]
-        rc, _, err = _finish(srv, serr)
+        results = reap(workers, TIMEOUT)
+        (rc, _, err), = reap([srv], TIMEOUT)
     assert rc == 0, err[-3000:]
     done = re.search(r"^done: (\d+) root updates, (\d+) group fills across "
                      r"2 aggregators in [\d.]+s$", err, re.M)

@@ -209,12 +209,12 @@ def test_cli_moe_sync_and_async_ps(capsys):
     assert re.search(r"^done: 2 updates, \d+ grads", err, re.M), err
 
 
-def test_cli_moe_serve_and_bucket_streaming_connect(tmp_path):
+def test_cli_moe_serve_and_bucket_streaming_connect():
     from test_torch_multihost_cli import DONE, _check_worker_lines, _run
 
     sres, wres, port = _run(
-        tmp_path, LM + ["--quota", "2", "--steps", "3"],
-        LM + ["--async-bucket-bytes", "16384", "--fused-encode"], 2, "moe")
+        LM + ["--quota", "2", "--steps", "3"],
+        LM + ["--async-bucket-bytes", "16384", "--fused-encode"], 2)
     rc, _out, err = sres
     assert rc == 0, err
     assert DONE.search(err).group(1) == "3"

@@ -13,12 +13,11 @@ stderr goes to a file, and its stdout is drained by ``communicate``.
 import json
 import os
 import re
-import select
 import socket
-import subprocess
 import sys
 
 import pytest
+from procs import first_line, reap, spawn, stderr_of
 
 from pytorch_ps_mpi_tpu import train as jtrain
 from pytorch_ps_mpi_tpu_torch import train as ttrain
@@ -38,57 +37,29 @@ DONE = re.compile(r"^done: (\d+) updates, (\d+) grads, ([\d.]+) images/sec, "
                   r"mean staleness ([\d.]+)$", re.M)
 
 
-def _cli(argv, err_path):
-    err = open(err_path, "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train", *argv,
-         *CPU], cwd=REPO, env=ENV, stdout=subprocess.PIPE, stderr=err,
-        text=True)
-    return proc, err
+def _cli(argv):
+    return spawn([sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train",
+                  *argv, *CPU], cwd=REPO, env=ENV)
 
 
-def _port_of(proc, err_path) -> int:
-    """The bound port from the server's first stdout line."""
-    line = ""
-    end = TIMEOUT
-    while not line.endswith("\n") and end > 0:
-        ready, _, _ = select.select([proc.stdout], [], [], 1.0)
-        end -= 1
-        if ready:
-            line += proc.stdout.readline()
-        elif proc.poll() is not None:
-            break
-    m = re.match(r"serving on port (\d+)$", line.strip())
-    assert m, f"no port line: {line!r}\n{open(err_path).read()}"
-    return int(m.group(1))
-
-
-def _finish(proc, err):
-    try:
-        out, _ = proc.communicate(timeout=TIMEOUT)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        out, _ = proc.communicate()
-    err.close()
-    return proc.returncode, out, open(err.name).read()
-
-
-def _run(tmp_path, server_argv, worker_argv, workers, tag):
+def _run(server_argv, worker_argv, workers):
     """One server and ``workers`` worker processes to completion:
     ``(server result, [worker results], port)``."""
-    srv, serr = _cli(server_argv + ["--serve", "0"],
-                     tmp_path / f"{tag}-server.err")
+    srv = _cli(server_argv + ["--serve", "0"])
+    ws = []
     try:
-        port = _port_of(srv, serr.name)
+        line = first_line(srv, "serving on port ", TIMEOUT)
+        m = re.match(r"serving on port (\d+)$", line)
+        assert m, f"no port line: {line!r}\n{stderr_of(srv)}"
+        port = int(m.group(1))
         # A worker whose push races the server's exit redials: two
         # attempts, not the CLI's 30.
         ws = [_cli(worker_argv + ["--connect", f"127.0.0.1:{port}",
-                                  "--reconnect-retries", "2"],
-                   tmp_path / f"{tag}-worker{i}.err")
-              for i in range(workers)]
-        wres = [_finish(p, e) for p, e in ws]
+                                  "--reconnect-retries", "2"])
+              for _ in range(workers)]
     finally:
-        sres = _finish(srv, serr)
+        wres = reap(ws, TIMEOUT)
+        sres, = reap([srv], TIMEOUT)
     return sres, wres, port
 
 
@@ -113,12 +84,11 @@ SLOW_PS = ["--chaos", json.dumps({"slow_consumer": 0.5})]
 
 
 @pytest.mark.parametrize("model", ["mlp", "lm"])
-def test_serve_and_connect_print_the_jax_lines(model, tmp_path):
+def test_serve_and_connect_print_the_jax_lines(model):
     argv = MLP if model == "mlp" else LM
     steps = 6 if model == "mlp" else 4
     (rc, out, err), wres, port = _run(
-        tmp_path, argv + ["--quota", "2", "--steps", str(steps)] + SLOW_PS,
-        argv, 2, model)
+        argv + ["--quota", "2", "--steps", str(steps)] + SLOW_PS, argv, 2)
     assert rc == 0, err
     m = DONE.search(err)
     assert m, err
@@ -136,15 +106,14 @@ def _extra(path):
 def test_save_checkpoint_every_then_resume_continues_the_version(tmp_path):
     ck, ck2 = str(tmp_path / "ps.psz"), str(tmp_path / "ps2.psz")
     (rc, _, err), wres, port = _run(
-        tmp_path, MLP + ["--steps", "4", "--save", ck,
-                         "--checkpoint-every", "2"], MLP, 1, "first")
+        MLP + ["--steps", "4", "--save", ck, "--checkpoint-every", "2"],
+        MLP, 1)
     assert rc == 0, err
     _check_worker_lines(wres, port)
     step, extra = _extra(ck)
     assert step == 4 and extra["served_version"] == 4
     (rc, _, err), wres, port = _run(
-        tmp_path, MLP + ["--steps", "6", "--resume", ck, "--save", ck2],
-        MLP, 1, "resumed")
+        MLP + ["--steps", "6", "--resume", ck, "--save", ck2], MLP, 1)
     assert rc == 0, err
     assert f"resumed from {ck} at step 4" in err
     assert DONE.search(err).group(1) == "2"

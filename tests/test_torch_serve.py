@@ -25,7 +25,6 @@ reconnect ladder.
 import os
 import socket
 import struct
-import subprocess
 import sys
 import threading
 import time
@@ -35,6 +34,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from procs import first_line, reap, spawn
 
 import pytorch_ps_mpi_tpu.multihost_async as jma
 import pytorch_ps_mpi_tpu.transport as jtransport
@@ -1017,7 +1017,7 @@ def test_cli_refuses_the_fleet_forms_and_inert_flash():
                                     "0"] + CPU)
 
 
-def test_cli_serve_connect_and_infer_reader(tmp_path):
+def test_cli_serve_connect_and_infer_reader():
     import re
 
     """``--serve 0 --delta-parm --wire-codec bf16`` on the CLI's LM at a
@@ -1026,38 +1026,28 @@ def test_cli_serve_connect_and_infer_reader(tmp_path):
     reader's lines and the server's serve-tier counters."""
     lm = ["--model", "transformer", "--vocab", "64", "--seq-len", "16",
           "--batch-size", "4", "--n-examples", "32"] + CPU
-    logs = {}
 
-    def spawn(name, argv):
-        logs[name] = open(tmp_path / f"{name}.err", "w")
-        return subprocess.Popen(
-            [sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train", *argv],
-            cwd=REPO, env=ENV, stdout=subprocess.PIPE,
-            stderr=logs[name], text=True)
+    def cli(argv):
+        return spawn([sys.executable, "-m", "pytorch_ps_mpi_tpu_torch.train",
+                      *argv], cwd=REPO, env=ENV)
 
     def finish(proc, name, timeout=90):
-        try:
-            out, _ = proc.communicate(timeout=timeout)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-        logs[name].close()
-        err = (tmp_path / f"{name}.err").read_text()
-        assert proc.returncode == 0, (name, err[-3000:])
+        (rc, out, err), = reap([proc], timeout)
+        assert rc == 0, (name, err[-3000:])
         return out, err
 
     procs = {}
     try:
-        procs["server"] = spawn("server", lm + [
+        procs["server"] = cli(lm + [
             "--serve", "0", "--delta-parm", "--wire-codec", "bf16",
             "--steps", "12", "--quota", "1", "--lr", "0.01"])
-        line = procs["server"].stdout.readline()
+        line = first_line(procs["server"], "serving on port ", 90)
         assert line.startswith("serving on port "), line
         port = int(line.split()[-1])
-        procs["reader"] = spawn("reader", lm + [
+        procs["reader"] = cli(lm + [
             "--subscribe", f"127.0.0.1:{port}", "--infer-serve",
             "--steps", "4"])
-        procs["worker"] = spawn("worker", lm + [
+        procs["worker"] = cli(lm + [
             "--connect", f"127.0.0.1:{port}", "--reconnect-retries", "2"])
         rout, rerr = finish(procs.pop("reader"), "reader")
         wout, werr = finish(procs.pop("worker"), "worker")
@@ -1065,9 +1055,7 @@ def test_cli_serve_connect_and_infer_reader(tmp_path):
     finally:
         for p in procs.values():
             p.kill()
-            p.communicate()
-        for f in logs.values():
-            f.close()
+        reap(list(procs.values()))
     assert rout.startswith("subscribed at version "), rout
     m = re.search(r"^infer done: (\d+) served, (\d+) shed, p50 [\d.]+s "
                   r"p95 [\d.]+s over (\d+) batch steps, (\d+) hot swaps$",
