@@ -1,14 +1,14 @@
-"""Weights and batches from the seed, made on the device in a few calls.
+"""Weights from the seed, made on the device in a few calls, and the
+generators that each use of the seed draws from.
 
-The generators are copies of the port's ``data/datasets.py`` functions
-``synthetic_classification`` and ``synthetic_lm``, rewritten in torch so
-that they run where the batch is used: class-structured Gaussian blobs for
-the image models, token rows that follow ``t+1 = 5t+3 mod vocab`` with a
-little noise for the LM.  The weights follow flax's initialisers (what the
-port's models use): LeCun normal truncated at two deviations for kernels,
-``1/sqrt(features)`` for embedding tables, ones for norm scales (zeros
-where the configuration's ``zero_init`` names them), zeros for biases.
-The same seed gives the same tensors on any card.
+The weights follow flax's initialisers (what the port's models use):
+LeCun normal truncated at two deviations for kernels, ``1/sqrt(features)``
+for embedding tables, ones for norm scales (zeros where the
+configuration's ``zero_init`` names them), zeros for biases.  A kernel's
+fan-in is the product of its shape after the first axis, unless the
+model's family gives its own (``families/<model>.py::fan_in``).  Each
+family makes its own batches (``batch_pool``), from `generator`.  The same
+seed gives the same tensors on any card.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import re
 from collections import OrderedDict
 
 import torch
+
+from . import spec
 
 # Seeds reach 2**31 and beyond; a generator takes any 64-bit value.
 _MASK = (1 << 63) - 1
@@ -37,10 +39,17 @@ def _lecun_std(fan_in: int) -> float:
     return math.sqrt(1.0 / fan_in) / 0.87962566103423978
 
 
+def default_fan_in(name: str, shape: tuple) -> int:
+    """A kernel's fan-in in the port's layouts: ``(out, in)`` dense and
+    ``OIHW`` convolution kernels."""
+    return math.prod(shape[1:])
+
+
 def init_weights(shapes: "OrderedDict[str, tuple]", config: dict, seed: int,
                  device) -> "OrderedDict[str, torch.Tensor]":
     """f32 weights for the leaves ``shapes`` (name -> shape): every random
     leaf is a slice of one normal draw, scaled in place."""
+    fan_in = getattr(spec.family(config["model"]), "fan_in", default_fan_in)
     zero = [re.compile(p) for p in config.get("zero_init", ())]
     embed = re.compile(config.get("embedding_pattern", r"$^"))
     random = [(n, s) for n, s in shapes.items() if len(s) >= 2]
@@ -56,7 +65,7 @@ def init_weights(shapes: "OrderedDict[str, tuple]", config: dict, seed: int,
         if embed.search(n):
             w.mul_(1.0 / math.sqrt(s[1]))
         else:
-            std = _lecun_std(math.prod(s[1:]))
+            std = _lecun_std(fan_in(n, s))
             w.clamp_(-2.0, 2.0).mul_(std)
         views[n] = w
     for n, s in shapes.items():
@@ -74,75 +83,3 @@ def init_aux(shapes: "OrderedDict[str, tuple]", device):
     return OrderedDict(
         (n, (torch.ones if n.endswith("running_var") else torch.zeros)(
             s, device=device)) for n, s in shapes.items())
-
-
-def classification_pool(traffic: dict, config: dict, seed: int,
-                        device) -> "list[dict]":
-    """``pool`` global batches of ``{"x": [B, *image] f32, "y": [B] int32}``:
-    ``y`` uniform over the classes, ``x = mu_y + noise * N(0, 1)`` with one
-    set of class means for all the batches (``synthetic_classification``)."""
-    shape = tuple(config["image"])
-    classes = int(config["num_classes"])
-    b = int(traffic["batch_per_rank"]) * int(traffic.get("world", 1))
-    d = math.prod(shape)
-    g = generator(seed, 1, device)
-    mus = torch.randn(classes, d, generator=g, device=device)
-    pool = []
-    for i in range(int(traffic["pool"])):
-        g = generator(seed, 2 + i, device)
-        y = torch.randint(0, classes, (b,), generator=g, device=device)
-        x = mus[y] + float(traffic["noise"]) * torch.randn(
-            b, d, generator=g, device=device)
-        pool.append({"x": x.view(b, *shape), "y": y.to(torch.int32)})
-    return pool
-
-
-def lm_rows(n: int, seq_len: int, vocab: int, noise: float,
-            g: torch.Generator, device) -> torch.Tensor:
-    """``[n, seq_len + 1]`` int64 token rows (``synthetic_lm``): a uniform
-    first token, then ``t+1 = (5t + 3) mod vocab``, then each token
-    replaced by a uniform one with probability ``noise``.  The recurrence
-    in closed form, ``t_k = (a_k t_0 + b_k) mod vocab``, with its
-    coefficients worked out on the host in exact integers."""
-    a, b, coef = 1, 0, []
-    for _ in range(seq_len + 1):
-        coef.append((a, b))
-        a, b = (5 * a) % vocab, (5 * b + 3) % vocab
-    ab = torch.tensor(coef, dtype=torch.int64, device=device)
-    t0 = torch.randint(0, vocab, (n, 1), generator=g, device=device)
-    toks = (ab[:, 0][None] * t0 + ab[:, 1][None]) % vocab
-    flip = torch.rand(toks.shape, generator=g, device=device) < noise
-    fresh = torch.randint(0, vocab, toks.shape, generator=g, device=device)
-    return torch.where(flip, fresh, toks)
-
-
-def lm_pool(traffic: dict, config: dict, seed: int, device) -> "list[dict]":
-    """``pool`` global batches ``{tokens, targets, positions}`` (int32
-    ``[B, S]``, targets shifted before sharding), as ``lm_batch`` makes
-    them."""
-    b = int(traffic["batch_per_rank"]) * int(traffic.get("world", 1))
-    s = int(traffic["seq_len"])
-    pool = []
-    for i in range(int(traffic["pool"])):
-        rows = lm_rows(b, s, int(config["vocab_size"]),
-                       float(traffic["noise"]),
-                       generator(seed, 2 + i, device), device)
-        pool.append({
-            "tokens": rows[:, :-1].to(torch.int32).contiguous(),
-            "targets": rows[:, 1:].to(torch.int32).contiguous(),
-            "positions": torch.arange(s, dtype=torch.int32, device=device)
-            .expand(b, s).contiguous()})
-    return pool
-
-
-def batch_pool(traffic: dict, config: dict, seed: int, device):
-    if config["model"] == "lm":
-        return lm_pool(traffic, config, seed, device)
-    return classification_pool(traffic, config, seed, device)
-
-
-def items_per_batch(traffic: dict) -> int:
-    """What a global batch counts toward the cell's rate: tokens for the
-    LM, images otherwise."""
-    b = int(traffic["batch_per_rank"]) * int(traffic.get("world", 1))
-    return b * int(traffic.get("seq_len", 1))

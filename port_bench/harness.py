@@ -5,7 +5,9 @@ the comparison, for each rank of the cell's world.
 through its first steps with the window's own call (``step(batch,
 block=False)``), reading what the comparison needs from the optimizer's
 state; `measure` runs the window, a CUDA event recorded after each step,
-one synchronize at its end; `trace_stretch` profiles a few more steps;
+one synchronize at its end, and keeps every number of the last step's
+metrics (``sync_calls`` among them); `trace_stretch` profiles a few more
+steps, the program's spans read with the rest;
 `free` drops the program and `reference_readings` runs the plain
 reference.  Nothing here prints; `run` turns rank 0's record into the
 result line.
@@ -21,7 +23,7 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
-from . import data, flops, program, reference, trace
+from . import data, flops, program, reference, spec, trace
 
 CHECK_STEPS = 3   # the steps the reference follows
 WARM_STEPS = 2    # further set-up steps before the window
@@ -55,7 +57,8 @@ def prepare(cell, seed: int, device, world: int = 1, group=None,
     module, shapes, buffers = program.build_model(config)
     weights = data.init_weights(shapes, config, seed, device)
     aux = data.init_aux(buffers, device)
-    pool = data.batch_pool(traffic, config, seed, device)
+    pool = spec.family(config["model"]).batch_pool(traffic, config, seed,
+                                                   device)
     opt = program.make_optimizer(module, config, traffic, weights, aux,
                                  device, group)
     del weights
@@ -149,7 +152,9 @@ def measure(st: State, seconds: float) -> dict:
     return {"steps": len(losses), "window_s": window_s,
             "step_ms": marks.step_ms(), "host_ms": host_ms,
             "failed": failed, "packaged_bytes": metrics["packaged_bytes"],
-            "msg_bytes": metrics["msg_bytes"]}
+            "msg_bytes": metrics["msg_bytes"],
+            "step_metrics": {k: float(v) for k, v in metrics.items()
+                             if isinstance(v, (int, float))}}
 
 
 def trace_stretch(st: State, steps: int) -> "dict | None":
@@ -209,10 +214,11 @@ def record(st: State, window: dict, prof: "dict | None") -> dict:
     """Everything a metric's reader may read (rank 0's view, the step
     times and the profile already merged over ranks)."""
     cell = st.cell
+    family = spec.family(cell.config["model"])
     return {"cell": cell.name, "config": cell.config,
             "traffic": cell.traffic, "world": st.world,
-            "items_per_step": data.items_per_batch(cell.traffic),
-            "step_flops": flops.step_flops(cell.config, cell.traffic),
+            "items_per_step": family.items_per_batch(cell.traffic),
+            "step_flops": family.step_flops(cell.config, cell.traffic),
             "leaf_sizes": flops.leaf_sizes(st.shapes),
             **window, "profile": prof}
 

@@ -1,0 +1,6 @@
+"""Host ms a traced step inside the exchange of the codes and their decode-sum
+(``ps.sync``)."""
+
+from port_bench.readers import span_ms
+
+read = span_ms("ps.sync", "host_ms")

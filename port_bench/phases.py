@@ -63,9 +63,10 @@ def traced(st, steps: int) -> dict:
                 _, metrics = harness.step(st)
                 isend.append(metrics["isend_time"] * 1e3)
             harness.sync(st.device)
-    sp = spans.from_profiler(prof, harness.SPAN, steps)
-    return {"trace": trace.from_profiler(prof, harness.SPAN, steps),
-            "spans": sp, "coverage": coverage(sp) if sp else None,
+    summary = trace.from_profiler(prof, harness.SPAN, steps)
+    sp = summary.pop("spans") if summary else None
+    return {"trace": summary, "spans": sp,
+            "coverage": coverage(sp) if sp else None,
             "isend_ms": isend, "isend_ms_mean": statistics.fmean(isend),
             "sync_calls": metrics.get("sync_calls")}
 

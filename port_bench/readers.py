@@ -2,7 +2,9 @@
 
 Each reader takes the run's record (`harness.record`) and returns a number,
 or None where it finds nothing to read (then the metric is left out of
-the line; a share of a peak or a roofline is never given as 0).
+the line; a share of a peak or a roofline is never given as 0).  A
+program span or counter is read by name (`span_ms`, `counter`), so a
+reader of one that the program adds is a file of its own and nothing else.
 """
 
 from __future__ import annotations
@@ -81,3 +83,22 @@ def device_idle(rec: dict) -> "float | None":
     if not prof or prof["busy_s"] <= 0:
         return None
     return 100.0 * (1.0 - prof["busy_s"] / prof["wall_s"])
+
+
+def span_ms(span: str, kind: str):
+    """The reader of the program span ``span``'s ``kind`` ms a traced step
+    (``host_ms`` or ``device_ms``: `spans.summarize`), the mean over
+    ranks; it reads None without a trace or without that span."""
+    def read(rec: dict) -> "float | None":
+        prof = rec.get("profile")
+        spans = prof.get("spans") if prof else None
+        return spans[kind].get(span) if spans else None
+    return read
+
+
+def counter(name: str):
+    """The reader of the number ``name`` of the window's last step's
+    metrics (rank 0's), None where the step has no such key."""
+    def read(rec: dict) -> "float | None":
+        return rec.get("step_metrics", {}).get(name)
+    return read

@@ -5,7 +5,12 @@ nor anything of the port.  It takes the benchmark's weights and batches
 (the same the program gets) and works out again whatever the program
 derives from them: each rank's shard and gradient, the blockq codes and
 their decoded sum over ranks (`blockq`), and the SGD-momentum update
-(`sgd`).  The models are written out in `lm` and `resnet`.
+(`sgd`).  Each model is written out in a file of its own,
+``reference/<model>.py``, found by the configuration's ``model`` (`model`):
+its ``CHUNK_ROWS`` (the rows a chunk of the shard's loss takes, None for
+the whole shard at once), ``loss_sum(config, weights, batch, rnd)`` (the
+summed loss over a chunk's items) and ``count(shard)`` (the items the
+mean is over).
 
 ``precision="fp8"`` is the control, the step below the configurations'
 bfloat16: wherever a configuration computes in bfloat16, the reference
@@ -16,11 +21,13 @@ both.
 
 from __future__ import annotations
 
+import importlib
 from collections import OrderedDict
+from pathlib import Path
 
 import torch
 
-from . import blockq, lm, resnet, sgd
+from . import blockq, sgd
 
 
 def tf32_off() -> None:
@@ -62,26 +69,32 @@ def operand_rounding(precision: str):
     raise ValueError(f"no precision {precision!r}")
 
 
-MODELS = {"lm": lm, "resnet18": resnet}
+def model(name: str):
+    """The plain model ``reference/<name>.py``."""
+    path = Path(__file__).with_name(f"{name}.py")
+    if not path.exists():
+        raise ValueError(f"no reference model {name!r}: {path} missing")
+    return importlib.import_module(f"{__name__}.{name}")
 
 
 def shard_grad(config: dict, weights, batch, rows: slice,
                rnd) -> "tuple[float, OrderedDict]":
     """One rank's loss and gradient of the mean loss over its shard
     ``rows`` of the global batch, taken in chunks of the model's
-    ``CHUNK_ROWS`` rows where it has one (the LM: each chunk's summed loss
-    over the shard's token count, gradients added)."""
-    model = MODELS[config["model"]]
+    ``CHUNK_ROWS`` rows where it has one (each chunk's summed loss over
+    the whole shard's count, gradients added)."""
+    plain = model(config["model"])
     leaves = OrderedDict((n, w.detach().clone().requires_grad_())
                          for n, w in weights.items())
     shard = {k: v[rows] for k, v in batch.items()}
     n_rows = next(iter(shard.values())).shape[0]
-    step = min(model.CHUNK_ROWS or n_rows, n_rows)
+    step = min(plain.CHUNK_ROWS or n_rows, n_rows)
     total = 0.0
     grads = None
     for lo in range(0, n_rows, step):
         part = {k: v[lo:lo + step] for k, v in shard.items()}
-        loss = model.loss_sum(config, leaves, part, rnd) / model.count(shard)
+        loss = (plain.loss_sum(config, leaves, part, rnd)
+                / plain.count(shard))
         g = torch.autograd.grad(loss, list(leaves.values()),
                                 allow_unused=True, materialize_grads=True)
         total += float(loss.detach())

@@ -154,18 +154,28 @@ def rank_main(rank: int, world: int, init_file: str, args, cell,
             "forbidden": sorted({m for e in every for m in e["forbidden"]})}
 
 
+def _mean_ms(maps) -> dict:
+    """Each key's mean over the dicts ``maps`` (0 where one lacks it)."""
+    keys = {k for m in maps for k in m}
+    return {k: sum(m.get(k, 0.0) for m in maps) / len(maps) for k in keys}
+
+
 def _merge_profiles(profs) -> "dict | None":
-    """Rank 0's profile, its busy and wall seconds and its per-category
-    device ms replaced by the mean over the ranks that traced."""
+    """Rank 0's profile, its busy and wall seconds, its per-category device
+    ms and each program span's host and device ms replaced by the mean
+    over the ranks that traced."""
     got = [p for p in profs if p]
     if not got:
         return None
     out = dict(got[0])
     out["busy_s"] = sum(p["busy_s"] for p in got) / len(got)
     out["wall_s"] = sum(p["wall_s"] for p in got) / len(got)
-    cats = {c for p in got for c in p["category_ms"]}
-    out["category_ms"] = {c: sum(p["category_ms"].get(c, 0.0) for p in got)
-                          / len(got) for c in cats}
+    out["category_ms"] = _mean_ms([p["category_ms"] for p in got])
+    spans = [p["spans"] for p in got if p.get("spans")]
+    if spans:
+        out["spans"] = dict(spans[0])
+        for kind in ("host_ms", "device_ms"):
+            out["spans"][kind] = _mean_ms([s[kind] for s in spans])
     return out
 
 

@@ -1,12 +1,14 @@
-"""Each of the sync step's program spans in a traced stretch: its host ms
-and the device ms of what it launched, a step.
+"""Each program span in a traced stretch: its host ms and the device ms of
+what it launched, a step.
 
-The port's sync step opens the host spans ``ps.step`` and, inside it in
-order, ``ps.grad``, ``ps.encode``, ``ps.sync`` and ``ps.update``
-(``torch.profiler.record_function``, on the profiler's clock).  A span's
-host ms is its summed duration over the stretch's steps, a step; its
-device ms is the device time of the kernels and memory operations
-launched while it was the innermost program span open on the host.  An
+A program span is a host span (``torch.profiler.record_function``, on the
+profiler's clock) whose name begins with one of ``PREFIXES``: the port's
+sync step opens ``ps.step`` and, inside it in order, ``ps.grad``,
+``ps.encode``, ``ps.sync`` and ``ps.update``, and a model may open spans
+of its own, ``model.<name>``, inside them.  A span's host ms is its
+summed duration over the stretch's steps, a step; its device ms is the
+device time of the kernels and memory operations launched while it was
+the innermost program span open on the host.  An
 operation is tied to the runtime call that launched it by the profiler's
 correlation id (the kernel's and the call's ``cudaLaunchKernel``,
 ``cuLaunchKernelEx``, ``cudaMemcpyAsync`` ... are one number), and the
@@ -20,9 +22,14 @@ from __future__ import annotations
 
 from . import trace
 
-NAMES = ("ps.step", "ps.grad", "ps.encode", "ps.sync", "ps.update")
-PHASES = NAMES[1:]
+PREFIXES = ("ps.", "model.")
+PHASES = ("ps.grad", "ps.encode", "ps.sync", "ps.update")
 GAPS = 5   # the longest idle gaps named by their span
+
+
+def is_span(name: str) -> bool:
+    """A program span's name."""
+    return name.startswith(PREFIXES)
 
 
 def is_launch(name: str) -> bool:
@@ -53,7 +60,7 @@ def summarize(device_events, host_events, lo: float, hi: float,
     claimed, those included (``unclaimed``), and the ``GAPS`` longest
     idle gaps as ``[span or "outside", seconds]``."""
     spans = [(n, a, b) for n, a, b, _ in host_events
-             if n in NAMES and a >= lo and b <= hi]
+             if is_span(n) and a >= lo and b <= hi]
     if not spans:
         return None
     launches = {c: a for n, a, _, c in host_events if is_launch(n)}
@@ -104,7 +111,7 @@ def events(prof, lo_name: str):
         a, b = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
             if not (getattr(e, "is_user_annotation", False)
-                    or e.name == lo_name or e.name in NAMES):
+                    or e.name == lo_name or is_span(e.name)):
                 device.append((e.name, a, b, e.id))
         elif e.name == lo_name:
             stretch = (a, b)

@@ -3,9 +3,11 @@
 ``BENCHMARK.json`` at the checkout's root lists the cells and metrics; each
 cell's own file (``workloads/<cell>.json``) holds what the contract's entry
 holds plus the limits of its comparison, its configuration's file and its
-traffic's file hold the sizes, and each metric's reader is
-``metrics/<metric>.py``.  A later change adds a cell or a metric by adding
-such files and entries; nothing here names one.
+traffic's file hold the sizes, each metric's reader is
+``metrics/<metric>.py``, and the configuration's ``model`` names its
+family, ``families/<model>.py`` with its plain reference
+``reference/<model>.py``.  A later change adds a cell, a metric or a model
+family by adding such files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ ROOT = HERE.parent
 BENCHMARK = ROOT / "BENCHMARK.json"
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+MODEL = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")   # a module's name
 
 
 class SpecError(ValueError):
@@ -91,6 +94,7 @@ def load_cell(name: str, root: Path = HERE) -> Cell:
         raise SpecError(f"traffic {w['traffic']} is for model "
                         f"{traffic.get('model')!r}, configuration "
                         f"{w['config']} is a {config.get('model')!r}")
+    check_family(config.get("model"), root)
     if traffic.get("world", 1) != w["chips"]:
         raise SpecError(f"traffic {w['traffic']} runs a world of "
                         f"{traffic.get('world', 1)}, the cell asks for "
@@ -101,6 +105,28 @@ def load_cell(name: str, root: Path = HERE) -> Cell:
 
 def cell_names(root: Path = HERE) -> "list[str]":
     return sorted(p.stem for p in (root / "workloads").glob("*.json"))
+
+
+def check_family(model, root: Path = HERE) -> None:
+    """Raises unless the model family ``model`` has both its files, its
+    program side and its plain reference, naming those that are
+    missing."""
+    if not isinstance(model, str) or not MODEL.match(model):
+        raise SpecError(f"bad model name {model!r}: a family is a module, "
+                        "families/<model>.py")
+    files = [root / "families" / f"{model}.py",
+             root / "reference" / f"{model}.py"]
+    missing = [str(p) for p in files if not p.exists()]
+    if missing:
+        raise SpecError(f"no model family {model!r}: "
+                        f"{' and '.join(missing)} missing")
+
+
+def family(model: str):
+    """The program side of the model family ``model``,
+    ``families/<model>.py`` (what it gives: ``families/__init__.py``)."""
+    check_family(model)
+    return importlib.import_module(f"{__package__}.families.{model}")
 
 
 def reader(metric: str, root: Path = HERE):

@@ -5,6 +5,7 @@ import math
 import pytest
 
 from port_bench import check, flops, peaks
+from port_bench.families import lm, resnet18
 from port_bench.reference import blockq
 
 
@@ -14,12 +15,12 @@ def test_lm_flops_by_hand():
     # tokens 2 x 3 = 6: 6 * 38 * 6 = 1368
     # causal pairs of 3 positions = 6; attention 12 * d * pairs * rows
     # = 12 * 2 * 6 * 2 = 288
-    assert flops.lm_flops(c, rows=2, seq=3) == 1368 + 288
+    assert lm.lm_flops(c, rows=2, seq=3) == 1368 + 288
 
 
 def test_bench_lm_flops_a_token():
     c = {"d_model": 1024, "d_ff": 4096, "vocab_size": 32768, "n_layers": 12}
-    per_token = flops.lm_flops(c, 16, 1024) / (16 * 1024)
+    per_token = lm.lm_flops(c, 16, 1024) / (16 * 1024)
     assert 1.17e9 < per_token < 1.20e9
 
 
@@ -30,13 +31,13 @@ def test_resnet_macs_by_hand():
     # stage 2 strides to 2x2: two 3x3 convs and the 1x1 projection
     block2 = 2 * 2 * 64 * 128 * 9 + 2 * 2 * 128 * 128 * 9 + 2 * 2 * 64 * 128
     head = 128 * 5
-    assert flops.resnet_macs_per_image(c) == stem + block1 + block2 + head
+    assert resnet18.resnet_macs_per_image(c) == stem + block1 + block2 + head
 
 
 def test_resnet18_cifar_macs():
     c = {"image": [32, 32, 3], "stage_sizes": [2, 2, 2, 2],
          "num_classes": 10}
-    assert 0.55e9 < flops.resnet_macs_per_image(c) < 0.56e9
+    assert 0.55e9 < resnet18.resnet_macs_per_image(c) < 0.56e9
 
 
 def test_flash_bound_by_hand():

@@ -81,6 +81,16 @@ def test_program_and_reference_agree_on_the_cpu(model):
         model), False)}
     assert set(line["metrics"]) == e2e
     json.dumps(line)
+    # The last step's counters ride in the record: a traced line of the
+    # cell reads the sync's flat collectives (the CPU traces no spans).
+    calls = res["rec"]["step_metrics"]["sync_calls"]
+    assert calls >= 1
+    args = argparse.Namespace(**{**vars(_args(tiny_cell(model))),
+                                 "trace": 1})
+    traced, _ = run.result_line(args, res, spec.benchmark())
+    suffix = "lm" if model == "lm" else "r18"
+    assert traced["metrics"][f"ps.sync.calls.{suffix}"]["value"] == calls
+    assert f"ps.grad.host_ms.{suffix}" not in traced["metrics"]
 
 
 def line_cell(model):

@@ -15,6 +15,8 @@ HERE = Path(run.__file__).resolve().parent
 JAX = {"jax", "jaxlib", "flax", "optax", "pytorch_ps_mpi_tpu"}
 PORT = "pytorch_ps_mpi_tpu_torch"
 SOURCES = sorted(HERE.rglob("*.py"))
+# The harness's own modules (the tests plant faults in the port).
+HARNESS = [p for p in SOURCES if p.relative_to(HERE).parts[0] != "tests"]
 
 
 def top_level_imports(path: Path) -> "set[str]":
@@ -46,6 +48,14 @@ def test_reference_imports_nothing_of_the_port(path):
             assert node.level == 1, ast.dump(node)
 
 
+@pytest.mark.parametrize("path", HARNESS, ids=lambda p: str(p.relative_to(
+    HERE)))
+def test_only_the_program_and_the_families_import_the_port(path):
+    rel = path.relative_to(HERE)
+    if PORT in top_level_imports(path):
+        assert rel == Path("program.py") or rel.parts[0] == "families"
+
+
 def test_top_level_names_are_compared_whole(monkeypatch):
     monkeypatch.setitem(sys.modules, "pytorch_ps_mpi_tpu_torch_x", sys)
     assert "pytorch_ps_mpi_tpu" not in run.forbidden_modules()
@@ -55,9 +65,14 @@ def test_top_level_names_are_compared_whole(monkeypatch):
 
 def test_loaded_modules_of_a_cpu_run():
     """A run's modules: the harness with the port loads no JAX; the
-    reference alone loads nothing of the port."""
+    reference and the comparison alone, each family's reference model
+    among them, load nothing of the port, nor does finding a family (it
+    imports the port only to build or bind)."""
     code = (
         "import sys; import port_bench.reference, port_bench.check;"
+        "from port_bench import spec;"
+        "[port_bench.reference.model(m) for m in ('lm', 'resnet18')];"
+        "[spec.family(m) for m in ('lm', 'resnet18')];"
         "assert not [m for m in sys.modules if m.split('.')[0] == "
         f"'{PORT}'], 'reference loaded the port';"
         "from port_bench import run, harness, program;"

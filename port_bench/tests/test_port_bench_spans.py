@@ -51,6 +51,29 @@ def test_each_span_claims_what_it_launched_from_any_thread():
     assert s["unclaimed"] == pytest.approx((8 + 2) / total)    # 107, 106
 
 
+def test_a_model_span_takes_what_it_launched_from_its_phase():
+    """A model's own span ``model.x`` [30, 45] inside ``ps.grad`` claims
+    102 (launched at 40, from any thread); ``ps.grad`` keeps 101."""
+    host = ([(n, a, b, 0) for n, a, b in STEP] + [("model.x", 30, 45, 0)]
+            + LAUNCHES + HOST_OPS)
+    s = spans.summarize(KERNELS, host, 0, 110, 1)
+    assert s["host_ms"]["model.x"] == pytest.approx(15 / 1e3)
+    assert s["device_ms"]["model.x"] == pytest.approx(20 / 1e3)
+    assert s["device_ms"]["ps.grad"] == pytest.approx(10 / 1e3)
+    rest = {n: v for n, v in _summary()["device_ms"].items()
+            if n != "ps.grad"}
+    assert {n: v for n, v in s["device_ms"].items()
+            if n not in ("ps.grad", "model.x")} == pytest.approx(rest)
+    assert s["unclaimed"] == _summary()["unclaimed"]
+
+
+def test_program_spans_are_named_by_prefix():
+    assert all(spans.is_span(n) for n, _, _ in STEP)
+    assert spans.is_span("model.attention")
+    assert not any(spans.is_span(n) for n in (
+        "aten::mm", "cudaLaunchKernel", "port_bench.traced", "psx"))
+
+
 def test_per_step_means_and_the_gaps_by_span():
     s = _summary(steps=2)
     assert s["host_ms"]["ps.step"] == pytest.approx(90 / 2 / 1e3)
@@ -78,16 +101,18 @@ def _event(name, a, b, device, corr=0, annotation=False):
         is_user_annotation=annotation)
 
 
-def _prof(with_spans: bool):
+def _prof(with_spans: bool, model_span: bool = False):
     ev = [_event("port_bench.traced", 0, 110, False, annotation=True),
           _event("port_bench.traced", 22, 104, True, annotation=True)]
     ev += [_event(n, a, b, False, c) for n, a, b, c in LAUNCHES + HOST_OPS]
     ev += [_event(n, a, b, True, c) for n, a, b, c in KERNELS]
+    step = STEP + [("model.x", 30, 45)] if model_span else STEP
     if with_spans:
-        ev += [_event(n, a, b, False, annotation=True) for n, a, b in STEP]
-        # Each span's shadow on the device's timeline.
-        ev += [_event(n, a + 12, b + 4, True, annotation=True)
-               for n, a, b in STEP]
+        ev += [_event(n, a, b, False, annotation=True) for n, a, b in step]
+        # Each span's shadow on the device's timeline, the model's not
+        # marked as an annotation: neither is device work.
+        ev += [_event(n, a + 12, b + 4, True, annotation=n != "model.x")
+               for n, a, b in step]
     return SimpleNamespace(events=lambda: ev)
 
 
@@ -96,6 +121,9 @@ def test_from_profiler_keys_hold_with_program_spans():
     after = trace.from_profiler(_prof(True), "port_bench.traced", 1)
     gaps = after.pop("idle_gaps")
     assert [g[1] for g in gaps] == [g[1] for g in before.pop("idle_gaps")]
+    # The spans ride in the profile (None where the program opened none).
+    assert before.pop("spans") is None
+    assert after.pop("spans") == _summary()
     assert after == before
     # A gap where only a span is open is named by it, not "host idle".
     assert ["ps.sync", pytest.approx(12e-6)] in gaps
@@ -104,6 +132,10 @@ def test_from_profiler_keys_hold_with_program_spans():
 def test_spans_from_profiler():
     s = spans.from_profiler(_prof(True), "port_bench.traced", 1)
     assert s == _summary()
+    m = spans.from_profiler(_prof(True, model_span=True),
+                            "port_bench.traced", 1)
+    assert m["device_ms"]["model.x"] == pytest.approx(20 / 1e3)
+    assert m["device_ms_all"] == pytest.approx(s["device_ms_all"])
     assert spans.from_profiler(_prof(False), "port_bench.traced", 1) is None
     assert spans.from_profiler(_prof(True), "elsewhere", 1) is None
 
@@ -115,3 +147,32 @@ def test_phases_coverage():
     assert cov["phase_device_share"] == pytest.approx(36 / 37)
     assert cov["phase_host_over_step"] == pytest.approx((38 + 10 + 20 + 18)
                                                         / 90)
+
+
+def test_span_and_counter_readers():
+    from port_bench import spec
+
+    rec = {"profile": {"spans": _summary()},
+           "step_metrics": {"sync_calls": 101.0}}
+    assert spec.reader("ps.grad.device_ms.lm")(rec) == pytest.approx(30e-3)
+    assert spec.reader("ps.update.host_ms.r18")(rec) == pytest.approx(18e-3)
+    assert spec.reader("ps.sync.calls.lm")(rec) == 101.0
+    for empty in ({"profile": None}, {"profile": {"spans": None}}):
+        assert spec.reader("ps.grad.host_ms.lm")(empty) is None
+        assert spec.reader("ps.sync.calls.r18")(empty) is None
+
+
+def test_spans_merge_over_ranks_as_categories_do():
+    from port_bench import run
+
+    one = {"busy_s": 1.0, "wall_s": 2.0, "category_ms": {"nccl": 1.0},
+           "spans": _summary()}
+    three = {"busy_s": 3.0, "wall_s": 2.0, "category_ms": {"gemm": 3.0},
+             "spans": {**_summary(), "host_ms": {"ps.grad": 0.114}}}
+    m = run._merge_profiles([one, three, None])
+    assert m["category_ms"] == {"nccl": 0.5, "gemm": 1.5}
+    assert m["spans"]["host_ms"]["ps.grad"] == pytest.approx(
+        (0.038 + 0.114) / 2)
+    assert m["spans"]["host_ms"]["ps.sync"] == pytest.approx(0.020 / 2)
+    assert m["spans"]["device_ms"] == pytest.approx(_summary()["device_ms"])
+    assert one["spans"] == _summary()   # the ranks' own are left as they were

@@ -119,8 +119,12 @@ def summarize(device_events, cpu_events, lo: float, hi: float,
 
 def from_profiler(prof, lo_name: str, steps: int) -> "dict | None":
     """`summarize` over a ``torch.profiler`` run whose stretch is the host
-    span named ``lo_name``; None if the profiler saw no device work."""
+    span named ``lo_name``, with the program's spans under ``"spans"``
+    (`spans.from_profiler`, None where the program opened none); None if
+    the profiler saw no device work."""
     from torch.autograd import DeviceType
+
+    from . import spans  # spans reads this module's gaps
 
     device, cpu, span = [], [], None
     for e in prof.events():
@@ -137,4 +141,6 @@ def from_profiler(prof, lo_name: str, steps: int) -> "dict | None":
             cpu.append((e.name, a, b))
     if not device or span is None:
         return None
-    return summarize(device, cpu, span[0], span[1], steps)
+    out = summarize(device, cpu, span[0], span[1], steps)
+    out["spans"] = spans.from_profiler(prof, lo_name, steps)
+    return out
